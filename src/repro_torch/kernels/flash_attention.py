@@ -1,0 +1,116 @@
+"""Flash attention forward: the CUDA kernel's wrapper and its plain version.
+
+Port of ``repro/kernels/flash_attention.py`` (the Pallas TPU kernel
+``flash_attention``).  The kernel itself is ``csrc/flash_attention.cu``;
+its header says what bounds it on the H100 and what its simple design
+leaves for later.
+
+Semantics, shared by the kernel and :func:`flash_attention_plain`:
+
+* q (B,S,H,D), k/v (B,T,Hkv,D) -> (B,S,H,D) in q's dtype (float32 or
+  bfloat16); softmax in float32; GQA groups of ``rep = H / Hkv``.
+* ``lengths`` (B,) marks each sequence's valid KEY prefix
+  (``k_pos < lengths[b]``); None means all T keys are valid.
+* ``causal`` adds ``k_pos <= q_pos`` at offset 0, as the TPU kernel does
+  (``repro_torch.kernels.ref.attention_ref`` instead aligns queries to the
+  last S keys; the two agree when S == T, the only causal case Marian
+  has).
+* Masked scores are -1e30, so a row with no valid key averages over all
+  T keys, as the TPU kernel does.  Callers clamp lengths to >= 1.
+* Ragged S and T need no padding: the kernel masks its tails, so the JAX
+  wrapper's pad-to-block copies have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128)     # head dims the kernel is compiled for
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_plain(q, k, v, lengths=None, *, causal: bool = True,
+                          scale: float | None = None):
+    """Plain PyTorch version of the kernel (materialized scores)."""
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, s, hkv, rep, d).float()
+    scores = torch.einsum("bsgrd,btgd->bgrst", qg, k.float()) * scale
+    k_pos = torch.arange(t, device=q.device)
+    if lengths is None:
+        valid = torch.ones((b, t), dtype=torch.bool, device=q.device)
+    else:
+        valid = k_pos[None, :] < lengths.to(q.device)[:, None]      # (B,T)
+    mask = valid[:, None, None, None, :]                             # (B,1,1,1,T)
+    if causal:
+        q_pos = torch.arange(s, device=q.device)
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])            # (B,1,1,S,T)
+    scores = scores.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrst,btgd->bsgrd", w, v.float())
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def _check_operands(tensors, dtype, device):
+    for name, x in tensors.items():
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, expected {device}")
+        if x.dtype != dtype:
+            raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
+        if x.stride(-1) != 1:
+            raise ValueError(f"{name} needs a contiguous last dimension")
+
+
+def _lengths_i32(lengths, b, device):
+    if lengths is None:
+        return None
+    if lengths.shape != (b,):
+        raise ValueError(f"lengths must have shape ({b},), "
+                         f"got {tuple(lengths.shape)}")
+    if lengths.device != device:
+        raise ValueError(f"lengths is on {lengths.device}, expected {device}")
+    return lengths.to(torch.int32).contiguous()
+
+
+def flash_attention_cuda(q, k, v, lengths=None, *, causal: bool = True,
+                         scale: float | None = None):
+    """Launch ``csrc/flash_attention.cu`` on PyTorch's current stream.
+
+    Takes CUDA tensors only and raises on anything the kernel does not
+    take; builds the kernel library at first use.
+    """
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_cuda needs CUDA tensors, "
+                         f"got {q.device}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"unsupported dtype {q.dtype}")
+    _check_operands({"q": q, "k": k, "v": v}, q.dtype, q.device)
+    b, s, h, d = q.shape
+    if k.ndim != 4 or k.shape != v.shape or k.shape[0] != b \
+            or k.shape[3] != d:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    t, hkv = k.shape[1], k.shape[2]
+    if h % hkv:
+        raise ValueError(f"{h} query heads are not a multiple of {hkv}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not compiled; have {HEAD_DIMS}")
+    lens = _lengths_i32(lengths, b, q.device)
+    scale = scale if scale is not None else d ** -0.5
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lib = _build.load_library()
+    rc = lib.repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if lens is None else lens.data_ptr(), out.data_ptr(),
+        b, s, t, h, hkv, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        ctypes.c_float(scale), int(causal), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_attention")
+    return out

@@ -1,0 +1,57 @@
+"""Public attention wrappers: the CUDA kernels on the card, their plain
+versions on the CPU.
+
+Port of ``repro/kernels/ops.py``, with the same argument layouts.  The
+device of the query tensor decides: a CPU tensor takes the kernel's
+plain PyTorch version; any other tensor goes to the kernel's wrapper,
+which launches on a CUDA tensor or raises.  Nothing falls back.
+
+Each wrapper counts its kernel launches in a plain integer attribute
+(``flash_attention.launches``, ``flash_decode.launches``), so a run can
+show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
+
+
+def flash_attention(q, k, v, lengths=None, *, causal: bool = True,
+                    scale: float | None = None):
+    """q (B,S,H,D); k/v (B,T,Hkv,D); lengths (B,) or None -> (B,S,H,D)."""
+    if q.device.type == "cpu":
+        return _fa.flash_attention_plain(q, k, v, lengths, causal=causal,
+                                         scale=scale)
+    out = _fa.flash_attention_cuda(q, k, v, lengths, causal=causal,
+                                   scale=scale)
+    flash_attention.launches += 1
+    return out
+
+
+def flash_decode(q, k_cache, v_cache, lengths, *, scale=None):
+    """q (B,H,D); caches (B,S,Hkv,D); lengths (B,) -> (B,H,D)."""
+    if q.device.type == "cpu":
+        return _da.flash_decode_plain(q, k_cache, v_cache, lengths,
+                                      scale=scale)
+    out = _da.flash_decode_cuda(q, k_cache, v_cache, lengths, scale=scale)
+    flash_decode.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+flash_decode.launches = 0
+_WRAPPERS = {"flash_attention": flash_attention,
+             "flash_decode": flash_decode}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _WRAPPERS.values():
+        fn.launches = 0

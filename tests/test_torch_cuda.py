@@ -1,0 +1,128 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Every test here carries the ``cuda`` marker and skips without a card
+(the check is made in a fixture, never at import).  On the machine with
+the card, run ``python -m pytest -m cuda tests/test_torch_cuda.py``.
+This file, unlike the other ``test_torch_*`` files, does not import JAX:
+it compares the port with itself (kernel vs plain version), and the
+card's machine carries no JAX.
+
+Tolerances: 2e-5 in float32 and 2e-2 in bfloat16, those of
+``tests/test_kernels.py``; 1e-4 for whole-model outputs, whose float32
+reductions run in another order through six layers.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch  # noqa: F401
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.nmt import MarianTransformer, TransformerConfig
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; run on the chip")
+    return torch.device("cuda")
+
+
+def _randn(seed, shape, dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+def _tol(dtype):
+    return 2e-2 if dtype == torch.bfloat16 else 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,hkv,d,causal,lens", [
+    (8, 40, 40, 8, 8, 64, False, (40, 1, 17, 33, 40, 2, 39, 40)),
+    (2, 512, 512, 8, 8, 64, False, (512, 301)),
+    (2, 64, 64, 8, 8, 64, True, None),
+    (1, 100, 100, 8, 2, 128, True, (77,)),      # GQA, ragged, causal
+    (3, 7, 130, 4, 4, 32, False, (130, 5, 64)),  # cross-attention shape
+    (1, 33, 33, 2, 1, 16, False, (0,)),         # fully masked row
+])
+def test_flash_attention_kernel_matches_plain(dev, dtype, b, s, t, h, hkv, d,
+                                              causal, lens):
+    q = _randn(1, (b, s, h, d), dev, dtype)
+    k = _randn(2, (b, t, hkv, d), dev, dtype)
+    v = _randn(3, (b, t, hkv, d), dev, dtype)
+    lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                     device=dev)
+    got = fa.flash_attention_cuda(q, k, v, lengths, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, lengths, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, s, h, d)
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,hkv,d,lens", [
+    (1, 256, 8, 8, 64, (37,)),
+    (8, 256, 8, 8, 64, (1, 37, 256, 100, 64, 65, 200, 255)),
+    (3, 100, 8, 2, 128, (100, 1, 50)),
+    (2, 70, 4, 4, 32, (0, 70)),
+])
+def test_flash_decode_kernel_matches_plain_on_folded_cache(dev, dtype, b, t,
+                                                            h, hkv, d, lens):
+    q = _randn(4, (b, h * d), dev, dtype).view(b, h, d)
+    kc = _randn(5, (b, t, hkv * d), dev, dtype).view(b, t, hkv, d)
+    vc = _randn(6, (b, t, hkv * d), dev, dtype).view(b, t, hkv, d)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = da.flash_decode_cuda(q, kc, vc, lengths)
+    want = da.flash_decode_plain(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+
+
+def test_wrappers_count_launches_and_reject_bad_operands(dev):
+    ops.reset_launch_counts()
+    q = _randn(7, (1, 16, 2, 64), dev, torch.float32)
+    ops.flash_attention(q, q, q, causal=True)
+    ops.flash_decode(q[:, 0], q, q, torch.tensor([16], dtype=torch.int32,
+                                                 device=dev))
+    assert ops.launch_counts() == {"flash_attention": 1, "flash_decode": 1}
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q.double(), q, causal=True)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[..., :8], q[..., :8], q[..., :8])   # head dim 8
+    with pytest.raises(ValueError):
+        ops.flash_decode(q[:, 0], q, q, torch.tensor([16], dtype=torch.int32))
+
+
+def test_marian_on_the_card_matches_the_cpu(dev):
+    cfg = TransformerConfig(vocab_src=500, vocab_tgt=500, d_model=128,
+                            heads=2, d_ff=256, enc_layers=2, dec_layers=2,
+                            max_decode_len=20, max_src_len=64)
+    gpu = MarianTransformer(cfg, device=dev, seed=1)
+    cpu = MarianTransformer(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(0)
+    src = rng.integers(4, 500, (3, 11)).astype(np.int32)
+    mask = np.ones(src.shape, np.float32)
+    mask[1, 6:] = 0.0
+    mask[2, 2:] = 0.0
+    with torch.inference_mode():
+        outs = []
+        for model, d in ((gpu, dev), (cpu, torch.device("cpu"))):
+            enc, m = model.encode(torch.as_tensor(src, device=d),
+                                  torch.as_tensor(mask, device=d))
+            state = model.init_cache(enc, m)
+            logits = []
+            for tok in (1, 17, 42, 99):
+                state, lg = model.decode_step(
+                    state, torch.full((3,), tok, dtype=torch.int32, device=d))
+                logits.append(lg)
+            outs.append((enc.cpu(), torch.stack(logits).cpu()))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
