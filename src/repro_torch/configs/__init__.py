@@ -1,0 +1,87 @@
+"""Architecture registry of the big-LM stack, with the smoke reductions.
+
+Port of ``repro/configs/__init__.py``.  ``get_config(name)`` returns the
+assigned configuration; ``smoke_config(name)`` the reduced same-family
+variant the CPU tests use, by the reference's exact rules (<=2 layers
+per group kind, d_model 256, vocab 512, narrower heads and states).
+
+This slice carries the two recurrent families, ``rwkv6-3b`` and
+``zamba2-1.2b``.  The other eight assigned names are known and raise
+``NotImplementedError``: the dense/MoE/MLA/encoder families come in a
+later slice of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from repro_torch.configs import rwkv6_3b, zamba2_1p2b
+from repro_torch.models.config import ModelConfig
+
+_MODULES = {
+    "rwkv6-3b": rwkv6_3b,
+    "zamba2-1.2b": zamba2_1p2b,
+}
+
+# every architecture the reference registry assigns, in its order
+ARCH_NAMES = ("rwkv6-3b", "whisper-large-v3", "moonshot-v1-16b-a3b",
+              "qwen3-moe-30b-a3b", "zamba2-1.2b", "qwen3-32b",
+              "deepseek-v3-671b", "deepseek-67b", "qwen3-8b", "chameleon-34b")
+PORTED = tuple(_MODULES)
+
+
+def _module(name: str):
+    if name in _MODULES:
+        return _MODULES[name]
+    if name in ARCH_NAMES:
+        raise NotImplementedError(
+            f"{name!r} is not ported yet: the dense, MoE, MLA and encoder "
+            "families come in a later slice of the port (ported: "
+            f"{', '.join(PORTED)})")
+    raise KeyError(f"unknown architecture {name!r}; have {ARCH_NAMES}")
+
+
+def get_config(name: str, shape: Optional[str] = None) -> ModelConfig:
+    """The assigned configuration.  ``shape="long_500k"`` asks for the
+    sliding-window long-decode variant, which needs the ring cache of a
+    later slice."""
+    mod = _module(name)
+    if shape == "long_500k" and hasattr(mod, "long_decode_variant"):
+        raise NotImplementedError(
+            "the long_500k sliding-window variant needs the ring KV cache, "
+            "not ported yet")
+    return mod.CONFIG.validate()
+
+
+def smoke_config(name: str) -> ModelConfig:
+    """Reduced same-family variant: <=2 layers per group kind, d_model
+    256, vocab 512 — the reference's reduction rules, rule for rule."""
+    cfg = _module(name).CONFIG
+    plan = []
+    seen_kinds = set()
+    for g in cfg.layer_plan:
+        key = (g.mixer, g.ffn)
+        if key in seen_kinds:
+            continue
+        seen_kinds.add(key)
+        plan.append(dataclasses.replace(g, count=min(g.count, 2)))
+    kw = dict(
+        name=cfg.name + "-smoke",
+        d_model=256,
+        vocab_size=512,
+        layer_plan=tuple(plan),
+        d_ff=max(1, min(cfg.d_ff, 512)) if cfg.d_ff else 0,
+        sliding_window=cfg.sliding_window and min(cfg.sliding_window, 8),
+    )
+    if cfg.num_heads:
+        kw.update(num_heads=4, num_kv_heads=max(1, 4 * cfg.num_kv_heads
+                                                // cfg.num_heads),
+                  head_dim=64)
+    if cfg.ssm:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, state_dim=16, head_dim=32,
+                                        chunk=8)
+    if cfg.rwkv:
+        kw["rwkv"] = dataclasses.replace(cfg.rwkv, head_dim=32,
+                                         decay_lora=16)
+    return dataclasses.replace(cfg, **kw).validate()

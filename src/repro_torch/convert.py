@@ -63,3 +63,47 @@ def marian_params_from_jax(tree) -> Dict[str, torch.Tensor]:
     sd["tgt_embed.weight"] = _t(tree["tgt_embed"])
     dense("out", tree["out"])
     return sd
+
+
+def _flatten(prefix: str, node, out: Dict[str, np.ndarray]) -> None:
+    if isinstance(node, dict):
+        for key, child in node.items():
+            _flatten(f"{prefix}.{key}" if prefix else str(key), child, out)
+    else:
+        out[prefix] = np.asarray(node)
+
+
+def lm_params_from_jax(tree, cfg) -> Dict[str, torch.Tensor]:
+    """State dict of :class:`repro_torch.models.model.LM` from the
+    reference ``LM.init`` pytree (numpy leaves).
+
+    Parameter names are the reference's tree paths.  Each group's tree is
+    stacked along a leading ``count`` axis (``jax.vmap`` over the layer
+    inits); it is cut into one entry per layer, ``groups.<g>.<layer>.*``.
+    ``shared_attn``, ``embed``, ``lm_head`` and ``final_norm`` carry across
+    as they are.  Every tensor is used as given (float32), never redrawn.
+    Load the result with ``model.load_state_dict(...)``.
+    """
+    unknown = set(tree) - {"embed", "final_norm", "lm_head", "groups",
+                           "shared_attn"}
+    if unknown:
+        raise NotImplementedError(
+            f"parameters {sorted(unknown)} belong to layers not ported yet")
+    if len(tree["groups"]) != len(cfg.layer_plan):
+        raise ValueError(f"{len(tree['groups'])} groups in the tree, "
+                         f"{len(cfg.layer_plan)} in the config")
+    flat: Dict[str, np.ndarray] = {}
+    for key in ("embed", "final_norm", "lm_head", "shared_attn"):
+        if key in tree:
+            _flatten(key, tree[key], flat)
+    for gi, (g, gtree) in enumerate(zip(cfg.layer_plan, tree["groups"])):
+        group: Dict[str, np.ndarray] = {}
+        _flatten("", gtree, group)
+        for name, stacked in group.items():
+            if stacked.shape[0] != g.count:
+                raise ValueError(f"group {gi} leaf {name} stacks "
+                                 f"{stacked.shape[0]} layers, expected "
+                                 f"{g.count}")
+            for li in range(g.count):
+                flat[f"groups.{gi}.{li}.{name}"] = stacked[li]
+    return {name: _t(a) for name, a in flat.items()}

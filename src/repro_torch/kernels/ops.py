@@ -1,4 +1,4 @@
-"""Public attention wrappers: the CUDA kernels on the card, their plain
+"""Public kernel wrappers: the CUDA kernels on the card, their plain
 versions on the CPU.
 
 Port of ``repro/kernels/ops.py``, with the same argument layouts.  The
@@ -7,8 +7,8 @@ plain PyTorch version; any other tensor goes to the kernel's wrapper,
 which launches on a CUDA tensor or raises.  Nothing falls back.
 
 Each wrapper counts its kernel launches in a plain integer attribute
-(``flash_attention.launches``, ``flash_decode.launches``), so a run can
-show that its main path went through the kernels.
+(``flash_attention.launches``, ``rwkv6_wkv.launches``, ...), so a run
+can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from typing import Dict
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rwkv6_wkv as _wkv
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def flash_attention(q, k, v, lengths=None, *, causal: bool = True,
@@ -41,10 +43,33 @@ def flash_decode(q, k_cache, v_cache, lengths, *, scale=None):
     return out
 
 
-flash_attention.launches = 0
-flash_decode.launches = 0
+def rwkv6_wkv(r, k, v, log_w, u, s0=None, *, chunk: int = 32):
+    """Chunked WKV6.  r/k/v/log_w (B,S,H,P), u (H,P), s0 (B,H,P,P) or None
+    -> (y (B,S,H,P), s_final (B,H,P,P) float32)."""
+    if r.device.type == "cpu":
+        return _wkv.rwkv6_wkv_plain(r, k, v, log_w, u, s0, chunk=chunk)
+    out = _wkv.rwkv6_wkv_cuda(r, k, v, log_w, u, s0, chunk=chunk)
+    rwkv6_wkv.launches += 1
+    return out
+
+
+def ssd_scan(x, dt, a_log, b_in, c_in, s0=None, *, chunk: int = 64):
+    """Chunked Mamba2 SSD.  x (B,S,H,P), dt (B,S,H), a_log (H,), b/c
+    (B,S,H,N), s0 (B,H,P,N) or None -> (y (B,S,H,P), s_final (B,H,P,N)
+    float32)."""
+    if x.device.type == "cpu":
+        return _ssd.ssd_scan_plain(x, dt, a_log, b_in, c_in, s0, chunk=chunk)
+    out = _ssd.ssd_scan_cuda(x, dt, a_log, b_in, c_in, s0, chunk=chunk)
+    ssd_scan.launches += 1
+    return out
+
+
 _WRAPPERS = {"flash_attention": flash_attention,
-             "flash_decode": flash_decode}
+             "flash_decode": flash_decode,
+             "rwkv6_wkv": rwkv6_wkv,
+             "ssd_scan": ssd_scan}
+for _fn in _WRAPPERS.values():
+    _fn.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,0 +1,135 @@
+"""Mamba2 SSD chunked scan: the CUDA kernel's wrapper and its plain version.
+
+Port of ``repro/kernels/ssd_scan.py`` (the Pallas TPU kernel
+``ssd_scan``).  The kernel itself is ``csrc/ssd_scan.cu``; its header
+says what bounds it on the H100 and what its simple design leaves for
+later.
+
+Semantics, shared by the kernel and :func:`ssd_scan_plain`:
+
+* x (B,S,H,P), dt (B,S,H) post-softplus, a_log (H,) with
+  A = -exp(a_log), b_in/c_in (B,S,H,N), s0 (B,H,P,N) or None (zero
+  state) -> (y (B,S,H,P) float32, s_final (B,H,P,N) float32);
+* the sequence is cut into S / chunk chunks (``S % chunk == 0``, as the
+  reference asserts).  The state is (P,N) at this API, as in the
+  reference's; the kernel keeps it (N,P) inside.
+* B/C may arrive expanded over the heads (a head stride of 0, one
+  group): the kernel reads them in place.
+* the prefix sums of the log decay are taken in float64 (the reference
+  takes them in float32): at a chunk of 128 with A down to -16 they reach
+  about -1400, where a float32 ulp of cum_t - cum_j is already the whole
+  3e-4 tolerance of the scores.  Everything else is float32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+DEFAULT_CHUNK = 64
+_SMEM_LIMIT = 232448     # bytes of shared memory one H100 block may use
+_SCORE_ROWS = 32         # score rows the kernel builds at a time
+
+
+def _smem_bytes(p: int, n: int, chunk: int) -> int:
+    """The kernel's dynamic shared memory (``smem_floats`` in the .cu)."""
+    floats = (n * p + chunk * p + chunk * (n + 1) + chunk * n
+              + _SCORE_ROWS * (chunk + 1) + 2 * chunk + 1)
+    return 4 * (floats + floats % 2) + 8 * chunk   # + float64 cum, aligned
+
+
+def _check_shapes(x, dt, a_log, b_in, c_in, s0, chunk):
+    bsz, s, h, p = x.shape
+    n = b_in.shape[-1]
+    if dt.shape != (bsz, s, h):
+        raise ValueError(f"dt must be ({bsz}, {s}, {h}), got {tuple(dt.shape)}")
+    if a_log.shape != (h,):
+        raise ValueError(f"a_log must be ({h},), got {tuple(a_log.shape)}")
+    for name, t in (("b_in", b_in), ("c_in", c_in)):
+        if t.shape != (bsz, s, h, n):
+            raise ValueError(f"{name} must be ({bsz}, {s}, {h}, {n}), "
+                             f"got {tuple(t.shape)}")
+    if s0 is not None and s0.shape != (bsz, h, p, n):
+        raise ValueError(f"s0 must be ({bsz}, {h}, {p}, {n}), "
+                         f"got {tuple(s0.shape)}")
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+
+
+def ssd_scan_plain(x, dt, a_log, b_in, c_in, s0=None, *,
+                   chunk: int = DEFAULT_CHUNK):
+    """Plain PyTorch version of the kernel: the same chunked algorithm
+    (the reference's ``_ssd_kernel``) in torch ops, batched over (B, H)."""
+    _check_shapes(x, dt, a_log, b_in, c_in, s0, chunk)
+    bsz, s, h, p = x.shape
+    n = b_in.shape[-1]
+    a = -torch.exp(a_log.float())
+    log_decay = (dt.float() * a).double()                      # (B,S,H)
+    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device) if s0 is None else s0.float())
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    ys = []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        xc, bc, cc = (t[:, sl].float() for t in (x, b_in, c_in))
+        dtc, ld = dt[:, sl].float(), log_decay[:, sl]           # (B,L,H)
+        cum = torch.cumsum(ld, dim=1)                           # float64
+        cb = torch.einsum("blhn,bmhn->bhlm", cc, bc)
+        seg = (cum[:, :, None, :] - cum[:, None, :, :]).permute(0, 3, 1, 2)
+        seg = torch.where(tri, seg.float(), torch.full((), float("-inf"),
+                                                       device=x.device))
+        scores = cb * torch.exp(seg) * dtc.permute(0, 2, 1)[:, :, None, :]
+        y = (torch.einsum("bhlm,bmhp->blhp", scores, xc)
+             + torch.einsum("blhn,bhpn,blh->blhp", cc, state,
+                            torch.exp(cum.float())))
+        wj = torch.exp((cum[:, -1:] - cum).float()) * dtc
+        hc = torch.einsum("blh,blhn,blhp->bhpn", wj, bc, xc)
+        state = state * torch.exp(cum[:, -1].float())[:, :, None, None] + hc
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(x.dtype), state
+
+
+def ssd_scan_cuda(x, dt, a_log, b_in, c_in, s0=None, *,
+                  chunk: int = DEFAULT_CHUNK):
+    """Launch ``csrc/ssd_scan.cu`` on PyTorch's current stream.
+
+    Takes float32 CUDA tensors only and raises on anything the kernel
+    does not take; (B,S,H,·) inputs are read through their strides.
+    Builds the kernel library at first use.
+    """
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_cuda needs CUDA tensors, got {x.device}")
+    _check_shapes(x, dt, a_log, b_in, c_in, s0, chunk)
+    bsz, s, h, p = x.shape
+    n = b_in.shape[-1]
+    if _smem_bytes(p, n, chunk) > _SMEM_LIMIT:
+        raise ValueError(f"P={p} N={n} chunk={chunk} needs "
+                         f"{_smem_bytes(p, n, chunk)} bytes of shared memory "
+                         f"(> {_SMEM_LIMIT})")
+    named = {"x": x, "dt": dt, "a_log": a_log, "b_in": b_in, "c_in": c_in}
+    if s0 is not None:
+        named["s0"] = s0
+    for name, t in named.items():
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, expected {x.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} has dtype {t.dtype}, expected float32")
+    for name in ("x", "b_in", "c_in"):
+        if named[name].stride(-1) != 1:
+            raise ValueError(f"{name} needs a contiguous last dimension")
+    a_log = a_log.contiguous()
+    s0 = None if s0 is None else s0.contiguous()
+    y = torch.empty((bsz, s, h, p), dtype=torch.float32, device=x.device)
+    s_out = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    lib = _build.load_library()
+    rc = lib.repro_ssd_scan(
+        x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b_in.data_ptr(),
+        c_in.data_ptr(), None if s0 is None else s0.data_ptr(), y.data_ptr(),
+        s_out.data_ptr(), bsz, s, h, p, n, chunk,
+        *x.stride()[:3], *dt.stride(), *b_in.stride()[:3],
+        *c_in.stride()[:3], *y.stride()[:3],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "ssd_scan")
+    return y, s_out

@@ -1,0 +1,82 @@
+"""Grouped-query attention for the big-LM stack: full-sequence and
+one-token decode against a preallocated KV cache.
+
+Port of the GQA part of ``repro/models/layers/attention.py``.  Prefill
+runs :func:`repro_torch.kernels.ops.flash_attention` with the causal
+mask at offset 0; the reference's ``blocked_sdpa`` aligns the queries to
+the last S keys, which is the same mask when S == T, as in prefill.
+Decode writes K/V in place at slot ``pos`` (slot == position) and runs
+:func:`repro_torch.kernels.ops.flash_decode` over ``lengths = pos + 1``,
+the reference's mask ``idx <= pos``.
+
+Sliding windows (the ring cache), qk-norm, MLA and cross-attention are
+not ported yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers.basic import Linear, apply_rope
+
+
+def check_supported(cfg: ModelConfig, cross: bool = False) -> None:
+    if cfg.qk_norm:
+        raise NotImplementedError("qk-norm attention is not ported yet")
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(
+            "sliding-window attention (the ring cache) is not ported yet")
+    if cross:
+        raise NotImplementedError("cross-attention is not ported yet")
+
+
+class GQA(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device, generator):
+        super().__init__()
+        check_supported(cfg)
+        d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+            cfg.head_dim
+        mk = lambda a, b: Linear(a, b, device=device, generator=generator)
+        self.q, self.k = mk(d, h * dh), mk(d, hkv * dh)
+        self.v, self.o = mk(d, hkv * dh), mk(h * dh, d)
+
+
+def _qkv(p: GQA, cfg: ModelConfig, x, positions):
+    b, s, _ = x.shape
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = p.q(x).view(b, s, h, dh)
+    k = p.k(x).view(b, s, hkv, dh)
+    v = p.v(x).view(b, s, hkv, dh)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def attn_full(p: GQA, cfg: ModelConfig, x, *, window: Optional[int] = None):
+    """Causal self-attention over a full sequence (prefill).  Returns
+    (y (B,S,D), (k, v)) with k/v (B,S,Hkv,Dh), k after RoPE."""
+    if window is not None:
+        raise NotImplementedError("sliding-window attention is not ported")
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    q, k, v = _qkv(p, cfg, x, positions)
+    y = ops.flash_attention(q, k, v, causal=True)
+    return p.o(y.reshape(b, s, -1)), (k, v)
+
+
+def attn_decode(p: GQA, cfg: ModelConfig, x, cache_k, cache_v, pos):
+    """One token per sequence against the cache.  x (B,1,D); cache_k/v
+    (B,S_max,Hkv,Dh), written in place at slot ``pos`` (B,), the absolute
+    position that also drives RoPE."""
+    b = x.shape[0]
+    q, k, v = _qkv(p, cfg, x, pos[:, None])
+    rows = torch.arange(b, device=x.device)
+    cache_k[rows, pos.long()] = k[:, 0]
+    cache_v[rows, pos.long()] = v[:, 0]
+    y = ops.flash_decode(q[:, 0], cache_k, cache_v,
+                         (pos + 1).to(torch.int32))
+    return p.o(y.reshape(b, 1, -1))

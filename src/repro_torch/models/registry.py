@@ -1,15 +1,21 @@
-"""Model registry: the paper's NMT pairs by name.
+"""One model registry: the paper's NMT pairs and big-stack LMs by name.
 
-Port of the NMT half of ``repro/models/registry.py``, with the same
-name normalization and scale rules:
+Port of ``repro/models/registry.py``, with the same name normalization
+and scale rules:
 
 * ``"cnmt:en-zh"`` / ``"cnmt:zh-en"`` / bare ``"en-zh"`` — the paper's
   evaluated NMT combination for that language pair (§III); direction is
-  normalized, so both orders name the same registered model.
-* ``scale`` shrinks widths and layers (``scale=1`` is the paper's size).
+  normalized, so both orders name the same registered model.  ``scale``
+  shrinks widths and layers (``scale=1`` is the paper's size).
+* ``"rwkv6-3b"`` / ``"rwkv6_3b"`` / ``"zamba2-1.2b"`` — a big
+  :class:`~repro_torch.models.model.LM` from ``repro_torch.configs``;
+  underscores normalize to hyphens.  ``size="smoke"`` (default) builds
+  the reduced CPU variant, ``size="full"`` the assigned configuration.
 
-This slice builds the Marian transformer only.  ``"cnmt:de-en"`` (BiLSTM)
-and ``"cnmt:fr-en"`` (GRU) and the big-LM names raise
+Unlike the reference, :func:`resolve` returns the model with its weights
+already drawn (from ``seed``, on ``device``).  This slice builds the
+Marian transformer and the two recurrent LMs.  ``"cnmt:de-en"`` (BiLSTM),
+``"cnmt:fr-en"`` (GRU) and the other eight LM names raise
 ``NotImplementedError`` until their slices land.
 """
 
@@ -22,10 +28,9 @@ from repro_torch.nmt.common import TransformerConfig
 from repro_torch.nmt.registry import PAPER_MODELS
 from repro_torch.nmt.transformer import MarianTransformer
 
-# the big-LM architectures the reference registry resolves
-LM_NAMES = ("rwkv6-3b", "whisper-large-v3", "moonshot-v1-16b-a3b",
-            "qwen3-moe-30b-a3b", "zamba2-1.2b", "qwen3-32b",
-            "deepseek-v3-671b", "deepseek-67b", "qwen3-8b", "chameleon-34b")
+# repro_torch.configs and models.model are imported where they are used:
+# repro_torch.configs imports repro_torch.models.config, so a module-level
+# import here would be circular through the repro_torch.models package.
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,10 +38,10 @@ class ResolvedModel:
     """What :func:`resolve` hands back: the instantiated model (weights
     drawn from ``seed``) plus enough metadata to route it."""
     name: str                 # canonical registry name
-    family: str               # "nmt"
-    model: object             # MarianTransformer
+    family: str               # "nmt" | "lm"
+    model: object             # MarianTransformer or LM
     cfg: object               # its config object
-    pair: Optional[str] = None   # language pair
+    pair: Optional[str] = None   # language pair (nmt only)
 
 
 def _normalize_pair(pair: str) -> str:
@@ -76,16 +81,25 @@ def nmt_config(dataset: str, *, scale: float = 1.0, vocab: int = 8000,
 
 def available() -> Tuple[str, ...]:
     """Canonical names this registry resolves."""
+    from repro_torch.configs import PORTED
     return tuple(f"cnmt:{p}" for p, (fam, _, _) in PAPER_MODELS.items()
-                 if fam == "marian")
+                 if fam == "marian") + PORTED
 
 
-def resolve(name: str, *, scale: float = 1.0, vocab: int = 8000,
-            max_decode_len: int = 256, device=None,
-            seed: int = 0) -> ResolvedModel:
+def resolve(name: str, *, size: str = "smoke",
+            # NMT knobs (ignored for LM names)
+            scale: float = 1.0, vocab: int = 8000, max_decode_len: int = 256,
+            device=None, seed: int = 0) -> ResolvedModel:
     """Resolve a model name to an instantiated model on ``device``
     (``cuda`` unless the caller asks for ``"cpu"``), its weights drawn
-    from a ``torch.Generator`` seeded with ``seed``."""
+    from a ``torch.Generator`` seeded with ``seed``.  For LM names
+    ``size`` picks ``smoke_config`` ("smoke") or ``get_config``
+    ("full")."""
+    from repro_torch.configs import ARCH_NAMES, get_config, smoke_config
+    from repro_torch.models.model import LM
+
+    if size not in ("smoke", "full"):
+        raise ValueError(f"size must be 'smoke' or 'full', got {size!r}")
     key = name.strip()
     if key.startswith("cnmt:") or key in PAPER_MODELS or (
             "-".join(reversed(key.split("-"))) in PAPER_MODELS):
@@ -95,9 +109,10 @@ def resolve(name: str, *, scale: float = 1.0, vocab: int = 8000,
         model = MarianTransformer(cfg, device=device, seed=seed)
         return ResolvedModel(name=f"cnmt:{pair}", family="nmt",
                              model=model, cfg=cfg, pair=pair)
-    if key.replace("_", "-") in LM_NAMES:
-        raise NotImplementedError(
-            f"{name!r} is a big-LM tier; the LM stack is ported in a later "
-            "slice")
+    arch = key.replace("_", "-")
+    if arch in ARCH_NAMES:
+        cfg = smoke_config(arch) if size == "smoke" else get_config(arch)
+        return ResolvedModel(name=arch, family="lm",
+                             model=LM(cfg, device=device, seed=seed), cfg=cfg)
     raise KeyError(
         f"unknown model {name!r}; available: {', '.join(available())}")

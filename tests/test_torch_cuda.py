@@ -7,9 +7,10 @@ This file, unlike the other ``test_torch_*`` files, does not import JAX:
 it compares the port with itself (kernel vs plain version), and the
 card's machine carries no JAX.
 
-Tolerances: 2e-5 in float32 and 2e-2 in bfloat16, those of
+Tolerances: 2e-5 in float32 and 2e-2 in bfloat16 for the attention
+kernels, 2e-4 for ``rwkv6_wkv`` and 3e-4 for ``ssd_scan``, those of
 ``tests/test_kernels.py``; 1e-4 for whole-model outputs, whose float32
-reductions run in another order through six layers.
+reductions run in another order through every layer.
 """
 
 import numpy as np
@@ -20,6 +21,8 @@ import repro_torch  # noqa: F401
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import rwkv6_wkv as wkv
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.nmt import MarianTransformer, TransformerConfig
 
 pytestmark = pytest.mark.cuda
@@ -91,7 +94,8 @@ def test_wrappers_count_launches_and_reject_bad_operands(dev):
     ops.flash_attention(q, q, q, causal=True)
     ops.flash_decode(q[:, 0], q, q, torch.tensor([16], dtype=torch.int32,
                                                  device=dev))
-    assert ops.launch_counts() == {"flash_attention": 1, "flash_decode": 1}
+    assert ops.launch_counts() == {"flash_attention": 1, "flash_decode": 1,
+                                   "rwkv6_wkv": 0, "ssd_scan": 0}
     with pytest.raises(ValueError):
         ops.flash_attention(q, q.double(), q, causal=True)
     with pytest.raises(ValueError):
@@ -126,3 +130,98 @@ def test_marian_on_the_card_matches_the_cpu(dev):
             outs.append((enc.cpu(), torch.stack(logits).cpu()))
     for a, b in zip(*outs):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# rwkv6-3b's 40 heads of 64 and zamba2-1.2b's 64 heads of P = N = 64, at
+# the chunk lengths prefill meets: a prime prompt (L = 1), an odd divisor,
+# and the largest chunk
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("b,s,h,p,chunk", [
+    (1, 37, 40, 64, 1),
+    (2, 49, 40, 64, 7),
+    (1, 64, 40, 64, 32),
+    (2, 96, 3, 16, 32),
+])
+def test_rwkv6_wkv_kernel_matches_plain(dev, with_s0, b, s, h, p, chunk):
+    # r, k, v read as strided head views of one fused (B, S, 3D) projection
+    rkv = _randn(8, (b, s, 3 * h * p), dev, torch.float32)
+    r, k, v = (rkv[..., i * h * p:(i + 1) * h * p].view(b, s, h, p)
+               for i in range(3))
+    log_w = -torch.clamp(torch.exp(_randn(9, (b, s, h, p), dev,
+                                          torch.float32)), 1e-4, 2.5)
+    u = 0.5 * _randn(10, (h, p), dev, torch.float32)
+    s0 = _randn(11, (b, h, p, p), dev, torch.float32) if with_s0 else None
+    got = wkv.rwkv6_wkv_cuda(r, k, v, log_w, u, s0, chunk=chunk)
+    want = wkv.rwkv6_wkv_plain(r, k, v, log_w, u, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n,chunk,shared_bc", [
+    (1, 37, 64, 64, 64, 1, True),
+    (2, 128, 64, 64, 64, 64, True),
+    (1, 256, 64, 64, 64, 128, True),
+    (2, 192, 3, 16, 8, 64, False),
+])
+def test_ssd_scan_kernel_matches_plain(dev, with_s0, b, s, h, p, n, chunk,
+                                       shared_bc):
+    x = _randn(12, (b, s, h * p), dev, torch.float32).view(b, s, h, p)
+    dt = torch.nn.functional.softplus(_randn(13, (b, s, h), dev,
+                                             torch.float32))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+    if shared_bc:   # one B/C group expanded over the heads (stride 0)
+        bc = _randn(14, (b, s, 2 * n), dev, torch.float32)
+        b_in = bc[..., None, :n].expand(b, s, h, n)
+        c_in = bc[..., None, n:].expand(b, s, h, n)
+    else:
+        b_in = _randn(14, (b, s, h, n), dev, torch.float32)
+        c_in = _randn(15, (b, s, h, n), dev, torch.float32)
+    s0 = _randn(16, (b, h, p, n), dev, torch.float32) if with_s0 else None
+    got = ssd.ssd_scan_cuda(x, dt, a_log, b_in, c_in, s0, chunk=chunk)
+    want = ssd.ssd_scan_plain(x, dt, a_log, b_in, c_in, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-4)
+
+
+def test_scan_wrappers_count_launches_and_reject_bad_operands(dev):
+    ops.reset_launch_counts()
+    r = _randn(17, (1, 8, 2, 16), dev, torch.float32)
+    u = torch.zeros((2, 16), device=dev)
+    ops.rwkv6_wkv(r, r, r, -r.abs(), u, chunk=8)
+    dt = torch.ones((1, 8, 2), device=dev)
+    ops.ssd_scan(r, dt, torch.zeros(2, device=dev), r, r, chunk=4)
+    counts = ops.launch_counts()
+    assert (counts["rwkv6_wkv"], counts["ssd_scan"]) == (1, 1)
+    with pytest.raises(ValueError):          # past the float32 exp limit
+        ops.rwkv6_wkv(r.repeat(1, 8, 1, 1), r.repeat(1, 8, 1, 1),
+                      r.repeat(1, 8, 1, 1), -r.abs().repeat(1, 8, 1, 1), u,
+                      chunk=64)
+    with pytest.raises(ValueError):          # chunk does not divide S
+        ops.ssd_scan(r, dt, torch.zeros(2, device=dev), r, r, chunk=3)
+    with pytest.raises(ValueError):          # float64 operands
+        ops.rwkv6_wkv(r.double(), r.double(), r.double(), r.double(),
+                      u.double(), chunk=8)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b"])
+def test_smoke_lm_on_the_card_matches_the_cpu(dev, arch):
+    from repro_torch.models.registry import resolve
+    gpu = resolve(arch, device=dev, seed=2).model
+    cpu = resolve(arch, device="cpu").model
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    toks = np.random.default_rng(1).integers(4, 512, (2, 37)).astype(np.int32)
+    outs = []
+    with torch.inference_mode():
+        for model, d in ((gpu, dev), (cpu, torch.device("cpu"))):
+            logits, state = model.prefill(torch.as_tensor(toks, device=d),
+                                          max_len=48)
+            seq = [logits]
+            for tok in (5, 17, 42, 99):
+                logits, state = model.decode_step(state, torch.full(
+                    (2, 1), tok, dtype=torch.int32, device=d))
+                seq.append(logits)
+            outs.append(torch.stack(seq).cpu())
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)

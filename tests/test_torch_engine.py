@@ -209,4 +209,5 @@ def test_real_marian_tier_serves_the_same_translations():
         assert mt == mj
         np.testing.assert_array_equal(tt, tj)
     # the CPU path ran the plain attention, never a kernel
-    assert tops.launch_counts() == {"flash_attention": 0, "flash_decode": 0}
+    assert tops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
+                                    "rwkv6_wkv": 0, "ssd_scan": 0}

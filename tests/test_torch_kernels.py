@@ -190,7 +190,8 @@ def test_cpu_path_takes_plain_versions_and_launches_nothing():
     q = torch.from_numpy(_randn(71, (1, 8, 2, 16)))
     tops.flash_attention(q, q, q, causal=False)
     tops.flash_decode(q[:, 0], q, q, torch.tensor([8], dtype=torch.int32))
-    assert tops.launch_counts() == {"flash_attention": 0, "flash_decode": 0}
+    assert tops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
+                                    "rwkv6_wkv": 0, "ssd_scan": 0}
 
 
 def test_non_cpu_tensor_never_takes_the_plain_path():
@@ -202,7 +203,8 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
         tops.flash_attention(q, q, q, lens, causal=False)
     with pytest.raises(ValueError, match="CUDA"):
         tops.flash_decode(q[:, 0], q, q, lens)
-    assert tops.launch_counts() == {"flash_attention": 0, "flash_decode": 0}
+    assert tops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
+                                    "rwkv6_wkv": 0, "ssd_scan": 0}
 
 
 def test_cuda_wrappers_reject_cpu_tensors():

@@ -218,7 +218,8 @@ def test_cpu_translate_launches_no_kernel():
     _, _, tm = _models()
     tops.reset_launch_counts()
     tm.make_translate_batched()(np.ones((2, 4), np.int32), forced_len=3)
-    assert tops.launch_counts() == {"flash_attention": 0, "flash_decode": 0}
+    assert tops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
+                                    "rwkv6_wkv": 0, "ssd_scan": 0}
 
 
 # ---------------------------------------------------------------- registry --
@@ -238,7 +239,7 @@ def test_registry_scale_rules_match_jax(scale):
 
 
 @pytest.mark.parametrize("name", ["cnmt:de-en", "en-de", "cnmt:fr-en",
-                                  "qwen3_8b", "rwkv6-3b"])
+                                  "qwen3_8b", "whisper-large-v3"])
 def test_registry_later_slices_raise_not_implemented(name):
     with pytest.raises(NotImplementedError):
         t_resolve(name, device="cpu")
