@@ -15,7 +15,11 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    zamba2's 32 (float32 within 2e-5, bfloat16 within 2e-2), ``rwkv6_wkv``
    at rwkv6-3b's 40 heads of 64 (within 2e-4) and ``ssd_scan`` at
    zamba2's 64 heads of P = N = 64 (within 3e-4), at the chunk lengths
-   prefill meets, with and without an initial state;
+   prefill meets, with and without an initial state; then the attention
+   kernels' edge cases: a 2048-slot cache cut into many splits, GQA,
+   length 0 in a batch, every query tile on ragged shapes (head dims 16,
+   32, 64, 128, causal with S != T), a captured ``flash_decode`` replayed
+   after ``lengths`` changed on the device, and bitwise repeatability;
 4. builds the paper's Marian en-zh model at full width
    (``resolve("cnmt:en-zh", scale=1.0)``, random weights from a seed) and
    holds its encoder output and four decode-step logits against the same
@@ -26,9 +30,11 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    and a modelled cloud tier behind a replayed RTT trace, submits 16
    requests and one concurrent slot of 8, and checks that both attention
    kernels launched;
-6. times each kernel (CUDA events over a CUDA graph) beside its bound, its
-   plain version and, where one PyTorch call computes the same function,
-   that call, and the tokens/s and peak memory of one batch-8 translate;
+6. times each kernel (CUDA events over a CUDA graph) beside its bound
+   (float32 FLOP at 3 x TF32's 165 TFLOP/s), its plain version and, where
+   one PyTorch call computes the same function, that call; the tokens/s
+   and peak memory of one batch-8 translate; and Marian's decode step,
+   eager and from a CUDA graph, with ``flash_decode``'s share of it;
 7. builds rwkv6-3b at full width (``resolve("rwkv6-3b", size="full")``,
    random weights from a seed), holds its prefill and four decode-step
    logits against the same model on the plain kernels (within 1e-4), runs
@@ -64,10 +70,13 @@ import torch  # noqa: E402
 
 F32_TOL, BF16_TOL, MODEL_TOL = 2e-5, 2e-2, 1e-4
 WKV_TOL, SSD_TOL = 2e-4, 3e-4    # tests/test_kernels.py's rwkv6 / ssd limits
-# NVIDIA H100 SXM data sheet (dense): HBM3 bandwidth, float32 on the CUDA
-# cores, bf16 on the tensor cores
+# NVIDIA H100 SXM data sheet (dense): HBM3 bandwidth and tensor-core
+# rates.  Float32 FLOP are bounded as float32-accurate tensor-core products,
+# 3 x TF32 at 495 TFLOP/s = 165 TFLOP/s (the attention kernels run them so;
+# the CUDA cores' 67 TFLOP/s would let a kernel read above its bound)
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+F32_PEAK_NOTE = "float32 as 3xTF32 at 165 TFLOP/s"
 H, DH, D = 8, 64, 512           # Marian en-zh: 8 heads of 64
 MAX_DECODE = 256
 WKV_H, WKV_P = 40, 64           # rwkv6-3b: 40 heads of 64
@@ -93,6 +102,13 @@ def randn(gen, shape, dtype=torch.float32):
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def within(what: str, got, want, tol: float) -> None:
+    err = max_err(got, want)
+    log(f"  {what}: max_abs_err={err:.3e}")
+    if not (err <= tol and torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{what}: error {err} > {tol}")
 
 
 def eager_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -152,12 +168,9 @@ def check_kernels(fa, da, gen):
             for length in (1, 37, 256):
                 lens = torch.full((b,), length, dtype=torch.int32,
                                   device="cuda")
-                err = max_err(da.flash_decode_cuda(q, *kv, lens),
-                              da.flash_decode_plain(q, *kv, lens))
-                log(f"  flash_decode {name} B={b} T=256 self len={length}: "
-                    f"max_abs_err={err:.3e}")
-                if not err <= tol:
-                    raise AssertionError(f"flash_decode error {err} > {tol}")
+                within(f"flash_decode {name} B={b} T=256 self len={length}",
+                       da.flash_decode_cuda(q, *kv, lens),
+                       da.flash_decode_plain(q, *kv, lens), tol)
                 cases += 1
             # cross-attention: encoder K/V of a ragged source batch
             src = 40
@@ -165,12 +178,9 @@ def check_kernels(fa, da, gen):
             xv = randn(gen, (b, src, D), dtype).view(b, src, H, DH)
             lens = torch.tensor([40, 3, 17, 1, 39, 22, 8, 40][:b],
                                 dtype=torch.int32, device="cuda")
-            err = max_err(da.flash_decode_cuda(q, xk, xv, lens),
-                          da.flash_decode_plain(q, xk, xv, lens))
-            log(f"  flash_decode {name} B={b} S_src=40 cross ragged: "
-                f"max_abs_err={err:.3e}")
-            if not err <= tol:
-                raise AssertionError(f"flash_decode error {err} > {tol}")
+            within(f"flash_decode {name} B={b} S_src=40 cross ragged",
+                   da.flash_decode_cuda(q, xk, xv, lens),
+                   da.flash_decode_plain(q, xk, xv, lens), tol)
             cases += 1
         for s, causal in ((40, False), (128, False), (512, False), (64, True)):
             b = 2 if causal else 8
@@ -179,38 +189,94 @@ def check_kernels(fa, da, gen):
             lens = None if causal else torch.tensor(
                 [s, s - 1, s // 2, 1, s // 3 + 1, s, 7, s - 5][:b],
                 dtype=torch.int32, device="cuda")
-            err = max_err(fa.flash_attention_cuda(q, k, v, lens,
-                                                  causal=causal),
-                          fa.flash_attention_plain(q, k, v, lens,
-                                                   causal=causal))
-            log(f"  flash_attention {name} B={b} S=T={s} "
-                f"{'causal' if causal else 'ragged'}: max_abs_err={err:.3e}")
-            if not err <= tol:
-                raise AssertionError(f"flash_attention error {err} > {tol}")
+            within(f"flash_attention {name} B={b} S=T={s} "
+                   f"{'causal' if causal else 'ragged'}",
+                   fa.flash_attention_cuda(q, k, v, lens, causal=causal),
+                   fa.flash_attention_plain(q, k, v, lens, causal=causal),
+                   tol)
             cases += 1
         # zamba2's shared attention: causal prefill at serving lengths and
         # decode against a max_len=64 cache
         for b, s in ((1, 37), (8, 64)):
             q, k, v = (randn(gen, (b, s, ZA_H * DH), dtype).view(
                 b, s, ZA_H, DH) for _ in range(3))
-            err = max_err(fa.flash_attention_cuda(q, k, v, causal=True),
-                          fa.flash_attention_plain(q, k, v, causal=True))
-            log(f"  flash_attention {name} B={b} S=T={s} H={ZA_H} causal: "
-                f"max_abs_err={err:.3e}")
-            if not err <= tol:
-                raise AssertionError(f"flash_attention error {err} > {tol}")
+            within(f"flash_attention {name} B={b} S=T={s} H={ZA_H} causal",
+                   fa.flash_attention_cuda(q, k, v, causal=True),
+                   fa.flash_attention_plain(q, k, v, causal=True), tol)
             lens = torch.tensor([s, 1, 40, 17, 64, 33, 2, 50][:b],
                                 dtype=torch.int32, device="cuda")
             kc, vc = (randn(gen, (b, 64, ZA_H, DH), dtype) for _ in range(2))
-            err = max_err(da.flash_decode_cuda(q[:, 0], kc, vc, lens),
-                          da.flash_decode_plain(q[:, 0], kc, vc, lens))
-            log(f"  flash_decode {name} B={b} T=64 H={ZA_H}: "
-                f"max_abs_err={err:.3e}")
-            if not err <= tol:
-                raise AssertionError(f"flash_decode error {err} > {tol}")
+            within(f"flash_decode {name} B={b} T=64 H={ZA_H}",
+                   da.flash_decode_cuda(q[:, 0], kc, vc, lens),
+                   da.flash_decode_plain(q[:, 0], kc, vc, lens), tol)
             cases += 2
     torch.cuda.synchronize()
-    return cases
+    return cases + check_tile_cases(fa, da, gen)
+
+
+def check_tile_cases(fa, da, gen):
+    """The redesign's edge cases: long caches cut into many (mostly empty)
+    splits, GQA, length 0 in a batch, every query tile on ragged shapes,
+    and a captured decode replayed after ``lengths`` changed on the
+    device (the split plan reads nothing from the device)."""
+    cases = 0
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        for b, t, h, hkv, lens in ((1, 2048, 8, 8, (1,)),
+                                   (1, 2048, 8, 8, (33,)),
+                                   (1, 2048, 8, 8, (2047,)),
+                                   (2, 256, 32, 8, (200, 17)),
+                                   (3, 256, 8, 8, (0, 100, 256))):
+            q = randn(gen, (b, h, DH), dtype)
+            kc, vc = (randn(gen, (b, t, hkv, DH), dtype) for _ in range(2))
+            lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            within(f"flash_decode {name} B={b} T={t} H={h} Hkv={hkv} "
+                   f"lens={lens} splits={da.decode_splits(b, hkv, t)[0]}",
+                   da.flash_decode_cuda(q, kc, vc, lt),
+                   da.flash_decode_plain(q, kc, vc, lt), tol)
+            cases += 1
+        for bq in fa.BLOCK_Q:
+            for b, s, t, h, hkv, d, causal in ((2, 77, 77, 4, 4, 16, False),
+                                               (2, 53, 91, 4, 2, 32, False),
+                                               (1, 45, 45, 2, 2, 128, True),
+                                               (1, 37, 70, 4, 4, 64, True),
+                                               (2, 100, 29, 6, 2, 64, True)):
+                q = randn(gen, (b, s, h, d), dtype)
+                k, v = (randn(gen, (b, t, hkv, d), dtype) for _ in range(2))
+                lens = torch.tensor([t, max(1, t // 3)][:b],
+                                    dtype=torch.int32, device="cuda")
+                within(f"flash_attention {name} block_q={bq} B={b} S={s} "
+                       f"T={t} H={h} Hkv={hkv} D={d} causal={causal}",
+                       fa.flash_attention_cuda(q, k, v, lens, causal=causal,
+                                               block_q=bq),
+                       fa.flash_attention_plain(q, k, v, lens,
+                                                causal=causal), tol)
+                cases += 1
+    # graph replay: capture once, change lengths in place, replay
+    q = randn(gen, (2, H, DH))
+    kc, vc = (randn(gen, (2, 512, H, DH)) for _ in range(2))
+    lens = torch.tensor([5, 300], dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.flash_decode_cuda(q, kc, vc, lens)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.flash_decode_cuda(q, kc, vc, lens)
+    for new in ((5, 300), (511, 1), (0, 64)):
+        lens.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        within(f"flash_decode graph replay, lengths set to {new} on the "
+               f"device", out, da.flash_decode_plain(q, kc, vc, lens), F32_TOL)
+        cases += 1
+    # two calls on the same inputs give the same bits
+    first = da.flash_decode_cuda(q, kc, vc, lens)
+    if not torch.equal(first, da.flash_decode_cuda(q, kc, vc, lens)):
+        raise AssertionError("flash_decode is not bitwise repeatable")
+    torch.cuda.synchronize()
+    return cases + 1
 
 
 def wkv_inputs(gen, b, s, with_s0=False):
@@ -448,6 +514,7 @@ def decode_case(da, gen, b, length):
     row["library_err"] = max_err(da.flash_decode_cuda(q, kc, vc, lens),
                                  sdpa(qs, ks, vs, attn_mask=keymask)[:, :, 0])
     row["shape"] = f"B={b} H={H} dh={DH} T={MAX_DECODE} len={length} f32"
+    row["batch"] = b
     return row
 
 
@@ -569,9 +636,11 @@ def timings(gen):
                if r["library_ms"] is None else
                f"sdpa {r['library_ms']:.5f}ms (kernel vs sdpa "
                f"{r['library_err']:.2e})")
+        by = r["bound_by"] + (f" ({F32_PEAK_NOTE})"
+                              if r["bound_by"] == "operations" else "")
         log(f"  {name} {r['shape']}: device {r['ms']:.5f}ms, eager "
-            f"{r['eager_ms']:.5f}ms, bound {r['bound_ms']:.5f}ms by "
-            f"{r['bound_by']}, plain {r['plain_ms']:.5f}ms, {lib} "
+            f"{r['eager_ms']:.5f}ms, bound {r['bound_ms']:.5f}ms by {by}, "
+            f"plain {r['plain_ms']:.5f}ms, {lib} "
             f"(kernel vs plain {r['max_abs_err']:.2e})")
     rows, seen = [], set()
     for name, r in cases:
@@ -580,7 +649,9 @@ def timings(gen):
             rows.append(dict(r, name=name, route="cuda",
                              source=KERNELS[name][0],
                              replaces=KERNELS[name][1]))
-    return rows
+    decode_ms = {r["batch"]: r["ms"] for name, r in cases
+                 if name == "flash_decode"}
+    return rows, decode_ms
 
 
 def bound(nbytes: int, flops: int, dtype) -> dict:
@@ -590,10 +661,12 @@ def bound(nbytes: int, flops: int, dtype) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def step_profile(model, b):
+def step_profile(model, b, decode_ms):
     """One decode step at batch ``b``: eager wall time per step (what the
     translate loop pays) vs device time of the same step replayed from a
-    CUDA graph.  Their gap is the host's launch cost, the device idle."""
+    CUDA graph.  Their gap is the host's launch cost, the device idle.
+    ``decode_ms`` is one ``flash_decode`` call's device time at this batch
+    (T=256, len=128), for the share of the step its 12 calls take."""
     rng = np.random.default_rng(6)
     src = torch.as_tensor(rng.integers(4, model.cfg.vocab_src, (b, 32)),
                           device="cuda")
@@ -609,7 +682,9 @@ def step_profile(model, b):
         device = device_ms(step, per_graph=20, replays=10)  # pos <= 133
     log(f"  decode step B={b} (pos ~110-133, 6 layers): eager "
         f"{eager:.4f}ms, device {device:.4f}ms, device busy "
-        f"{100 * device / eager:.1f}% of the eager step")
+        f"{100 * device / eager:.1f}% of the eager step; 12 flash_decode "
+        f"calls x {decode_ms:.5f}ms = {100 * 12 * decode_ms / device:.1f}% "
+        f"of the graph-replayed step")
 
 
 def translate_rate(model):
@@ -843,10 +918,10 @@ def main() -> int:
     paths = {"marian": main_path(model, ops)}
 
     log(f"== phase 6: timings on {smi}")
-    rows = timings(gen)
+    rows, decode_ms = timings(gen)
     translate_rate(model)
     for b in (1, 8):
-        step_profile(model, b)
+        step_profile(model, b, decode_ms[b])
     del model, r
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,6 +1,6 @@
 // flash_attention forward for Hopper (sm_90a): blocked attention with an
 // online softmax in float32, an optional per-sequence key-prefix `lengths`
-// and an optional causal mask.
+// and an optional causal mask, with both products on the tensor cores.
 //
 // Replaces the Pallas TPU kernel `flash_attention` in
 // src/repro/kernels/flash_attention.py (function at line 97, its
@@ -14,30 +14,61 @@
 // masks the tails itself.
 //
 // Layout: q (B, S, H, D), k/v (B, T, Hkv, D), out (B, S, H, D), addressed
-// through element strides with the last dimension contiguous.  GQA: a block
-// serves one kv head; its 64 query rows are the flattened (position,
-// grouped head) pairs of that kv head, so every staged K/V tile is shared
-// by the rep = H / Hkv query heads of the group.
-//
-// Grid: (ceil(S * rep / 64), B * Hkv).  Each block stages its 64 x D query
-// tile once, then loops over 64-key tiles of K and V in shared memory.
-// 256 threads as a 16 x 16 grid; each thread owns 4 query rows x 4 keys of
-// the score tile and 4 rows x D/16 columns of the output accumulator.  With
-// lengths >= 1, key tiles past the valid prefix (and, when causal, past the
-// block's last query position) are skipped: their weights are exactly 0.
+// through element strides with the last dimension contiguous and every
+// row 16-byte aligned.  GQA: a block serves one kv head; its query rows are
+// the flattened (position, grouped head) pairs of that kv head, so every
+// staged K/V tile is shared by the rep = H / Hkv query heads of the group.
 //
 // What bounds it on this card: operations.  4 * S * T * D FLOP per (b, head)
 // against 2 * (S + T) * D elements moved: at the Marian encoder's S = T = 512
-// that is 128 FLOP/byte in float32, above the H100's ~20 FLOP/byte balance
-// point for float32 outside the tensor cores.  At short sentences (S ~ 20)
-// it is launch latency.
+// that is 128 FLOP/byte in float32, and at zamba2's causal S = 2048 about
+// 260; both sit above the balance point of float32-accurate tensor-core
+// products (3 x TF32 at 495 TFLOP/s = 165 TFLOP/s against 3.35 TB/s is ~49
+// FLOP/byte).  At Marian's short sentences (S ~ 20-64) it is launch latency
+// and the fill of 132 SMs.
 //
-// What this simple design leaves on the table: the products run as float32
-// FMAs on the CUDA cores from shared memory (8 shared loads per 16 FMAs), not
-// on the tensor cores; there is no wgmma, no TMA and no double-buffered
-// cp.async pipeline, so a tile's loads do not overlap the previous tile's
-// math.  Porting the two products to wgmma (bf16 inputs, or TF32 where the
-// tolerance allows) with a TMA-fed ring of K/V tiles is the later work.
+// Design (FlashAttention-2 style, mma.sync through inline PTX):
+//   * Each warp owns 16 query rows.  Scores S = Q K^T stay in the mma
+//     accumulator registers; the row max and sum use quad shuffles; the
+//     running (m, l) and the output accumulator stay in registers.
+//   * bfloat16: m16n8k16.bf16 with float32 accumulation (a bf16 x bf16
+//     product is exact, so Q.K^T is float32-exact).  The score accumulator
+//     of two 8-key n-tiles is exactly the A fragment of the 16-key P.V
+//     step, so P is packed in registers, as hi + lo bf16 pairs (two mmas)
+//     to keep the float32 weights to ~16 bits; V's B fragments come from
+//     shared memory through ldmatrix.trans.
+//   * float32: 3 x TF32 on m16n8k8.tf32.  Each operand x is split into
+//     hi = x rounded to TF32 (as cvt.rna.tf32, by an integer add and mask)
+//     and lo = x - hi (truncated to TF32 by the mma itself), and lo.hi +
+//     hi.lo + hi.hi is accumulated in float32: near float32 accuracy (the
+//     terms dropped are ~2^-21 relative) where one TF32 product keeps three
+//     decimal digits.  The TF32 C fragment holds key columns (2t, 2t+1)
+//     where the A fragment wants (t, t+4); instead of shuffling P, the P.V
+//     step reads its k index t as key 2t and t+4 as key 2t+1 and loads V's
+//     rows in the same order, which sums the same products.  The same
+//     relabelling of the head dim lets Q and K fragments load as float2.
+//   * K/V tiles are double-buffered in shared memory and filled with 16-byte
+//     cp.async.cg (zero-filled past T) while the previous tile computes.
+//     Rows are padded (K: D + 8, V: D + 4 floats; bf16: D + 8) so fragment
+//     loads and ldmatrix hit distinct banks.  bf16 tiles stay bf16.
+//   * The host picks 16, 32 or 64 query rows per block so that short
+//     sentences still give >= 132 blocks.  A block is always 4 warps: with
+//     fewer than 64 rows, 2 or 4 warps share 16 rows and split each key
+//     tile between them, each with its own online softmax, and merge their
+//     (m, l, O) once at the end, in a fixed order, through shared memory.  Key tiles past
+//     lengths[b], and (causal) past the block's last query position, are
+//     skipped; a warp also skips causal tiles past its own rows.  Masks are
+//     applied per element only in tiles that straddle a boundary.
+//   * Every instantiation's dynamic shared memory limit is raised on the
+//     first call of the C entry point, whatever the shape, so a CUDA graph
+//     capture never meets an instantiation that was not set up.
+//
+// What it still leaves for later: wgmma (a 64-row warpgroup product fed
+// from shared memory) and TMA with mbarriers in place of cp.async, warp
+// specialisation (a producer warp), splitting each K/V tile into TF32
+// hi/lo once per block instead of once per warp (float32 at S = 2048 runs
+// at ~4.3x its bound, 181 registers, 2 blocks per SM), and splitting K
+// across blocks for very long keys at small B * H.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,43 +76,117 @@
 
 namespace {
 
-constexpr int kBQ = 64;            // query rows per block
-constexpr int kBK = 64;            // keys per tile
-constexpr int kThreads = 256;      // 16 x 16
 constexpr float kMasked = -1e30f;  // score of a masked key (NEG_INF there)
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// sum / max over the 16 threads of a half-warp that share a query row
-__device__ __forceinline__ float half_warp_max(float x) {
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// 16 bytes global -> shared, zero-filled when `bytes` is 0
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
 }
-__device__ __forceinline__ float half_warp_sum(float x) {
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
-
-template <int D>
-constexpr size_t smem_bytes() {
-  // q tile kBQ x (D+1), k tile kBK x (D+1), v tile kBK x D, p kBQ x (kBK+1)
-  return sizeof(float) *
-         (size_t)(kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1));
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// x = hi + lo with hi x rounded to TF32 (nearest, ties away from zero, as
+// cvt.rna.tf32.f32) and lo = x - hi exact in float32.  lo goes to the
+// tensor core with its low 13 bits left in place: the TF32 mma ignores
+// them, which truncates lo to TF32 (relative error 2^-21 of x).  Three
+// integer/float instructions where two cvt.rna would take more.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// c += a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (small terms first)
+__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* ah,
+                                           const uint32_t* al,
+                                           const uint32_t* bh,
+                                           const uint32_t* bl) {
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// (x0, x1) = hi + lo, both packed bf16 pairs: P.V as P_lo.V + P_hi.V keeps
+// the weights to ~16 bits where one bf16 P would keep 8
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - f.x, x1 - f.y);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Tile geometry of one instantiation.
 template <typename T, int D>
+struct Tile {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  // keys per tile: float32 at D = 128 halves it to bound registers and smem
+  static constexpr int BK = (kF32 && D > 64) ? 32 : 64;
+  static constexpr int KST = D + 8;                // K row stride (elements)
+  static constexpr int VST = kF32 ? D + 4 : D + 8;  // V row stride
+  static constexpr int EPC = 16 / sizeof(T);        // elements per 16 bytes
+  static constexpr int CPR = D / EPC;               // 16-byte chunks per row
+  static constexpr int DT = D / 8;                  // 8-column n-tiles of O
+  static constexpr size_t kStage = (size_t)BK * (KST + VST) * sizeof(T);
+  static constexpr size_t kSmem = 2 * kStage;
+};
+
+constexpr int kWarps = 4;  // every block: 4 warps
+constexpr int kThreads = 32 * kWarps;
+
+// A block of BQ query rows has BQ / 16 row groups of 16; its 4 warps are
+// those row groups times KW = 64 / BQ key groups.  A key group takes its
+// share of every key tile with its own online softmax, and the key groups
+// of a row group merge once, at the end, in a fixed order.
+template <typename T, int D, int BQ>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v,
@@ -92,170 +197,367 @@ __global__ void __launch_bounds__(kThreads)
                            int64_t v_sb, int64_t v_ss, int64_t v_sh,
                            int64_t o_sb, int64_t o_ss, int64_t o_sh,
                            float scale, int causal) {
-  constexpr int Dp = D + 1;    // padded rows: column reads hit distinct banks
-  constexpr int Pp = kBK + 1;
-  constexpr int NJ = D / 16;   // output columns per thread
-  extern __shared__ float smem[];
-  float* q_s = smem;               // kBQ x Dp
-  float* k_s = q_s + kBQ * Dp;     // kBK x Dp
-  float* v_s = k_s + kBK * Dp;     // kBK x D
-  float* p_s = v_s + kBK * D;      // kBQ x Pp
+  using G = Tile<T, D>;
+  constexpr int BK = G::BK, KST = G::KST, VST = G::VST, DT = G::DT;
+  constexpr int KW = kWarps * 16 / BQ;  // key groups per row group
+  constexpr int BKW = BK / KW;          // keys of a tile per key group
+  constexpr int NT = BKW / 8;           // this warp's 8-key n-tiles
+  static_assert(BKW % (G::kF32 ? 8 : 16) == 0, "key group too narrow");
+  static_assert(sizeof(float) * kWarps * 16 * (D + 2) <= G::kSmem,
+                "the key groups' merge must fit the stage buffers");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* stage[2][2];  // [buffer][0 = K, 1 = V]
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    stage[i][0] = reinterpret_cast<T*>(smem_raw + i * G::kStage);
+    stage[i][1] = stage[i][0] + BK * KST;
+  }
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  const int warp = tid / 32, lane = tid % 32;
+  const int rg = warp / KW, kg = warp % KW;  // row group, key group
+  const int gq = lane >> 2, tq = lane & 3;   // mma group / thread in group
   const int b = blockIdx.y / Hkv;
   const int g = blockIdx.y % Hkv;
-  const int rows = S * rep;        // flattened (position, grouped head)
-  const int row0 = blockIdx.x * kBQ;
+  const int rows = S * rep;                  // flattened (position, head)
+  const int row0 = blockIdx.x * BQ;
+  const int wrow0 = row0 + rg * 16;          // this warp's first row
   const int len = lengths != nullptr ? lengths[b] : T_len;
+  const float scale2 = scale * kLog2e;       // softmax in base 2
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int f = row0 + r;
-    float x = 0.f;
-    if (f < rows) {
-      const int s = f / rep, h = g * rep + f % rep;
-      x = to_f32(q[b * q_sb + (int64_t)s * q_ss + (int64_t)h * q_sh + d]);
+  // this thread's two rows (g and g + 8 of the warp's 16)
+  int qpos[2];
+  const T* qrow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int f = min(wrow0 + gq + 8 * i, rows - 1);
+    const int s = f / rep, h = g * rep + f % rep;
+    qpos[i] = s;
+    qrow[i] = q + b * q_sb + (int64_t)s * q_ss + (int64_t)h * q_sh;
+  }
+  const bool row_ok[2] = {wrow0 + gq < rows, wrow0 + gq + 8 < rows};
+
+  // Q fragments in registers for the whole key loop (raw values; float32
+  // splits them per tile).  f32: chunk kc covers head dims kc*8..kc*8+7,
+  // A column t <-> dim 2t and t+4 <-> 2t+1.  bf16: chunk kc covers 16.
+  constexpr int KC = G::kF32 ? D / 8 : D / 16;
+  float qf[G::kF32 ? KC : 1][4];
+  uint32_t qb[G::kF32 ? 1 : KC][4];
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+    if constexpr (G::kF32) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float2 x = make_float2(0.f, 0.f);
+        if (row_ok[i])
+          x = *reinterpret_cast<const float2*>(
+              reinterpret_cast<const float*>(qrow[i]) + kc * 8 + 2 * tq);
+        qf[kc][i] = x.x;      // a0 (row g) / a1 (row g + 8): dim 2t
+        qf[kc][2 + i] = x.y;  // a2 / a3: dim 2t + 1
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        uint32_t lo = 0, hi = 0;
+        if (row_ok[i]) {
+          const uint32_t* p = reinterpret_cast<const uint32_t*>(
+              qrow[i] + kc * 16 + 2 * tq);
+          lo = p[0];
+          hi = p[4];
+        }
+        qb[kc][i] = lo;      // a0 / a1: dims 2t, 2t+1
+        qb[kc][2 + i] = hi;  // a2 / a3: dims 2t+8, 2t+9
+      }
     }
-    q_s[r * Dp + d] = x;
   }
 
-  int qpos[4];
-  float m[4], l[4], acc[4][NJ];
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+  float o[DT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    qpos[i] = min(row0 + ty + 16 * i, rows - 1) / rep;
-    m[i] = kMasked;
-    l[i] = 0.f;
+  for (int c = 0; c < DT; ++c)
 #pragma unroll
-    for (int c = 0; c < NJ; ++c) acc[i][c] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) o[c][e] = 0.f;
 
   // Keys [0, kv_end) are visited.  With len >= 1 every row has key 0 valid,
   // so keys past the prefix (and, causal, past the block's last position)
   // get weight exactly 0 and are skipped; with len <= 0 all T are visited.
+  const int kv_valid = len > 0 ? min(len, T_len) : 0;
   int kv_end = T_len;
   if (len > 0) {
-    kv_end = min(len, T_len);
+    kv_end = kv_valid;
     if (causal) {
-      const int last_pos = (min(row0 + kBQ, rows) - 1) / rep;
+      const int last_pos = (min(row0 + BQ, rows) - 1) / rep;
       kv_end = min(kv_end, last_pos + 1);
     }
   }
+  const bool warp_live = wrow0 < rows;
+  const int warp_first_pos = min(wrow0, rows - 1) / rep;
+  const int warp_last_pos = (min(wrow0 + 16, rows) - 1) / rep;
 
   const T* kb = k + b * k_sb + (int64_t)g * k_sh;
   const T* vb = v + b * v_sb + (int64_t)g * v_sh;
-  for (int t0 = 0; t0 < kv_end; t0 += kBK) {
-    __syncthreads();  // previous tile no longer read (and q tile written)
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int j = i / D, d = i % D;
-      const int slot = t0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (slot < T_len) {
-        kx = to_f32(kb[(int64_t)slot * k_ss + d]);
-        vx = to_f32(vb[(int64_t)slot * v_ss + d]);
+  auto load_tile = [&](int buf, int t0) {
+    T* ks = stage[buf][0];
+    T* vs = stage[buf][1];
+    for (int i = tid; i < BK * G::CPR; i += kThreads) {
+      const int r = i / G::CPR, c = (i % G::CPR) * G::EPC;
+      const int key = t0 + r;
+      const bool ok = key < T_len;
+      const int64_t kr = ok ? (int64_t)key : 0;
+      cp_async16(ks + r * KST + c, kb + kr * k_ss + c, ok ? 16 : 0);
+      cp_async16(vs + r * VST + c, vb + kr * v_ss + c, ok ? 16 : 0);
+    }
+  };
+
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  if (n_tiles > 0) load_tile(0, 0);
+  cp_async_commit();
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = it * BK;
+    if (it + 1 < n_tiles) {
+      load_tile((it + 1) & 1, t0 + BK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile `it` visible to every warp
+
+    // this warp's keys of the tile: [k0, k0 + BKW).  With len >= 1, keys
+    // past the prefix, or (causal) past every row of the warp, get weight
+    // exactly 0, so a warp whose keys all lie there skips the tile
+    const int k0 = t0 + kg * BKW;
+    const bool skip = !warp_live ||
+                      (len > 0 && (k0 >= kv_valid ||
+                                   (causal && k0 > warp_last_pos)));
+    if (!skip) {
+      const T* ks = stage[it & 1][0] + kg * BKW * KST;
+      const T* vs = stage[it & 1][1] + kg * BKW * VST;
+      float sc[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+
+      // S = Q K^T
+      if constexpr (G::kF32) {
+        const float* kf = reinterpret_cast<const float*>(ks);
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_tf32(qf[kc][e], ah[e], al[e]);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const float2 x = *reinterpret_cast<const float2*>(
+                kf + (n * 8 + gq) * KST + kc * 8 + 2 * tq);
+            uint32_t bh[2], bl[2];
+            split_tf32(x.x, bh[0], bl[0]);
+            split_tf32(x.y, bh[1], bl[1]);
+            mma_3xtf32(sc[n], ah, al, bh, bl);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const uint32_t* p = reinterpret_cast<const uint32_t*>(
+                ks + (n * 8 + gq) * KST + kc * 16 + 2 * tq);
+            const uint32_t bk[2] = {p[0], p[4]};
+            mma_bf16(sc[n], qb[kc], bk);
+          }
+        }
       }
-      k_s[j * Dp + d] = kx;
-      v_s[j * D + d] = vx;
+
+      // scale to base 2, mask where the keys straddle a boundary
+      const bool edge = len <= 0 || k0 + BKW > kv_valid ||
+                        (causal && k0 + BKW - 1 > warp_first_pos);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float s = sc[n][e] * scale2;
+          if (edge) {
+            const int key = k0 + n * 8 + 2 * tq + (e & 1);
+            if (key >= T_len)
+              s = -INFINITY;  // past the keys: no weight at all
+            else if (key >= len || (causal && key > qpos[e >> 1]))
+              s = kMasked;
+          }
+          sc[n][e] = s;
+        }
+
+      // online softmax: row g uses e = 0, 1; row g + 8 uses e = 2, 3
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          mx = fmaxf(mx, fmaxf(sc[n][2 * i], sc[n][2 * i + 1]));
+        const float m_new = fmaxf(m[i], quad_max(mx));
+        const float alpha = exp2f(m[i] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 2 * i; e < 2 * i + 2; ++e) {
+            const float p = exp2f(sc[n][e] - m_new);
+            sc[n][e] = p;
+            sum += p;
+          }
+        l[i] = alpha * l[i] + sum;  // this thread's columns; quad sum at end
+        m[i] = m_new;
+#pragma unroll
+        for (int c = 0; c < DT; ++c) {
+          o[c][2 * i] *= alpha;
+          o[c][2 * i + 1] *= alpha;
+        }
+      }
+
+      // O += P V
+      if constexpr (G::kF32) {
+        const float* vf = reinterpret_cast<const float*>(vs);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          // A column t <-> key 8j + 2t, t + 4 <-> key 8j + 2t + 1
+          const float pa[4] = {sc[j][0], sc[j][2], sc[j][1], sc[j][3]};
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_tf32(pa[e], ah[e], al[e]);
+          const float* v0 = vf + (j * 8 + 2 * tq) * VST + gq;
+#pragma unroll
+          for (int c = 0; c < DT; ++c) {
+            uint32_t bh[2], bl[2];
+            split_tf32(v0[c * 8], bh[0], bl[0]);
+            split_tf32(v0[VST + c * 8], bh[1], bl[1]);
+            mma_3xtf32(o[c], ah, al, bh, bl);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT / 2; ++j) {
+          uint32_t ph[4], pl[4];
+          split_bf16(sc[2 * j][0], sc[2 * j][1], ph[0], pl[0]);
+          split_bf16(sc[2 * j][2], sc[2 * j][3], ph[1], pl[1]);
+          split_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1], ph[2], pl[2]);
+          split_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3], ph[3], pl[3]);
+#pragma unroll
+          for (int c = 0; c < DT; c += 2) {
+            uint32_t bv[4];
+            ldmatrix_x4_trans(
+                bv, vs + (j * 16 + (lane & 15)) * VST + (c + (lane >> 4)) * 8);
+            mma_bf16(o[c], pl, bv);
+            mma_bf16(o[c], ph, bv);
+            mma_bf16(o[c + 1], pl, bv + 2);
+            mma_bf16(o[c + 1], ph, bv + 2);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with buffer it & 1
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = quad_sum(l[i]);
+  if constexpr (KW > 1) {
+    // key groups 1.. hand (m, l, O) to key group 0 through the (now idle)
+    // stage buffers; it merges them in key-group order
+    float* red_o = reinterpret_cast<float*>(smem_raw);  // [warp][16][D]
+    float* red_ml = red_o + kWarps * 16 * D;            // [warp][16][2]
+    if (kg > 0) {
+      float* wo = red_o + warp * 16 * D;
+      float* wml = red_ml + warp * 32;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = gq + 8 * i;
+#pragma unroll
+        for (int c = 0; c < DT; ++c)
+          *reinterpret_cast<float2*>(wo + r * D + c * 8 + 2 * tq) =
+              make_float2(o[c][2 * i], o[c][2 * i + 1]);
+        if (tq == 0) wml[2 * r] = m[i], wml[2 * r + 1] = l[i];
+      }
     }
     __syncthreads();
-
-    float sc[4][4];
+    if (kg > 0) return;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int w = warp + 1; w < warp + KW; ++w) {
+      const float* wo = red_o + w * 16 * D;
+      const float* wml = red_ml + w * 32;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[4];
+      for (int i = 0; i < 2; ++i) {
+        const int r = gq + 8 * i;
+        const float m2 = wml[2 * r], l2 = wml[2 * r + 1];
+        const float mx = fmaxf(m[i], m2);
+        const float s1 = exp2f(m[i] - mx), s2 = exp2f(m2 - mx);
+        l[i] = l[i] * s1 + l2 * s2;
+        m[i] = mx;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = q_s[(ty + 16 * i) * Dp + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = k_s[(tx + 16 * j) * Dp + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], bk[j], sc[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = t0 + tx + 16 * j;
-        float s;
-        if (key >= T_len)
-          s = -INFINITY;  // past the keys: no weight at all
-        else if (key >= len || (causal && key > qpos[i]))
-          s = kMasked;
-        else
-          s = sc[i][j] * scale;
-        sc[i][j] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = half_warp_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - m_new);
-        p_s[(ty + 16 * i) * Pp + tx + 16 * j] = p;
-        sum += p;
-      }
-      sum = half_warp_sum(sum);
-      l[i] = alpha * l[i] + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NJ; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = p_s[(ty + 16 * i) * Pp + kk];
-#pragma unroll
-      for (int c = 0; c < NJ; ++c) {
-        const float vx = v_s[kk * D + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vx, acc[i][c]);
+        for (int c = 0; c < DT; ++c) {
+          const float2 x =
+              *reinterpret_cast<const float2*>(wo + r * D + c * 8 + 2 * tq);
+          o[c][2 * i] = o[c][2 * i] * s1 + x.x * s2;
+          o[c][2 * i + 1] = o[c][2 * i + 1] * s1 + x.y * s2;
+        }
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int f = row0 + ty + 16 * i;
-    if (f >= rows) continue;
-    const int s = f / rep, h = g * rep + f % rep;
+  for (int i = 0; i < 2; ++i) {
+    if (!row_ok[i]) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* o = out + b * o_sb + (int64_t)s * o_ss + (int64_t)h * o_sh;
+    const int f = wrow0 + gq + 8 * i;
+    const int s = f / rep, h = g * rep + f % rep;
+    T* orow = out + b * o_sb + (int64_t)s * o_ss + (int64_t)h * o_sh;
 #pragma unroll
-    for (int c = 0; c < NJ; ++c) o[tx + 16 * c] = from_f32<T>(acc[i][c] * inv);
+    for (int c = 0; c < DT; ++c) {
+      const float x0 = o[c][2 * i] * inv, x1 = o[c][2 * i + 1] * inv;
+      if constexpr (G::kF32)
+        *reinterpret_cast<float2*>(reinterpret_cast<float*>(orow) + c * 8 +
+                                   2 * tq) = make_float2(x0, x1);
+      else
+        *reinterpret_cast<uint32_t*>(orow + c * 8 + 2 * tq) =
+            pack_bf16(x0, x1);
+    }
   }
 }
 
+template <typename T, int D, int BQ>
+cudaError_t raise_smem() {
+  return cudaFuncSetAttribute(flash_attention_kernel<T, D, BQ>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)Tile<T, D>::kSmem);
+}
+
 template <typename T, int D>
+cudaError_t raise_smem_d() {
+  cudaError_t e = raise_smem<T, D, 16>();
+  if (e == cudaSuccess) e = raise_smem<T, D, 32>();
+  if (e == cudaSuccess) e = raise_smem<T, D, 64>();
+  return e;
+}
+
+// Raise the shared-memory limit of all 24 instantiations at once.
+cudaError_t raise_all() {
+  const cudaError_t es[8] = {
+      raise_smem_d<float, 16>(),          raise_smem_d<float, 32>(),
+      raise_smem_d<float, 64>(),          raise_smem_d<float, 128>(),
+      raise_smem_d<__nv_bfloat16, 16>(),  raise_smem_d<__nv_bfloat16, 32>(),
+      raise_smem_d<__nv_bfloat16, 64>(),  raise_smem_d<__nv_bfloat16, 128>()};
+  for (cudaError_t e : es)
+    if (e != cudaSuccess) return e;
+  return cudaSuccess;
+}
+
+template <typename T, int D, int BQ>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* lengths, void* out, int B, int S, int T_len,
                    int Hkv, int rep, const int64_t* st, float scale,
                    int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kern = flash_attention_kernel<T, D>;
-  // raised once per instantiation, at its first launch (so never inside a
-  // graph capture that replays launches made before it)
-  static bool smem_raised = false;
-  if (smem > 48 * 1024 && !smem_raised) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    smem_raised = true;
-  }
-  const dim3 grid((S * rep + kBQ - 1) / kBQ, B * Hkv);
-  kern<<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((S * rep + BQ - 1) / BQ, B * Hkv);
+  flash_attention_kernel<T, D, BQ><<<grid, kThreads, Tile<T, D>::kSmem,
+                                     stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(out), S, T_len, Hkv,
       rep, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
@@ -263,24 +565,44 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+cudaError_t dispatch_bq(int BQ, const void* q, const void* k, const void* v,
+                        const int* lengths, void* out, int B, int S,
+                        int T_len, int Hkv, int rep, const int64_t* st,
+                        float scale, int causal, cudaStream_t stream) {
+  switch (BQ) {
+    case 16:
+      return launch<T, D, 16>(q, k, v, lengths, out, B, S, T_len, Hkv, rep,
+                              st, scale, causal, stream);
+    case 32:
+      return launch<T, D, 32>(q, k, v, lengths, out, B, S, T_len, Hkv, rep,
+                              st, scale, causal, stream);
+    case 64:
+      return launch<T, D, 64>(q, k, v, lengths, out, B, S, T_len, Hkv, rep,
+                              st, scale, causal, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       const int* lengths, void* out, int B, int S, int T_len,
-                       int Hkv, int rep, const int64_t* st, float scale,
-                       int causal, cudaStream_t stream) {
+cudaError_t dispatch_d(int D, int BQ, const void* q, const void* k,
+                       const void* v, const int* lengths, void* out, int B,
+                       int S, int T_len, int Hkv, int rep, const int64_t* st,
+                       float scale, int causal, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, lengths, out, B, S, T_len, Hkv, rep, st,
-                           scale, causal, stream);
+      return dispatch_bq<T, 16>(BQ, q, k, v, lengths, out, B, S, T_len, Hkv,
+                                rep, st, scale, causal, stream);
     case 32:
-      return launch<T, 32>(q, k, v, lengths, out, B, S, T_len, Hkv, rep, st,
-                           scale, causal, stream);
+      return dispatch_bq<T, 32>(BQ, q, k, v, lengths, out, B, S, T_len, Hkv,
+                                rep, st, scale, causal, stream);
     case 64:
-      return launch<T, 64>(q, k, v, lengths, out, B, S, T_len, Hkv, rep, st,
-                           scale, causal, stream);
+      return dispatch_bq<T, 64>(BQ, q, k, v, lengths, out, B, S, T_len, Hkv,
+                                rep, st, scale, causal, stream);
     case 128:
-      return launch<T, 128>(q, k, v, lengths, out, B, S, T_len, Hkv, rep, st,
-                            scale, causal, stream);
+      return dispatch_bq<T, 128>(BQ, q, k, v, lengths, out, B, S, T_len, Hkv,
+                                 rep, st, scale, causal, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -289,15 +611,21 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // Strides are in elements, ordered q (batch, seq, head), k (...), v (...),
-// out (...).  `lengths` may be null (every key valid).  dtype: 0 = float32,
-// 1 = bfloat16.  Head dims 16, 32, 64 and 128 are compiled.  Returns the
-// cudaError_t of the launch.
+// out (...).  `lengths` may be null (every key valid).  block_q is the query
+// rows per block (16, 32 or 64; chosen by the Python wrapper).  dtype: 0 =
+// float32, 1 = bfloat16.  Head dims 16, 32, 64 and 128 are compiled.
+// Returns the cudaError_t of the launch.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, const void* lengths,
-    void* out, int B, int S, int T_len, int H, int Hkv, int D, int64_t q_sb,
-    int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-    int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
-    int64_t o_sh, float scale, int causal, int dtype, void* stream) {
+    void* out, int B, int S, int T_len, int H, int Hkv, int D, int block_q,
+    int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
+    int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,
+    int64_t o_ss, int64_t o_sh, float scale, int causal, int dtype,
+    void* stream) {
+  // first call, whatever its shape: every instantiation's limit, outside
+  // any graph capture that later replays a launch of another shape
+  static const cudaError_t smem_ready = raise_all();
+  if (smem_ready != cudaSuccess) return (int)smem_ready;
   if (B <= 0 || S <= 0 || T_len <= 0 || Hkv <= 0 || H % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   const int rep = H / Hkv;
@@ -307,11 +635,11 @@ extern "C" int repro_flash_attention(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = dispatch_d<float>(D, q, k, v, lens, out, B, S, T_len, Hkv, rep, st,
-                          scale, causal, s);
+    e = dispatch_d<float>(D, block_q, q, k, v, lens, out, B, S, T_len, Hkv,
+                          rep, st, scale, causal, s);
   else if (dtype == 1)
-    e = dispatch_d<__nv_bfloat16>(D, q, k, v, lens, out, B, S, T_len, Hkv,
-                                  rep, st, scale, causal, s);
+    e = dispatch_d<__nv_bfloat16>(D, block_q, q, k, v, lens, out, B, S,
+                                  T_len, Hkv, rep, st, scale, causal, s);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

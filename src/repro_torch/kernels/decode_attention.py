@@ -1,9 +1,12 @@
 """Flash decode: the CUDA kernel's wrapper and its plain version.
 
 Port of ``repro/kernels/decode_attention.py`` (the Pallas TPU kernel
-``flash_decode``).  The kernel itself is ``csrc/decode_attention.cu``;
-its header says what bounds it on the H100 and what its simple design
-leaves for later.
+``flash_decode``).  The kernel itself is ``csrc/decode_attention.cu``
+(split-KV: the cache is cut into :func:`decode_splits` ranges, one block
+each, and the splits' partial softmax states are combined in a fixed
+order); its header says what bounds it on the H100 and what it leaves
+for later.  :func:`combine_splits_plain` is the plain twin of its
+combine pass.
 
 Semantics, shared by the kernel and :func:`flash_decode_plain`: one query
 token per sequence, q (B,H,D), against caches (B,S,Hkv,D) over the valid
@@ -20,17 +23,53 @@ their strides, with no per-step transpose or copy.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (
     _DTYPES,
+    HEAD_DIMS,
+    SMS,
     _check_operands,
     _lengths_i32,
 )
 
 NEG_INF = -1e30
+MIN_SPLIT_SLOTS = 32   # a split reads at least this many slots
+SPLIT_WAVES = 2        # aim: this many blocks per SM over B * Hkv * splits
+
+
+@functools.lru_cache(maxsize=256)
+def decode_splits(b: int, hkv: int, s: int) -> tuple:
+    """Split plan ``(n_split, chunk)`` of a cache of capacity ``s`` slots:
+    split i covers slots ``[i * chunk, min((i + 1) * chunk, s))``.
+
+    Depends on ``b * hkv`` and ``s`` only, never on the lengths, which live
+    on the device (reading them would sync the host every step and break
+    CUDA-graph capture).  About ``SPLIT_WAVES`` blocks per SM, with chunks
+    of at least ``MIN_SPLIT_SLOTS`` slots in whole groups of 16.
+    """
+    want = max(1, SPLIT_WAVES * SMS // (b * hkv))
+    n = min(want, max(1, s // MIN_SPLIT_SLOTS))
+    chunk = -(-s // n)
+    chunk = -(-chunk // 16) * 16
+    return -(-s // chunk), chunk
+
+
+def combine_splits_plain(m, l, acc):
+    """Plain twin of the kernel's combine pass: the splits' partial softmax
+    states ``m``, ``l`` (..., n_split) and ``acc`` (..., n_split, D), all
+    float32, merged into the output (..., D).  An empty split (``l == 0``)
+    carries no weight; a split of masked slots only carries m = -1e30 and
+    its slot count, so a length <= 0 still averages over every slot."""
+    live = l > 0
+    mx = torch.where(live, m, float("-inf")).amax(-1, keepdim=True)
+    w = torch.where(live, torch.exp(m - mx), torch.zeros_like(m))
+    total = (l * w).sum(-1)
+    acc = torch.where(live[..., None], acc, torch.zeros_like(acc))
+    return (acc * w[..., None]).sum(-2) / total.clamp_min(1e-30)[..., None]
 
 
 def flash_decode_plain(q, k_cache, v_cache, lengths, *, scale=None):
@@ -70,14 +109,27 @@ def flash_decode_cuda(q, k_cache, v_cache, lengths, *, scale=None):
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     if h % hkv:
         raise ValueError(f"{h} query heads are not a multiple of {hkv}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not compiled; have {HEAD_DIMS}")
     lens = _lengths_i32(lengths, b, q.device)
     scale = scale if scale is not None else d ** -0.5
-    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    n_split, chunk = decode_splits(b, hkv, s)
+    # one allocation: the output first, then (with splits) the partial
+    # accumulators (B*H*n_split*D) and (m, l) pairs, all float32
+    n_out = b * h * d * q.element_size() // 4
+    n_part = b * h * n_split * d if n_split > 1 else 0
+    n_ml = 2 * b * h * n_split if n_split > 1 else 0
+    buf = torch.empty(n_out + n_part + n_ml, dtype=torch.float32,
+                      device=q.device)
+    out = buf[:n_out].view(q.dtype).view(b, h, d)
+    base = buf.data_ptr()
+    parts = ((base + 4 * n_out, base + 4 * (n_out + n_part)) if n_split > 1
+             else (None, None))
     lib = _build.load_library()
     rc = lib.repro_flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), b, s, h, hkv, d,
-        *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3],
+        lens.data_ptr(), out.data_ptr(), *parts, b, s, h, hkv, d, n_split,
+        chunk, *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3],
         *out.stride()[:2], ctypes.c_float(scale), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_decode")

@@ -1,9 +1,9 @@
 """Flash attention forward: the CUDA kernel's wrapper and its plain version.
 
 Port of ``repro/kernels/flash_attention.py`` (the Pallas TPU kernel
-``flash_attention``).  The kernel itself is ``csrc/flash_attention.cu``;
-its header says what bounds it on the H100 and what its simple design
-leaves for later.
+``flash_attention``).  The kernel itself is ``csrc/flash_attention.cu``
+(tensor-core tiles: bf16 ``mma.sync``, float32 as 3 x TF32); its header
+says what bounds it on the H100 and what it leaves for later.
 
 Semantics, shared by the kernel and :func:`flash_attention_plain`:
 
@@ -31,7 +31,19 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)     # head dims the kernel is compiled for
+BLOCK_Q = (16, 32, 64)            # query rows per block the kernel takes
+SMS = 132                         # streaming multiprocessors of an H100
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def pick_block_q(rows: int, bh: int) -> int:
+    """Query rows per block for ``rows = S * rep`` flattened query rows in
+    each of ``bh = B * Hkv`` kv heads: the largest tile that still gives
+    one block per SM, else 16 (the most blocks the shape has)."""
+    for bq in (64, 32):
+        if -(-rows // bq) * bh >= SMS:
+            return bq
+    return 16
 
 
 def flash_attention_plain(q, k, v, lengths=None, *, causal: bool = True,
@@ -66,6 +78,10 @@ def _check_operands(tensors, dtype, device):
             raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
         if x.stride(-1) != 1:
             raise ValueError(f"{name} needs a contiguous last dimension")
+        # the kernels read rows with 16-byte loads
+        per16 = 16 // x.element_size()
+        if x.data_ptr() % 16 or any(st % per16 for st in x.stride()[:-1]):
+            raise ValueError(f"{name} rows are not 16-byte aligned")
 
 
 def _lengths_i32(lengths, b, device):
@@ -80,11 +96,14 @@ def _lengths_i32(lengths, b, device):
 
 
 def flash_attention_cuda(q, k, v, lengths=None, *, causal: bool = True,
-                         scale: float | None = None):
+                         scale: float | None = None,
+                         block_q: int | None = None):
     """Launch ``csrc/flash_attention.cu`` on PyTorch's current stream.
 
     Takes CUDA tensors only and raises on anything the kernel does not
-    take; builds the kernel library at first use.
+    take; builds the kernel library at first use.  ``block_q`` forces the
+    query rows per block (one of :data:`BLOCK_Q`); by default
+    :func:`pick_block_q` chooses from the shape.
     """
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, "
@@ -101,6 +120,10 @@ def flash_attention_cuda(q, k, v, lengths=None, *, causal: bool = True,
         raise ValueError(f"{h} query heads are not a multiple of {hkv}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not compiled; have {HEAD_DIMS}")
+    if block_q is None:
+        block_q = pick_block_q(s * (h // hkv), b * hkv)
+    elif block_q not in BLOCK_Q:
+        raise ValueError(f"block_q {block_q} not in {BLOCK_Q}")
     lens = _lengths_i32(lengths, b, q.device)
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -108,7 +131,7 @@ def flash_attention_cuda(q, k, v, lengths=None, *, causal: bool = True,
     rc = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if lens is None else lens.data_ptr(), out.data_ptr(),
-        b, s, t, h, hkv, d,
+        b, s, t, h, hkv, d, block_q,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         ctypes.c_float(scale), int(causal), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)

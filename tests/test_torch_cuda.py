@@ -88,6 +88,90 @@ def test_flash_decode_kernel_matches_plain_on_folded_cache(dev, dtype, b, t,
                                atol=_tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,hkv,d,lens", [
+    (1, 2048, 8, 8, 64, (1,)),       # many splits, all but one empty
+    (1, 2048, 8, 8, 64, (33,)),
+    (1, 2048, 8, 8, 64, (2047,)),
+    (2, 256, 32, 8, 64, (200, 17)),  # GQA rep = 4
+    (1, 300, 12, 4, 32, (299,)),     # rep = 3 in a block of 4 heads
+    (2, 96, 32, 2, 16, (96, 5)),     # rep = 16: two head groups per kv head
+    (3, 256, 8, 8, 64, (0, 100, 256)),   # length 0 beside split rows
+])
+def test_flash_decode_split_kv_matches_plain(dev, dtype, b, t, h, hkv, d,
+                                             lens):
+    q = _randn(20, (b, h, d), dev, dtype)
+    kc = _randn(21, (b, t, hkv, d), dev, dtype)
+    vc = _randn(22, (b, t, hkv, d), dev, dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = da.flash_decode_cuda(q, kc, vc, lengths)
+    want = da.flash_decode_plain(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+
+
+def test_flash_decode_is_bitwise_repeatable(dev):
+    q = _randn(23, (4, 8, 64), dev, torch.float32)
+    kc = _randn(24, (4, 1024, 8, 64), dev, torch.float32)
+    vc = _randn(25, (4, 1024, 8, 64), dev, torch.float32)
+    lengths = torch.tensor([1024, 3, 700, 0], dtype=torch.int32, device=dev)
+    assert da.decode_splits(4, 8, 1024)[0] > 1
+    first = da.flash_decode_cuda(q, kc, vc, lengths)
+    again = da.flash_decode_cuda(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+def test_flash_decode_graph_replay_reads_lengths_on_the_device(dev):
+    b, t, h, d = 2, 512, 8, 64
+    q = _randn(26, (b, h, d), dev, torch.float32)
+    kc = _randn(27, (b, t, h, d), dev, torch.float32)
+    vc = _randn(28, (b, t, h, d), dev, torch.float32)
+    lengths = torch.tensor([5, 300], dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.flash_decode_cuda(q, kc, vc, lengths)      # build and warm up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.flash_decode_cuda(q, kc, vc, lengths)
+    for lens in ((5, 300), (511, 1), (0, 64)):
+        lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, da.flash_decode_plain(q, kc, vc,
+                                                              lengths),
+                                   rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_q", [16, 32, 64])
+@pytest.mark.parametrize("b,s,t,h,hkv,d,causal,lens", [
+    (2, 77, 77, 4, 4, 16, False, (77, 30)),
+    (2, 53, 91, 4, 2, 32, False, (91, 1)),
+    (1, 45, 45, 2, 2, 128, True, None),
+    (2, 61, 61, 8, 8, 64, True, (61, 20)),
+    (1, 37, 70, 4, 4, 64, True, None),           # causal, S != T
+    (2, 100, 29, 6, 2, 64, True, (29, 10)),      # causal, S > T, rep = 3
+])
+def test_flash_attention_every_query_tile_on_ragged_shapes(
+        dev, dtype, block_q, b, s, t, h, hkv, d, causal, lens):
+    q = _randn(29, (b, s, h, d), dev, dtype)
+    k = _randn(30, (b, t, hkv, d), dev, dtype)
+    v = _randn(31, (b, t, hkv, d), dev, dtype)
+    lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                     device=dev)
+    got = fa.flash_attention_cuda(q, k, v, lengths, causal=causal,
+                                  block_q=block_q)
+    want = fa.flash_attention_plain(q, k, v, lengths, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+
+
 def test_wrappers_count_launches_and_reject_bad_operands(dev):
     ops.reset_launch_counts()
     q = _randn(7, (1, 16, 2, 64), dev, torch.float32)
