@@ -15,7 +15,8 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    zamba2's 32 (float32 within 2e-5, bfloat16 within 2e-2), ``rwkv6_wkv``
    at rwkv6-3b's 40 heads of 64 (within 2e-4) and ``ssd_scan`` at
    zamba2's 64 heads of P = N = 64 (within 3e-4), at the chunk lengths
-   prefill meets, with and without an initial state; then the attention
+   prefill meets, with and without an initial state, and under every
+   value tile their hosts can pick; then the attention
    kernels' edge cases: a 2048-slot cache cut into many splits, GQA,
    length 0 in a batch, every query tile on ragged shapes (head dims 16,
    32, 64, 128, causal with S != T), a captured ``flash_decode`` replayed
@@ -32,9 +33,12 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    kernels launched;
 6. times each kernel (CUDA events over a CUDA graph) beside its bound
    (float32 FLOP at 3 x TF32's 165 TFLOP/s), its plain version and, where
-   one PyTorch call computes the same function, that call; the tokens/s
-   and peak memory of one batch-8 translate; and Marian's decode step,
-   eager and from a CUDA graph, with ``flash_decode``'s share of it;
+   one PyTorch call computes the same function, that call
+   (``rwkv6_wkv`` also at B=1 S=37, the chunk of 1 a prime prompt gives
+   rwkv6-3b), and each scan kernel under every value tile its host
+   chooses between; the tokens/s and peak memory of one batch-8
+   translate; and Marian's decode step, eager and from a CUDA graph, with
+   ``flash_decode``'s share of it;
 7. builds rwkv6-3b at full width (``resolve("rwkv6-3b", size="full")``,
    random weights from a seed), holds its prefill and four decode-step
    logits against the same model on the plain kernels (within 1e-4), runs
@@ -104,10 +108,18 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def _outputs(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
 def within(what: str, got, want, tol: float) -> None:
-    err = max_err(got, want)
+    """Raise unless every output of ``got`` (a tensor or a tuple) is finite
+    and within ``tol`` of ``want``'s."""
+    got = torch.cat([t.float().flatten() for t in _outputs(got)])
+    err = max_err(got, torch.cat([t.float().flatten()
+                                  for t in _outputs(want)]))
     log(f"  {what}: max_abs_err={err:.3e}")
-    if not (err <= tol and torch.isfinite(got.float()).all()):
+    if not (err <= tol and torch.isfinite(got).all()):
         raise AssertionError(f"{what}: error {err} > {tol}")
 
 
@@ -304,31 +316,37 @@ def ssd_inputs(gen, b, s, with_s0=False):
 
 def check_scan_kernels(wkv, ssd, gen):
     """The two scan kernels vs their plain versions at the LM prefill
-    shapes: every chunk length a prompt can give (1 for a prime length)."""
+    shapes: every chunk length a prompt can give (1 for a prime length),
+    then every value tile the hosts can pick (``wkv_plan``'s and
+    ``ssd_plan``'s), forced through the wrappers' ``_launch``."""
     cases = 0
     for with_s0 in (False, True):
         for b, s, chunk in ((1, 37, 1), (2, 49, 7), (1, 64, 32), (8, 64, 32)):
             args = wkv_inputs(gen, b, s, with_s0)
-            got = wkv.rwkv6_wkv_cuda(*args, chunk=chunk)
-            want = wkv.rwkv6_wkv_plain(*args, chunk=chunk)
-            err = max_err(torch.cat([g.flatten() for g in got]),
-                          torch.cat([w.flatten() for w in want]))
-            log(f"  rwkv6_wkv B={b} S={s} H={WKV_H} P={WKV_P} L={chunk} "
-                f"s0={with_s0}: max_abs_err={err:.3e}")
-            if not err <= WKV_TOL:
-                raise AssertionError(f"rwkv6_wkv error {err} > {WKV_TOL}")
+            within(f"rwkv6_wkv B={b} S={s} H={WKV_H} P={WKV_P} L={chunk} "
+                   f"s0={with_s0}", wkv.rwkv6_wkv_cuda(*args, chunk=chunk),
+                   wkv.rwkv6_wkv_plain(*args, chunk=chunk), WKV_TOL)
             cases += 1
         for b, s, chunk in ((1, 37, 1), (1, 37, 37), (2, 128, 64),
                             (1, 256, 128)):
             args = ssd_inputs(gen, b, s, with_s0)
-            got = ssd.ssd_scan_cuda(*args, chunk=chunk)
-            want = ssd.ssd_scan_plain(*args, chunk=chunk)
-            err = max_err(torch.cat([g.flatten() for g in got]),
-                          torch.cat([w.flatten() for w in want]))
-            log(f"  ssd_scan B={b} S={s} H={SSD_H} P=N={SSD_P} L={chunk} "
-                f"s0={with_s0}: max_abs_err={err:.3e}")
-            if not err <= SSD_TOL:
-                raise AssertionError(f"ssd_scan error {err} > {SSD_TOL}")
+            within(f"ssd_scan B={b} S={s} H={SSD_H} P=N={SSD_P} L={chunk} "
+                   f"s0={with_s0}", ssd.ssd_scan_cuda(*args, chunk=chunk),
+                   ssd.ssd_scan_plain(*args, chunk=chunk), SSD_TOL)
+            cases += 1
+    for p_tile in wkv.P_TILES:
+        for b, s, chunk in ((1, 37, 1), (2, 64, 32)):
+            args = wkv_inputs(gen, b, s, True)
+            within(f"rwkv6_wkv p_tile={p_tile} B={b} S={s} L={chunk}",
+                   wkv._launch(*args, chunk, p_tile),
+                   wkv.rwkv6_wkv_plain(*args, chunk=chunk), WKV_TOL)
+            cases += 1
+    for b, s, chunk in ((1, 37, 1), (2, 128, 64), (1, 256, 128)):
+        for pt in ssd.ssd_tiles(SSD_P, SSD_N, chunk):
+            args = ssd_inputs(gen, b, s, True)
+            within(f"ssd_scan p_tile={pt} B={b} S={s} L={chunk}",
+                   ssd._launch(*args, chunk, pt),
+                   ssd.ssd_scan_plain(*args, chunk=chunk), SSD_TOL)
             cases += 1
     torch.cuda.synchronize()
     return cases
@@ -469,10 +487,6 @@ def main_path(model, ops):
 
 
 # --------------------------------------------------------------- phase 6 --
-def _outputs(out) -> tuple:
-    return out if isinstance(out, tuple) else (out,)
-
-
 def time_case(kernel, plain, library, nbytes, flops, *, per_graph=50,
               plain_per_graph=10) -> dict:
     """Device time of the kernel, its plain version and the library call
@@ -562,11 +576,12 @@ def causal_case(fa, gen, b, s):
 
 def wkv_case(wkv, gen, b, s):
     """rwkv6_wkv over one rwkv6-3b prefill layer: batch ``b`` of ``s``
-    tokens from the zero state, at the chunk prefill picks.  Bound:
-    r/k/v/log w and y once each, u and the final state; FLOP of the
-    triangular chunk products and the state's two products."""
+    tokens from the zero state, at the chunk prefill picks (the largest
+    divisor of ``s`` up to 32: 1 for a prime ``s``).  Bound: r/k/v/log w
+    and y once each, u and the final state; FLOP of the triangular chunk
+    products and the state's two products."""
     args = wkv_inputs(gen, b, s)
-    chunk = min(32, s)
+    chunk = max(d for d in range(1, 33) if s % d == 0)
     p, h, nc = WKV_P, WKV_H, s // chunk
     nbytes = 4 * (5 * b * s * h * p + h * p + b * h * p * p)
     flops = b * h * nc * (2 * chunk * (chunk - 1) * p + 4 * chunk * p * p
@@ -614,23 +629,30 @@ KERNELS = {   # name -> (source, the TPU kernel's pallas_call)
 }
 
 
+def scan_cases(gen):
+    """The scan kernels' timed cases: prefill at the serving shape, a long
+    prefill and (rwkv6_wkv) a prime prompt length, chunk 1."""
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    from repro_torch.kernels import ssd_scan as ssd
+    return [("rwkv6_wkv", wkv_case(wkv, gen, 1, 64)),
+            ("rwkv6_wkv", wkv_case(wkv, gen, 8, 2048)),
+            ("rwkv6_wkv", wkv_case(wkv, gen, 1, 37)),
+            ("ssd_scan", ssd_case(ssd, gen, 1, 64)),
+            ("ssd_scan", ssd_case(ssd, gen, 8, 2048))]
+
+
 def timings(gen):
     """Per-kernel numbers at the main paths' shapes (f32).  The first case
     of each kernel is its row in the JSON line; the rest are printed."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rwkv6_wkv as wkv
-    from repro_torch.kernels import ssd_scan as ssd
     cases = [("flash_decode", decode_case(da, gen, 8, 128)),
              ("flash_decode", decode_case(da, gen, 1, 128)),
              ("flash_attention", attention_case(fa, gen, 8, 64)),
              ("flash_attention", attention_case(fa, gen, 8, 512)),
              ("flash_attention", causal_case(fa, gen, 1, 64)),
-             ("flash_attention", causal_case(fa, gen, 8, 2048)),
-             ("rwkv6_wkv", wkv_case(wkv, gen, 1, 64)),
-             ("rwkv6_wkv", wkv_case(wkv, gen, 8, 2048)),
-             ("ssd_scan", ssd_case(ssd, gen, 1, 64)),
-             ("ssd_scan", ssd_case(ssd, gen, 8, 2048))]
+             ("flash_attention", causal_case(fa, gen, 8, 2048))]
+    cases += scan_cases(gen)
     for name, r in cases:
         lib = ("library — (no single PyTorch call computes it)"
                if r["library_ms"] is None else
@@ -642,6 +664,7 @@ def timings(gen):
             f"{r['eager_ms']:.5f}ms, bound {r['bound_ms']:.5f}ms by {by}, "
             f"plain {r['plain_ms']:.5f}ms, {lib} "
             f"(kernel vs plain {r['max_abs_err']:.2e})")
+    tile_sweep(gen)
     rows, seen = [], set()
     for name, r in cases:
         if name not in seen:
@@ -652,6 +675,28 @@ def timings(gen):
     decode_ms = {r["batch"]: r["ms"] for name, r in cases
                  if name == "flash_decode"}
     return rows, decode_ms
+
+
+def tile_sweep(gen):
+    """Device ms of every value tile of the two scan kernels at prefill's
+    serving shape (B=1, S=64) and a long prefill (B=8, S=2048): what
+    ``wkv_plan`` and ``ssd_plan`` choose between."""
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    from repro_torch.kernels import ssd_scan as ssd
+    for b, s in ((1, 64), (8, 2048)):
+        per_graph = 5 if b * s > 1024 else 50
+        args = wkv_inputs(gen, b, s)
+        for pt in wkv.P_TILES:
+            ms = device_ms(lambda pt=pt: wkv._launch(*args, 32, pt),
+                           per_graph=per_graph)
+            log(f"  rwkv6_wkv B={b} S={s} p_tile={pt} "
+                f"({b * WKV_H * WKV_P // pt} blocks): device {ms:.5f}ms")
+        args, chunk = ssd_inputs(gen, b, s), min(128, s)
+        for pt in ssd.ssd_tiles(SSD_P, SSD_N, chunk):
+            ms = device_ms(lambda pt=pt: ssd._launch(*args, chunk, pt),
+                           per_graph=per_graph)
+            log(f"  ssd_scan B={b} S={s} p_tile={pt} "
+                f"({b * SSD_H * SSD_P // pt} blocks): device {ms:.5f}ms")
 
 
 def bound(nbytes: int, flops: int, dtype) -> dict:

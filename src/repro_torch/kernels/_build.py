@@ -23,6 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "rwkv6_wkv.cu",
            "ssd_scan.cu")
+HEADERS = ("mma_common.cuh",)   # included by the sources
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-Xcompiler", "-fPIC")
@@ -33,8 +34,8 @@ _SIGNATURES = {
     "repro_flash_attention": [_P] * 5 + [_I] * 7 + [_I64] * 12
                              + [_F, _I, _I, _P],
     "repro_flash_decode": [_P] * 7 + [_I] * 7 + [_I64] * 10 + [_F, _I, _P],
-    "repro_rwkv6_wkv": [_P] * 8 + [_I] * 5 + [_I64] * 15 + [_P],
-    "repro_ssd_scan": [_P] * 8 + [_I] * 6 + [_I64] * 15 + [_P],
+    "repro_rwkv6_wkv": [_P] * 8 + [_I] * 6 + [_I64] * 15 + [_P],
+    "repro_ssd_scan": [_P] * 8 + [_I] * 7 + [_I64] * 15 + [_P],
 }
 
 
@@ -53,7 +54,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 

@@ -74,58 +74,20 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_common.cuh"
+
 namespace {
 
 constexpr float kMasked = -1e30f;  // score of a masked key (NEG_INF there)
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::mma_3xtf32;
+using repro::smem_addr;
+using repro::split_tf32;
 
-// 16 bytes global -> shared, zero-filled when `bytes` is 0
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// x = hi + lo with hi x rounded to TF32 (nearest, ties away from zero, as
-// cvt.rna.tf32.f32) and lo = x - hi exact in float32.  lo goes to the
-// tensor core with its low 13 bits left in place: the TF32 mma ignores
-// them, which truncates lo to TF32 (relative error 2^-21 of x).  Three
-// integer/float instructions where two cvt.rna would take more.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-// c += a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (small terms first)
-__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* ah,
-                                           const uint32_t* al,
-                                           const uint32_t* bh,
-                                           const uint32_t* bl) {
-  mma_tf32(c, al, bh);
-  mma_tf32(c, ah, bl);
-  mma_tf32(c, ah, bh);
-}
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          const uint32_t* b) {
   asm volatile(

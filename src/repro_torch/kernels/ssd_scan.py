@@ -1,9 +1,10 @@
 """Mamba2 SSD chunked scan: the CUDA kernel's wrapper and its plain version.
 
 Port of ``repro/kernels/ssd_scan.py`` (the Pallas TPU kernel
-``ssd_scan``).  The kernel itself is ``csrc/ssd_scan.cu``; its header
-says what bounds it on the H100 and what its simple design leaves for
-later.
+``ssd_scan``).  The kernel itself is ``csrc/ssd_scan.cu`` (value-tiled
+blocks, 3 x TF32 tensor-core products, pipelined chunk loads); its
+header says what bounds it on the H100 and what it leaves for later.
+:func:`ssd_plan` picks its value tile on the host.
 
 Semantics, shared by the kernel and :func:`ssd_scan_plain`:
 
@@ -23,20 +24,54 @@ Semantics, shared by the kernel and :func:`ssd_scan_plain`:
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import SMS
 
 DEFAULT_CHUNK = 64
+# a plan needs this many blocks to count as filling the card: one per two
+# SMs (at B=1, S=64, fewer wider blocks beat 132 narrow ones, PERF.md)
+MIN_BLOCKS = SMS // 2
 _SMEM_LIMIT = 232448     # bytes of shared memory one H100 block may use
-_SCORE_ROWS = 32         # score rows the kernel builds at a time
+P_TILES = (64, 32, 16)   # value columns per block the kernel is built for
 
 
-def _smem_bytes(p: int, n: int, chunk: int) -> int:
-    """The kernel's dynamic shared memory (``smem_floats`` in the .cu)."""
-    floats = (n * p + chunk * p + chunk * (n + 1) + chunk * n
-              + _SCORE_ROWS * (chunk + 1) + 2 * chunk + 1)
-    return 4 * (floats + floats % 2) + 8 * chunk   # + float64 cum, aligned
+def _smem_bytes(pt: int, n: int, chunk: int) -> int:
+    """The kernel's dynamic shared memory (``smem_bytes`` in the .cu)."""
+    lr = -(-chunk // 16) * 16
+    stage = lr * (pt + 4) + 2 * lr * (n + 4) + lr
+    return 8 * lr + 4 * (2 * stage + n * (pt + 8) + 2 * lr + 1)
+
+
+@functools.lru_cache(maxsize=256)
+def ssd_tiles(p: int, n: int, chunk: int) -> tuple:
+    """Every value tile (``p_tile``) the kernel takes for this shape,
+    widest first: the tile divides P and its shared memory fits."""
+    return tuple(pt for pt in P_TILES if p % pt == 0
+                 and _smem_bytes(pt, n, chunk) <= _SMEM_LIMIT)
+
+
+@functools.lru_cache(maxsize=256)
+def ssd_plan(b: int, h: int, p: int, n: int, chunk: int) -> int:
+    """Value columns per block (``p_tile``) of the kernel's grid of
+    ``b * h * p / p_tile`` blocks: block i owns value columns
+    ``[p_tile * j, p_tile * (j + 1))`` of head ``i // (p / p_tile) % h``
+    of sequence ``i // (h * p / p_tile)``, with ``j = i % (p / p_tile)``.
+    Among :func:`ssd_tiles`, the widest (the least recomputed scores and
+    prefix sums) that still gives :data:`MIN_BLOCKS` blocks, else the
+    narrowest (the most blocks).  A plain function of the shape."""
+    tiles = ssd_tiles(p, n, chunk)
+    if not tiles:
+        raise ValueError(f"P={p} N={n} chunk={chunk}: no value tile fits "
+                         f"(P must be a multiple of 16, N of 8, and the "
+                         f"tiles {_SMEM_LIMIT} bytes of shared memory)")
+    for pt in tiles:
+        if b * h * (p // pt) >= MIN_BLOCKS:
+            return pt
+    return tiles[-1]
 
 
 def _check_shapes(x, dt, a_log, b_in, c_in, s0, chunk):
@@ -96,18 +131,24 @@ def ssd_scan_cuda(x, dt, a_log, b_in, c_in, s0=None, *,
     """Launch ``csrc/ssd_scan.cu`` on PyTorch's current stream.
 
     Takes float32 CUDA tensors only and raises on anything the kernel
-    does not take; (B,S,H,·) inputs are read through their strides.
-    Builds the kernel library at first use.
+    does not take; (B,S,H,·) inputs are read through their strides, with
+    x, b_in and c_in rows 16-byte aligned.  :func:`ssd_plan` picks the
+    value tile from the shape.  Builds the kernel library at first use.
     """
+    return _launch(x, dt, a_log, b_in, c_in, s0, chunk, None)
+
+
+def _launch(x, dt, a_log, b_in, c_in, s0, chunk, p_tile):
+    """:func:`ssd_scan_cuda` with its value tile forced to ``p_tile`` (one
+    of :func:`ssd_tiles`; None: :func:`ssd_plan`'s), so every tile can be
+    checked on the card."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_cuda needs CUDA tensors, got {x.device}")
     _check_shapes(x, dt, a_log, b_in, c_in, s0, chunk)
     bsz, s, h, p = x.shape
     n = b_in.shape[-1]
-    if _smem_bytes(p, n, chunk) > _SMEM_LIMIT:
-        raise ValueError(f"P={p} N={n} chunk={chunk} needs "
-                         f"{_smem_bytes(p, n, chunk)} bytes of shared memory "
-                         f"(> {_SMEM_LIMIT})")
+    if p % 16 or n % 8:
+        raise ValueError(f"P={p} must be a multiple of 16 and N={n} of 8")
     named = {"x": x, "dt": dt, "a_log": a_log, "b_in": b_in, "c_in": c_in}
     if s0 is not None:
         named["s0"] = s0
@@ -117,8 +158,17 @@ def ssd_scan_cuda(x, dt, a_log, b_in, c_in, s0=None, *,
         if t.dtype != torch.float32:
             raise ValueError(f"{name} has dtype {t.dtype}, expected float32")
     for name in ("x", "b_in", "c_in"):
-        if named[name].stride(-1) != 1:
+        t = named[name]
+        if t.stride(-1) != 1:
             raise ValueError(f"{name} needs a contiguous last dimension")
+        # the kernel stages rows with 16-byte copies
+        if t.data_ptr() % 16 or any(st % 4 for st in t.stride()[:3]):
+            raise ValueError(f"{name} rows are not 16-byte aligned")
+    if p_tile is None:
+        p_tile = ssd_plan(bsz, h, p, n, chunk)
+    elif p_tile not in ssd_tiles(p, n, chunk):
+        raise ValueError(f"p_tile {p_tile} does not fit P={p} N={n} "
+                         f"chunk={chunk}")
     a_log = a_log.contiguous()
     s0 = None if s0 is None else s0.contiguous()
     y = torch.empty((bsz, s, h, p), dtype=torch.float32, device=x.device)
@@ -127,7 +177,7 @@ def ssd_scan_cuda(x, dt, a_log, b_in, c_in, s0=None, *,
     rc = lib.repro_ssd_scan(
         x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b_in.data_ptr(),
         c_in.data_ptr(), None if s0 is None else s0.data_ptr(), y.data_ptr(),
-        s_out.data_ptr(), bsz, s, h, p, n, chunk,
+        s_out.data_ptr(), bsz, s, h, p, n, chunk, p_tile,
         *x.stride()[:3], *dt.stride(), *b_in.stride()[:3],
         *c_in.stride()[:3], *y.stride()[:3],
         torch.cuda.current_stream(x.device).cuda_stream)

@@ -290,6 +290,135 @@ def test_scan_wrappers_count_launches_and_reject_bad_operands(dev):
                       u.double(), chunk=8)
 
 
+# every value tile the hosts can pick, at the chunk lengths prefill meets
+# (1 for a prime prompt length), with and without s0, through strided views;
+# the wrappers' private _launch forces the tile
+def _wkv_args(dev, b, s, h, p, with_s0, seed=40):
+    rkv = _randn(seed, (b, s, 3 * h * p + 4), dev, torch.float32)
+    r, k, v = (rkv[..., i * h * p:(i + 1) * h * p].view(b, s, h, p)
+               for i in range(3))
+    log_w = -torch.clamp(torch.exp(_randn(seed + 1, (b, s, h, p), dev,
+                                          torch.float32)), 1e-4, 2.5)
+    u = 0.5 * _randn(seed + 2, (h, p), dev, torch.float32)
+    s0 = (_randn(seed + 3, (b, h, p, p), dev, torch.float32) if with_s0
+          else None)
+    return r, k, v, log_w, u, s0
+
+
+def _ssd_args(dev, b, s, h, p, n, with_s0, shared_bc=True, seed=50):
+    # x, B and C as views of one (B, S, H*P + 2N) buffer, as the model
+    # slices its conv output, one B/C group expanded over the heads; dt a
+    # slice of a wider buffer (a seq stride of H + 3)
+    xbc = _randn(seed, (b, s, h * p + 2 * n), dev, torch.float32)
+    x = xbc[..., :h * p].view(b, s, h, p)
+    if shared_bc:
+        b_in = xbc[..., None, h * p:h * p + n].expand(b, s, h, n)
+        c_in = xbc[..., None, h * p + n:].expand(b, s, h, n)
+    else:
+        b_in = _randn(seed + 1, (b, s, h, n), dev, torch.float32)
+        c_in = _randn(seed + 2, (b, s, h, n), dev, torch.float32)
+    dt = torch.nn.functional.softplus(
+        _randn(seed + 4, (b, s, h + 3), dev, torch.float32))[..., :h]
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+    s0 = (_randn(seed + 3, (b, h, p, n), dev, torch.float32) if with_s0
+          else None)
+    return x, dt, a_log, b_in, c_in, s0
+
+
+def _assert_scan_close(got, want, tol):
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("s,chunk", [(37, 1), (49, 7), (64, 32)])
+@pytest.mark.parametrize("p,p_tile", [(64, 16), (64, 32), (64, 64),
+                                      (128, 64), (32, 32), (16, 16)])
+def test_rwkv6_wkv_every_plan_matches_plain(dev, with_s0, s, chunk, p,
+                                            p_tile):
+    args = _wkv_args(dev, 2, s, 3, p, with_s0)
+    got = wkv._launch(*args, chunk, p_tile)
+    want = wkv.rwkv6_wkv_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    _assert_scan_close(got, want, 2e-4)
+
+
+_SSD_PLANS = [(pt, s, chunk)
+              for s, chunk in ((37, 1), (74, 37), (128, 64), (256, 128))
+              for pt in ssd.ssd_tiles(64, 64, chunk)]
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("pt,s,chunk", _SSD_PLANS)
+def test_ssd_scan_every_plan_matches_plain(dev, with_s0, pt, s, chunk):
+    args = _ssd_args(dev, 2, s, 8, 64, 64, with_s0)
+    got = ssd._launch(*args, chunk, pt)
+    want = ssd.ssd_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    _assert_scan_close(got, want, 3e-4)
+
+
+@pytest.mark.parametrize("pt,n,chunk", [(16, 16, 8), (32, 8, 37),
+                                        (16, 64, 64)])
+def test_ssd_scan_per_head_b_c_every_tile(dev, pt, n, chunk):
+    args = _ssd_args(dev, 2, 2 * chunk, 3, 32, n, True, shared_bc=False)
+    want = ssd.ssd_scan_plain(*args, chunk=chunk)
+    got = ssd._launch(*args, chunk, pt)
+    torch.cuda.synchronize()
+    _assert_scan_close(got, want, 3e-4)
+    with pytest.raises(ValueError):          # wider than P = 32
+        ssd._launch(*args, chunk, 64)
+
+
+def test_scan_kernels_are_bitwise_repeatable(dev):
+    wargs = _wkv_args(dev, 2, 96, 40, 64, True)
+    first = wkv.rwkv6_wkv_cuda(*wargs, chunk=32)
+    again = wkv.rwkv6_wkv_cuda(*wargs, chunk=32)
+    sargs = _ssd_args(dev, 2, 256, 64, 64, 64, True)
+    first += ssd.ssd_scan_cuda(*sargs, chunk=128)
+    again += ssd.ssd_scan_cuda(*sargs, chunk=128)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_scan_kernels_graph_capture_after_a_smaller_launch(dev):
+    """The first launches are small (under 48 KB of shared memory); a graph
+    captured afterwards at zamba2's chunk of 128 (230 KB) and rwkv6-3b's
+    widest tile still replays right."""
+    ssd.ssd_scan_cuda(*_ssd_args(dev, 1, 8, 2, 16, 8, False), chunk=8)
+    wkv.rwkv6_wkv_cuda(*_wkv_args(dev, 1, 4, 1, 16, False), chunk=4)
+    sargs = _ssd_args(dev, 1, 256, 64, 64, 64, True)
+    wargs = _wkv_args(dev, 2, 64, 40, 64, True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        s_out = ssd._launch(*sargs, 128, 64)
+        w_out = wkv._launch(*wargs, 32, 64)
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_scan_close(s_out, ssd.ssd_scan_plain(*sargs, chunk=128), 3e-4)
+    _assert_scan_close(w_out, wkv.rwkv6_wkv_plain(*wargs, chunk=32), 2e-4)
+
+
+def test_scan_wrappers_refuse_misaligned_operands(dev):
+    r, k, v, log_w, u, _ = _wkv_args(dev, 1, 8, 2, 16, False)
+    buf = _randn(60, (1, 8, 2 * 16 + 1), dev, torch.float32)
+    shifted = buf[..., 1:].view(1, 8, 2, 16)          # base off by 4 bytes
+    with pytest.raises(ValueError, match="16-byte"):
+        wkv.rwkv6_wkv_cuda(shifted, k, v, log_w, u, chunk=8)
+    odd_rows = _randn(61, (1, 8, 2 * 16 + 1), dev,
+                      torch.float32)[..., :32].view(1, 8, 2, 16)  # stride 33
+    with pytest.raises(ValueError, match="16-byte"):
+        wkv.rwkv6_wkv_cuda(r, k, odd_rows, log_w, u, chunk=8)
+    x, dt, a_log, b_in, c_in, _ = _ssd_args(dev, 1, 8, 2, 16, 8, False)
+    with pytest.raises(ValueError, match="16-byte"):
+        ssd.ssd_scan_cuda(shifted, dt, a_log, b_in, c_in, chunk=8)
+    bad_b = buf[..., None, 1:9].expand(1, 8, 2, 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        ssd.ssd_scan_cuda(x, dt, a_log, bad_b, c_in, chunk=8)
+
+
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b"])
 def test_smoke_lm_on_the_card_matches_the_cpu(dev, arch):
     from repro_torch.models.registry import resolve

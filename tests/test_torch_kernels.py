@@ -11,6 +11,9 @@ and ``chip_smoke.py``); here it is checked that a non-CPU tensor can
 never take the plain path.
 """
 
+import ctypes
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -226,6 +229,27 @@ def test_missing_nvcc_raises_at_build_not_at_import(monkeypatch, tmp_path):
             _build.load_library()
     finally:
         _build.load_library.cache_clear()
+
+
+_C_TYPES = {"int": ctypes.c_int, "int64_t": ctypes.c_int64,
+            "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("source", _build.SOURCES)
+def test_ctypes_signatures_match_the_c_entry_points(source):
+    """Each extern "C" entry point's parameters, read from its source, are
+    the argtypes ``load_library`` gives it: a parameter added or removed
+    on one side fails here, not at the first launch on the card."""
+    entries = re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                         (_build.CSRC / source).read_text())
+    assert entries
+    for name, params in entries:
+        types = []
+        for param in params.split(","):
+            words = param.replace("*", " * ").split()
+            types.append(ctypes.c_void_p if "*" in words
+                         else _C_TYPES[words[0]])
+        assert _build._SIGNATURES[name] == types, name
 
 
 def test_jax_stays_on_cpu():
