@@ -47,7 +47,29 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    concurrent slots of 4, ``max_new=8``), checks that ``rwkv6_wkv``
    launched, and prints prefill and decode tokens/s and peak memory;
 8. the same for zamba2-1.2b, checking that ``ssd_scan``,
-   ``flash_attention`` and ``flash_decode`` launched.
+   ``flash_attention`` and ``flash_decode`` launched;
+9. builds the paper's two RNN models at full width (the BiLSTM de-en and
+   the GRU fr-en, ``resolve("cnmt:<pair>", scale=1.0)``), holds each
+   against a CPU copy of the same weights (encoder outputs and carries
+   on a ragged batch of up to 128 tokens, four decode-step logits,
+   within 1e-4, or ten times the effect of a 1e-7 perturbation of the
+   embeddings where the recurrence amplifies rounding past that),
+   calibrates each card plane on phase 5's grid and prints alpha_N,
+   alpha_M and beta of all three models (the paper's Table I planes on
+   this card), with translate rates and the decode step eager vs from a
+   CUDA graph;
+10. split placement for each of the three models: ``build_executor(
+   model, kind="split")``, the legs bitwise equal to the fused translate
+   on the card (8 ragged requests), states encoded on the CPU copy
+   decoded on the card, then a three-tier ``CollaborativeEngine`` with
+   ``allow_split=True`` (a modelled device tier; the card as the edge,
+   carrying both legs; the card's decode leg behind the cp1 RTT trace as
+   a 5x faster cloud, the trace rescaled per model so that its mean
+   one-way delay sits inside the window where split(edge, cloud) is the
+   cheapest plan for that model's calibrated planes) serving 24
+   requests, checking that split plans ran on the real legs with the
+   shipped states' measured payload, and that Marian's split launched
+   both attention kernels.
 
 It prints one JSON line of kernel numbers (each kernel's launches summed
 over the main paths that run it) and, last, the line
@@ -58,6 +80,7 @@ non-zero; without a card it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -411,8 +434,6 @@ def check_model(model, ops):
 
 # --------------------------------------------------------------- phase 5 --
 def main_path(model, ops):
-    from repro_torch.core.calibration import (make_edge_cloud_pair,
-                                              measure_seq2seq_grid)
     from repro_torch.core.length_regressor import LinearN2M, prefilter_pairs
     from repro_torch.core.profiles import make_profile
     from repro_torch.data.synthetic import make_corpus
@@ -420,22 +441,7 @@ def main_path(model, ops):
     from repro_torch.runtime.engine import CollaborativeEngine, Tier
 
     executor, batched_executor = make_executors(model)
-    translate = model.make_translate_batched()
-
-    def forced(tokens, m):
-        lens, out = translate(np.asarray(tokens, np.int32)[None], None, m)
-        return int(lens[0]), out[0]
-
-    t0 = time.perf_counter()
-    n, m, t = measure_seq2seq_grid(forced, (8, 32, 128),
-                                   lambda nn: (8, 64, 256), reps=2,
-                                   vocab=model.cfg.vocab_src)
-    edge_prof, cloud_prof = make_edge_cloud_pair(n, m, t, speedup=5.0)
-    log(f"  card plane from {len(t)} timed translates "
-        f"({time.perf_counter() - t0:.1f}s): "
-        f"aN={edge_prof.model.alpha_n * 1e3:.4f}ms "
-        f"aM={edge_prof.model.alpha_m * 1e3:.4f}ms "
-        f"b={edge_prof.model.beta * 1e3:.2f}ms")
+    edge_prof, cloud_prof = calibrate(model)
 
     corpus = make_corpus("en-zh", 2200, seed=1, with_tokens=True)
     fit, eval_ = corpus.split(2000)
@@ -483,7 +489,7 @@ def main_path(model, ops):
     for name in ("flash_attention", "flash_decode"):
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
-    return launches
+    return launches, edge_prof, cloud_prof
 
 
 # --------------------------------------------------------------- phase 6 --
@@ -922,6 +928,289 @@ def lm_phase(name, ops, needed):
     return launches
 
 
+# ---------------------------------------------------------- phases 9-10 --
+RAGGED = [128, 37, 64, 5, 100, 128, 1, 23]
+
+
+def ragged_batch(vocab, lens, seed=0):
+    rng = np.random.default_rng(seed)
+    src = np.zeros((len(lens), max(lens)), np.int32)
+    mask = np.zeros(src.shape, np.float32)
+    for i, L in enumerate(lens):
+        src[i, :L] = rng.integers(4, vocab, L)
+        mask[i, :L] = 1.0
+    return src, mask
+
+
+def rnn_outputs(model, src, mask):
+    """The encoder's states (outputs with zeros at the pads, carries, mask)
+    and four decode-step logits on fixed tokens, flattened."""
+    from repro_torch.nmt.common import _leaves
+    state = model.make_encode_states()(src, mask).data
+    with torch.inference_mode():
+        enc = torch.cat([t.float().flatten() for t in _leaves(state)])
+        logits = []
+        for tok in (1, 17, 42, 99):
+            state, lg = model.decode_step(state, torch.full(
+                (src.shape[0],), tok, dtype=torch.int32,
+                device=model.device))
+            logits.append(lg)
+        return enc.cpu(), torch.stack(logits).cpu()
+
+
+def rnn_phase(pair):
+    """Build the pair's RNN at full width on the card and hold it against
+    a CPU copy of the same weights."""
+    from repro_torch.models.registry import resolve
+
+    t0 = time.perf_counter()
+    r = resolve(f"cnmt:{pair}", scale=1.0, device="cuda", seed=0)
+    model = r.model
+    cpu = copy.deepcopy(model).to("cpu")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {r.name}: {type(model).__name__} {r.cfg} ({n_params / 1e6:.2f}M "
+        f"parameters, built in {time.perf_counter() - t0:.2f}s)")
+    src, mask = ragged_batch(r.cfg.vocab_src, RAGGED)
+    card = rnn_outputs(model, src, mask)
+    host = rnn_outputs(cpu, src, mask)
+    noisy = copy.deepcopy(cpu)
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for emb in (noisy.src_embed.weight, noisy.tgt_embed.weight):
+            emb.mul_(1 + 1e-7 * torch.randn(emb.shape, generator=gen))
+    floor = rnn_outputs(noisy, src, mask)
+    for what, got, want, fl in zip(("encoder states", "decode logits"), card,
+                                   host, floor):
+        err, noise = max_err(got, want), max_err(fl, want)
+        limit = MODEL_TOL if err <= MODEL_TOL else 10 * noise
+        log(f"  {what} B=8 N<=128: card vs CPU max_abs_err={err:.3e}; CPU "
+            f"vs CPU with the embeddings perturbed by 1e-7 {noise:.3e} (max "
+            f"|ref| {float(want.abs().max()):.3f}); limit {limit:.1e}"
+            + ("" if limit == MODEL_TOL else
+               " = ten times the perturbation's effect (past 1e-4)"))
+        if not (err <= limit and torch.isfinite(got).all()):
+            raise AssertionError(f"{r.name} {what} error {err} > {limit}")
+    translate_rate(model)
+    for b in (1, 8):
+        rnn_step_profile(model, b)
+    return model, cpu, r.name
+
+
+def rnn_step_profile(model, b):
+    """One RNN decode step at batch ``b``: eager wall time per step vs the
+    same step replayed from a CUDA graph (the host's launch cost)."""
+    src, mask = ragged_batch(model.cfg.vocab_src, [32] * b, seed=6)
+    state = model.make_encode_states()(src, mask).data
+    tok = torch.full((b,), 7, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        eager = eager_ms(lambda: model.decode_step(state, tok), iters=100,
+                         warmup=10)
+        device = device_ms(lambda: model.decode_step(state, tok),
+                           per_graph=20, replays=10)
+    log(f"  decode step B={b}: eager {eager:.4f}ms, device {device:.4f}ms, "
+        f"device busy {100 * device / eager:.1f}% of the eager step")
+
+
+def calibrate(model):
+    """The card tier's plane from forced-length translates (N in 8, 32,
+    128 by M in 8, 64, 256), and the 5x faster modelled cloud beside it."""
+    from repro_torch.core.calibration import (make_edge_cloud_pair,
+                                              measure_seq2seq_grid)
+    translate = model.make_translate_batched()
+
+    def forced(tokens, m):
+        lens, out = translate(np.asarray(tokens, np.int32)[None], None, m)
+        return int(lens[0]), out[0]
+
+    t0 = time.perf_counter()
+    n, m, t = measure_seq2seq_grid(forced, (8, 32, 128),
+                                   lambda nn: (8, 64, 256), reps=2,
+                                   vocab=model.cfg.vocab_src)
+    edge_prof, cloud_prof = make_edge_cloud_pair(n, m, t, speedup=5.0)
+    log(f"  card plane from {len(t)} timed translates "
+        f"({time.perf_counter() - t0:.1f}s): "
+        f"aN={edge_prof.model.alpha_n * 1e3:.4f}ms "
+        f"aM={edge_prof.model.alpha_m * 1e3:.4f}ms "
+        f"b={edge_prof.model.beta * 1e3:.2f}ms")
+    return edge_prof, cloud_prof
+
+
+def fused_executor(model):
+    """``executor(tokens) -> (m_out, tokens)``: the fused translate at B=1,
+    the split decode leg's output contract."""
+    translate = model.make_translate_batched()
+    top = model.cfg.vocab_src - 1
+
+    def executor(tokens):
+        lens, out = translate(np.minimum(np.asarray(tokens, np.int32),
+                                         top)[None])
+        m = int(lens[0])
+        return m, out[0, :max(m, 1)]
+
+    return executor
+
+
+def cloud_delay_scale(edge_prof, cloud_prof, n2m, ns, ship_s, edge_rtt_s,
+                      mean_rtt_s):
+    """Scale for the cloud's replayed RTT trace that puts the engine in the
+    split regime for these planes.
+
+    With the cloud's one-way delay r, ``plan_cost_fast`` makes split(edge,
+    cloud) cheaper than whole(cloud) once r exceeds
+
+        lo(n) = (aN_e - aN_c) n + (b_e - b_c)/2 + rtt_e/2 + ship(n)
+
+    and cheaper than whole(edge) while r stays below
+
+        hi(n) = (aM_e - aM_c) m_hat(n) + (b_e - b_c)/2 + rtt_e/2 - ship(n)
+
+    (token serialization terms dropped: microseconds).  A model fast enough
+    on the card has hi below cp1's 45 ms and never splits, so the trace is
+    scaled to put its mean one-way delay at sqrt(lo * hi) over the stream's
+    means: the same ratio of margin on either side.  Returns (scale, lo,
+    hi), lo and hi in seconds."""
+    e, c = edge_prof.model, cloud_prof.model
+    half_beta = 0.5 * (e.beta - c.beta)
+    lo, hi = [], []
+    for n, ship in zip(ns, ship_s):
+        m_hat = max(float(np.asarray(n2m.predict(float(n)))), 1.0)
+        lo.append((e.alpha_n - c.alpha_n) * n + half_beta + edge_rtt_s / 2
+                  + ship)
+        hi.append((e.alpha_m - c.alpha_m) * m_hat + half_beta
+                  + edge_rtt_s / 2 - ship)
+    lo, hi = float(np.mean(lo)), float(np.mean(hi))
+    if not 0.0 < lo < hi:
+        raise AssertionError(f"no cloud delay makes split(edge, cloud) the "
+                             f"cheapest plan: lo {lo} s >= hi {hi} s")
+    return 2.0 * float(np.sqrt(lo * hi)) / mean_rtt_s, lo, hi
+
+
+def split_phase(name, model, cpu, planes, ops):
+    """The split legs on the card: bitwise against the fused translate,
+    the wire from a CPU copy, then real split plans through the engine.
+    Returns the kernel launches of the engine run."""
+    from repro_torch.core.latency_model import (ActivationCostModel,
+                                                DeviceProfile)
+    from repro_torch.core.length_regressor import LinearN2M
+    from repro_torch.core.profiles import make_profile
+    from repro_torch.core.tx_estimator import LinkModel, TxEstimator
+    from repro_torch.data.synthetic import make_corpus
+    from repro_torch.nmt.common import _leaves
+    from repro_torch.runtime.engine import CollaborativeEngine, Tier
+    from repro_torch.runtime.serving import build_executor
+
+    vocab = model.cfg.vocab_src
+    enc, dec = build_executor(model, kind="split", vocab_clip=vocab)
+    fused = fused_executor(model)
+    lens = [37, 12, 64, 5, 50, 64, 1, 23]
+    src, mask = ragged_batch(vocab, lens, seed=2)
+    want = model.make_translate_batched()(src, mask)
+    got = model.make_decode_from_states()(
+        model.make_encode_states()(src, mask))
+    for w, g in zip(want, got):
+        if not np.array_equal(w, g):
+            raise AssertionError(f"{name}: split != fused on a batch of 8")
+    for i, L in enumerate(lens):
+        m, out = dec(enc(src[i, :L]))
+        m_f, out_f = fused(src[i, :L])
+        if m != m_f or not np.array_equal(out, out_f):
+            raise AssertionError(f"{name}: split != fused, request {i}")
+    log(f"  {name}: split legs == fused translate bitwise (a batch of 8 "
+        f"ragged requests and each alone; m_out {want[0].tolist()})")
+    host = cpu.make_encode_states()(src[:1, :lens[0]])
+    card = enc(src[0, :lens[0]])
+    err = max(max_err(h.to("cuda"), c) for h, c in zip(
+        _leaves((host.data, host.src_lens)),
+        _leaves((card.data, card.src_lens))))
+    m_wire, _ = dec(host)
+    log(f"  states encoded on the CPU copy vs on the card: max_abs_err="
+        f"{err:.3e}, {host.payload_bytes()} bytes; decoded on the card: "
+        f"m_out {m_wire} (card-encoded {dec(card)[0]})")
+    if not (err <= MODEL_TOL
+            and host.payload_bytes() == card.payload_bytes()):
+        raise AssertionError(f"{name}: CPU-encoded states differ by {err}")
+
+    shipped, received, decoded = [], [], []
+
+    def encode_leg(tokens):
+        states = enc(tokens)
+        shipped.append(states.payload_bytes())
+        return states
+
+    def decode_leg(states):
+        received.append(sum(t.numel() * t.element_size()
+                            for t in _leaves((states.data,
+                                              states.src_lens))))
+        out = dec(states)
+        decoded.append(out[0])
+        return out
+
+    edge_prof, cloud_prof = planes
+    # the N->M law of this model as it decodes (random weights run most
+    # rows to max_decode_len), fit on the 8 requests above
+    n2m = LinearN2M().fit(np.asarray(lens, np.float64),
+                          want[0].astype(np.float64))
+    log(f"  N->M fit on the model's own outputs: gamma={n2m.gamma:.4f} "
+        f"delta={n2m.delta:.4f}")
+    eval_ = make_corpus(name.split(":")[1], 24, seed=1, with_tokens=True)
+    reqs = [eval_.src[i][:64] for i in range(24)]
+    now = [2.0 * i for i in range(24)]
+    links = LinkModel(3)
+    links.add_link(1, 2, TxEstimator(init_rtt_s=4e-3, bandwidth_bps=1e9))
+    profile = make_profile("cp1", seed=1)
+    width = getattr(model.cfg, "d_model", None) or model.cfg.hidden
+    activation = ActivationCostModel(width, 4)
+    ns = [len(t) for t in reqs]
+    cp1_mean = float(np.mean([profile.rtt_at(t) for t in now]))
+    scale, lo, hi = cloud_delay_scale(
+        edge_prof, cloud_prof, n2m, ns,
+        [links.tx_time(1, 2, 0.0, float(activation.payload_bytes(n)),
+                       one_way=True) for n in ns], 5e-3, cp1_mean)
+    log(f"  split window for the cloud's one-way delay: {lo * 1e3:.3f}-"
+        f"{hi * 1e3:.3f}ms; cp1 (mean RTT {cp1_mean * 1e3:.3f}ms) scaled "
+        f"by {scale:.4f}")
+    engine = CollaborativeEngine(
+        tiers=[Tier(DeviceProfile("dev", edge_prof.model.scaled(0.25), 0.05),
+                    name="dev"),
+               Tier(edge_prof, name="edge", executor=fused,
+                    encode_executor=encode_leg, decode_executor=decode_leg,
+                    rtt_fn=lambda now: 5e-3, bandwidth_bps=200e6),
+               Tier(cloud_prof, name="cloud", decode_executor=decode_leg,
+                    rtt_fn=lambda now: scale * float(profile.rtt_at(now)))],
+        n2m=n2m, seed=0, links=links, activation=activation,
+        inter_rtt_fns={(1, 2): lambda now: 4e-3}, allow_split=True)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = [engine.submit(t, now_s=at) for t, at in zip(reqs, now)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    stats = engine.stats()
+    split = [r for r in results if r.plan is not None and r.plan.is_split]
+    for r in results:
+        plan = None if r.plan is None else (r.plan.encode_tier,
+                                            r.plan.decode_tier)
+        log(f"  req {r.req_id:2d} n={r.n:2d} plan={plan} -> "
+            f"{r.tier_name:5s} m_out={r.m_out:3d} "
+            f"latency={r.latency_s * 1e3:9.3f}ms")
+    log(f"  stats: {json.dumps(stats, sort_keys=True)}")
+    log(f"  split path wall {wall:.2f}s for 24 requests ({len(split)} split, "
+        f"payloads {sorted(set(shipped))} bytes), kernel launches "
+        f"{launches}")
+    if any(r.shed for r in results) or stats["split"] == 0 or not split:
+        raise AssertionError(f"{name}: no split plan ran, or a request "
+                             "was shed")
+    if not (len(shipped) == len(received) == len(decoded) == len(split)
+            and shipped == received
+            and [r.m_out for r in split] == decoded):
+        raise AssertionError(f"{name}: split results were not served by "
+                             "the real legs")
+    for r in results:
+        if not (np.isfinite(r.latency_s) and r.latency_s > 0):
+            raise AssertionError(f"bad latency {r}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a card",
@@ -960,7 +1249,8 @@ def main() -> int:
     check_model(model, ops)
 
     log("== phase 5: Marian main path through CollaborativeEngine")
-    paths = {"marian": main_path(model, ops)}
+    launches, *marian_planes = main_path(model, ops)
+    paths = {"marian": launches}
 
     log(f"== phase 6: timings on {smi}")
     rows, decode_ms = timings(gen)
@@ -978,6 +1268,33 @@ def main() -> int:
         "CollaborativeEngine")
     paths["zamba2-1.2b"] = lm_phase(
         "zamba2-1.2b", ops, ("ssd_scan", "flash_attention", "flash_decode"))
+
+    log("== phase 9: the paper's BiLSTM de-en and GRU fr-en at full width")
+    planes = {"cnmt:en-zh": marian_planes}
+    rnns = {}
+    for pair in ("de-en", "fr-en"):
+        model, cpu, name = rnn_phase(pair)
+        planes[name] = calibrate(model)
+        rnns[name] = (model, cpu)
+    log(f"  card planes (T = aN*N + aM*M + b) on {smi}:")
+    for name, (edge_prof, _) in planes.items():
+        pl = edge_prof.model
+        log(f"    {name}: aN={pl.alpha_n * 1e3:.5f}ms aM="
+            f"{pl.alpha_m * 1e3:.5f}ms b={pl.beta * 1e3:.4f}ms")
+
+    log("== phase 10: split placement on the card, all three models")
+    r = resolve("cnmt:en-zh", scale=1.0, device="cuda", seed=0)
+    models = {"cnmt:en-zh": (r.model, copy.deepcopy(r.model).to("cpu"))}
+    models.update(rnns)
+    for name, (model, cpu) in models.items():
+        paths[f"split {name}"] = split_phase(name, model, cpu, planes[name],
+                                             ops)
+    for name in ("flash_attention", "flash_decode"):
+        if paths["split cnmt:en-zh"][name] == 0:
+            raise AssertionError(f"Marian's split never launched {name}")
+    del models, rnns, r
+    gc.collect()
+    torch.cuda.empty_cache()
 
     for row in rows:
         row["launches"] = sum(c[row["name"]] for c in paths.values())

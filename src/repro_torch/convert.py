@@ -19,21 +19,38 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
+def _dense(sd, prefix, p) -> None:
+    """The reference's ``dense`` is ``x @ w + b`` with ``w`` of shape
+    (d_in, d_out); ``nn.Linear`` stores its weight as (d_out, d_in)."""
+    sd[f"{prefix}.weight"] = _t(p["w"]).T.contiguous()
+    sd[f"{prefix}.bias"] = _t(p["b"])
+
+
+def _cell(sd, prefix, p) -> None:
+    """An LSTM or GRU cell's ``wx``/``wh``/``b``, in the reference's
+    layout, which the port's cells keep."""
+    for name in ("wx", "wh", "b"):
+        sd[f"{prefix}.{name}"] = _t(p[name])
+
+
+def _embeddings(sd, tree) -> None:
+    sd["src_embed.weight"] = _t(tree["src_embed"])
+    sd["tgt_embed.weight"] = _t(tree["tgt_embed"])
+
+
 def marian_params_from_jax(tree) -> Dict[str, torch.Tensor]:
     """State dict of :class:`repro_torch.nmt.transformer.MarianTransformer`
     from the reference ``MarianTransformer.init`` pytree.
 
-    The reference's ``dense`` is ``x @ w + b`` with ``w`` of shape
-    (d_in, d_out); ``nn.Linear`` stores its weight as (d_out, d_in), so
-    every dense weight is transposed.  Layer-norm ``g``/``b`` become
-    ``weight``/``bias``; embeddings keep their (vocab, d_model) layout.
-    Load the result with ``model.load_state_dict(...)``.
+    Every dense weight is transposed to ``nn.Linear``'s (d_out, d_in).
+    Layer-norm ``g``/``b`` become ``weight``/``bias``; embeddings keep
+    their (vocab, d_model) layout.  Load the result with
+    ``model.load_state_dict(...)``.
     """
     sd: Dict[str, torch.Tensor] = {}
 
     def dense(prefix, p):
-        sd[f"{prefix}.weight"] = _t(p["w"]).T.contiguous()
-        sd[f"{prefix}.bias"] = _t(p["b"])
+        _dense(sd, prefix, p)
 
     def layer_norm(prefix, p):
         sd[f"{prefix}.weight"] = _t(p["g"])
@@ -59,9 +76,39 @@ def marian_params_from_jax(tree) -> Dict[str, torch.Tensor]:
         layer_norm(f"dec.{i}.ln2", layer["ln2"])
         ffn(f"dec.{i}.ffn", layer["ffn"])
         layer_norm(f"dec.{i}.ln3", layer["ln3"])
-    sd["src_embed.weight"] = _t(tree["src_embed"])
-    sd["tgt_embed.weight"] = _t(tree["tgt_embed"])
+    _embeddings(sd, tree)
     dense("out", tree["out"])
+    return sd
+
+
+def gru_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """State dict of :class:`repro_torch.nmt.gru.GRUSeq2Seq` from the
+    reference ``GRUSeq2Seq.init`` pytree: dense weights transposed, the
+    cells' ``wx``/``wh``/``b`` as they are.  Load the result with
+    ``model.load_state_dict(...)``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _embeddings(sd, tree)
+    _cell(sd, "enc", tree["enc"])
+    _cell(sd, "dec", tree["dec"])
+    _dense(sd, "out", tree["out"])
+    return sd
+
+
+def bilstm_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """State dict of :class:`repro_torch.nmt.lstm.BiLSTMSeq2Seq` from the
+    reference ``BiLSTMSeq2Seq.init`` pytree: dense weights transposed,
+    the cells' ``wx``/``wh``/``b`` as they are.  Load the result with
+    ``model.load_state_dict(...)``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _embeddings(sd, tree)
+    for i, layer in enumerate(tree["enc"]):
+        _cell(sd, f"enc.{i}.fwd", layer["fwd"])
+        _cell(sd, f"enc.{i}.bwd", layer["bwd"])
+        _dense(sd, f"enc.{i}.proj", layer["proj"])
+    for i, p in enumerate(tree["dec"]):
+        _cell(sd, f"dec.{i}", p)
+    _dense(sd, "attn_combine", tree["attn_combine"])
+    _dense(sd, "out", tree["out"])
     return sd
 
 

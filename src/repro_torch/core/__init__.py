@@ -11,9 +11,10 @@ Pipeline (paper §II):
   7. ``faults``            — deterministic fault injection + retry/circuit
                              breaker policies for fault-tolerant serving
                              (beyond paper).
-
-The discrete-event simulator and the arrival processes are not ported
-yet.
+  8. ``simulator``         — the 100k-request experiment of §III and its
+                             queue-aware discrete-event extension (DES).
+  9. ``arrivals``          — seeded arrival processes for the DES and the
+                             load generator.
 """
 
 from repro_torch.core.length_regressor import (
@@ -52,6 +53,24 @@ from repro_torch.core.faults import (
     TierOutage,
 )
 from repro_torch.core.profiles import ConnectionProfile, make_profile
+from repro_torch.core.arrivals import (
+    bursty_arrivals,
+    load_trace,
+    poisson_arrivals,
+    save_trace,
+)
+from repro_torch.core.simulator import (
+    DESResult,
+    RequestStream,
+    SimTier,
+    SimulationResult,
+    make_poisson_stream,
+    make_stream,
+    make_trace_stream,
+    simulate,
+    simulate_des,
+    table1_row,
+)
 
 __all__ = [
     "LinearN2M",
@@ -84,4 +103,18 @@ __all__ = [
     "TierOutage",
     "ConnectionProfile",
     "make_profile",
+    "bursty_arrivals",
+    "load_trace",
+    "poisson_arrivals",
+    "save_trace",
+    "DESResult",
+    "RequestStream",
+    "SimTier",
+    "SimulationResult",
+    "make_poisson_stream",
+    "make_stream",
+    "make_trace_stream",
+    "simulate",
+    "simulate_des",
+    "table1_row",
 ]

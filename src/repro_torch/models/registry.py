@@ -13,10 +13,10 @@ and scale rules:
   the reduced CPU variant, ``size="full"`` the assigned configuration.
 
 Unlike the reference, :func:`resolve` returns the model with its weights
-already drawn (from ``seed``, on ``device``).  This slice builds the
-Marian transformer and the two recurrent LMs.  ``"cnmt:de-en"`` (BiLSTM),
-``"cnmt:fr-en"`` (GRU) and the other eight LM names raise
-``NotImplementedError`` until their slices land.
+already drawn (from ``seed``, on ``device``).  It builds the paper's
+three NMT models (BiLSTM de-en, GRU fr-en, Marian en-zh) and the two
+recurrent LMs; the other eight LM names raise ``NotImplementedError``
+until their slices land.
 """
 
 from __future__ import annotations
@@ -24,9 +24,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-from repro_torch.nmt.common import TransformerConfig
+from repro_torch.nmt.common import RNNConfig, TransformerConfig
+from repro_torch.nmt.gru import GRUSeq2Seq
+from repro_torch.nmt.lstm import BiLSTMSeq2Seq
 from repro_torch.nmt.registry import PAPER_MODELS
 from repro_torch.nmt.transformer import MarianTransformer
+
+_NMT_CLASSES = {"bilstm": BiLSTMSeq2Seq, "gru": GRUSeq2Seq,
+                "marian": MarianTransformer}
 
 # repro_torch.configs and models.model are imported where they are used:
 # repro_torch.configs imports repro_torch.models.config, so a module-level
@@ -39,7 +44,7 @@ class ResolvedModel:
     drawn from ``seed``) plus enough metadata to route it."""
     name: str                 # canonical registry name
     family: str               # "nmt" | "lm"
-    model: object             # MarianTransformer or LM
+    model: object             # BiLSTM/GRU/Marian seq2seq or LM
     cfg: object               # its config object
     pair: Optional[str] = None   # language pair (nmt only)
 
@@ -55,18 +60,21 @@ def _normalize_pair(pair: str) -> str:
 
 
 def nmt_config(dataset: str, *, scale: float = 1.0, vocab: int = 8000,
-               max_decode_len: int = 256) -> TransformerConfig:
-    """The paper's model configuration for ``dataset`` (§III).
+               max_decode_len: int = 256):
+    """The paper's model configuration for ``dataset`` (§III): an
+    :class:`RNNConfig` for the BiLSTM and the GRU, a
+    :class:`TransformerConfig` for Marian.
 
-    ``scale`` shrinks widths/layers (scale=1 is the paper's size); the
-    rules are the reference's, so both packages build the same shapes.
+    ``scale`` shrinks widths (and Marian's layers; an RNN's ``layers`` is
+    not scaled); scale=1 is the paper's size.  The rules are the
+    reference's, so both packages build the same shapes.
     """
-    family, hp, pair = PAPER_MODELS[dataset]
-    if family != "marian":
-        raise NotImplementedError(
-            f"the {family} model of {pair!r} is not ported yet: the RNN "
-            "models come in the slice after the Marian one")
+    family, hp, _ = PAPER_MODELS[dataset]
     s = lambda v: max(8, int(v * scale))
+    if family in ("bilstm", "gru"):
+        return RNNConfig(vocab_src=vocab, vocab_tgt=vocab,
+                         embed=s(hp["embed"]), hidden=s(hp["hidden"]),
+                         layers=hp["layers"], max_decode_len=max_decode_len)
     heads = min(8, max(2, int(8 * scale)))
     d_model = max(heads * 8, (s(hp["d_model"]) // heads) * heads)
     return TransformerConfig(
@@ -82,8 +90,7 @@ def nmt_config(dataset: str, *, scale: float = 1.0, vocab: int = 8000,
 def available() -> Tuple[str, ...]:
     """Canonical names this registry resolves."""
     from repro_torch.configs import PORTED
-    return tuple(f"cnmt:{p}" for p, (fam, _, _) in PAPER_MODELS.items()
-                 if fam == "marian") + PORTED
+    return tuple(f"cnmt:{p}" for p in PAPER_MODELS) + PORTED
 
 
 def resolve(name: str, *, size: str = "smoke",
@@ -106,7 +113,8 @@ def resolve(name: str, *, size: str = "smoke",
         pair = _normalize_pair(key.split(":", 1)[-1])
         cfg = nmt_config(pair, scale=scale, vocab=vocab,
                          max_decode_len=max_decode_len)
-        model = MarianTransformer(cfg, device=device, seed=seed)
+        model = _NMT_CLASSES[PAPER_MODELS[pair][0]](cfg, device=device,
+                                                    seed=seed)
         return ResolvedModel(name=f"cnmt:{pair}", family="nmt",
                              model=model, cfg=cfg, pair=pair)
     arch = key.replace("_", "-")

@@ -1,7 +1,9 @@
-"""Shared building blocks for the seq2seq models (the Marian half).
+"""Shared building blocks for the paper's three seq2seq models.
 
-Port of ``repro/nmt/common.py``.  Two greedy-decode paths live here, with
-opposite goals:
+Port of ``repro/nmt/common.py``: the configs, the LSTM and GRU cells and
+their scans, Luong attention, the split placement's
+:class:`EncoderStates` hand-off and its two legs, and the greedy decode
+loops.  Two greedy-decode paths live here, with opposite goals:
 
 * :func:`greedy_decode` — the HOST loop: one model step per token and
   one host sync per token (``int(token)``).  Its wall-clock is linear in
@@ -13,8 +15,10 @@ opposite goals:
   host, so the CPU enqueues kernels ahead of the card; the results come
   back in one transfer at the end (:func:`build_translate_batched`).
 
-The RNN cells, ``masked_scan_rnn``, ``EncoderStates`` and the split
-encode/decode legs are not ported yet.
+The cells are plain tensor ops (not ``nn.LSTM`` / ``nn.GRU``, whose
+cuDNN cells differ: the LSTM here adds a fixed +1 to the forget gate,
+the GRU carries its bias on the input side only), so the same code runs
+on the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -28,6 +32,16 @@ from torch import nn
 from torch.nn.utils import skip_init
 
 from repro_torch.data.tokenizer import BOS_ID, EOS_ID, PAD_ID
+
+
+@dataclasses.dataclass(frozen=True)
+class RNNConfig:
+    vocab_src: int = 8000
+    vocab_tgt: int = 8000
+    embed: int = 256
+    hidden: int = 256
+    layers: int = 1
+    max_decode_len: int = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +82,126 @@ def dense(d_in: int, d_out: int, *, device: torch.device,
         glorot_(lin.weight, generator)
         lin.bias.zero_()
     return lin
+
+
+# ----------------------------------------------------------------- cells --
+class _Cell(nn.Module):
+    """The weights of one recurrent cell, stored as the reference stores
+    them: ``wx`` (d_in, G*H), ``wh`` (H, G*H) glorot, ``b`` (G*H,) zero.
+
+    ``project(x)`` is the input side of the cell; a scan applies it to
+    every step at once (one GEMM) and ``step(carry, xw)`` runs the rest
+    one step at a time.  ``cell(carry, x)`` is both for one step."""
+
+    GATES = 0
+
+    def __init__(self, d_in: int, hidden: int, *, device: torch.device,
+                 generator: torch.Generator):
+        super().__init__()
+        width = self.GATES * hidden
+        self.wx = nn.Parameter(torch.empty((d_in, width), device=device),
+                               requires_grad=False)
+        self.wh = nn.Parameter(torch.empty((hidden, width), device=device),
+                               requires_grad=False)
+        self.b = nn.Parameter(torch.zeros((width,), device=device),
+                              requires_grad=False)
+        with torch.no_grad():
+            glorot_(self.wx, generator)
+            glorot_(self.wh, generator)
+
+    def forward(self, carry, x):
+        return self.step(carry, self.project(x))
+
+
+class LSTMCell(_Cell):
+    """The reference's LSTM cell; carry = (h, c), gates (i, f, g, o) and a
+    fixed +1 on the forget gate."""
+
+    GATES = 4
+
+    def project(self, x):
+        return x @ self.wx
+
+    def step(self, carry, xw):
+        h, c = carry
+        gates = xw + h @ self.wh + self.b   # the reference's order of adds
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        return (h, c), h
+
+
+class GRUCell(_Cell):
+    """The reference's GRU cell; carry = h, the bias on the input side
+    only (``n = tanh(xn + r * hn)``)."""
+
+    GATES = 3
+
+    def project(self, x):
+        return x @ self.wx + self.b
+
+    def step(self, h, xz):
+        xr, xu, xn = xz.chunk(3, dim=-1)
+        hr, hu, hn = (h @ self.wh).chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        u = torch.sigmoid(xu + hu)
+        n = torch.tanh(xn + r * hn)
+        h = (1.0 - u) * n + u * h
+        return h, h
+
+
+def scan_rnn(cell: _Cell, init_carry, xs, reverse: bool = False):
+    """Run ``cell`` over the leading (time) axis of ``xs`` (N, d).
+    Returns ``(final_carry, outs (N, H))``."""
+    xw = cell.project(xs)
+    carry, outs = init_carry, [None] * xs.shape[0]
+    steps = range(xs.shape[0])
+    for t in (reversed(steps) if reverse else steps):
+        carry, outs[t] = cell.step(carry, xw[t])
+    return carry, torch.stack(outs)
+
+
+def _where(keep, new, old):
+    if isinstance(new, tuple):
+        return tuple(torch.where(keep, n, o) for n, o in zip(new, old))
+    return torch.where(keep, new, old)
+
+
+def masked_scan_rnn(cell: _Cell, init_carry, xs, mask,
+                    reverse: bool = False):
+    """Batched cell over the TIME axis of batch-major ``xs`` (B,N,d).
+
+    ``mask`` (B,N) freezes the carry on padding steps (the ragged
+    prefix-padded batches of the batched decode path), so the final
+    carry equals what the per-sequence unpadded scan would produce; pad
+    positions emit zeros.  ``reverse=True`` visits a prefix-padded row's
+    pad steps first, with the carry still at ``init_carry``.  Returns
+    ``(final_carry, outs (B,N,H))``.
+    """
+    xw = cell.project(xs)
+    keep = (mask > 0)[..., None]
+    carry, outs = init_carry, [None] * xs.shape[1]
+    steps = range(xs.shape[1])
+    for t in (reversed(steps) if reverse else steps):
+        new, out = cell.step(carry, xw[:, t])
+        carry = _where(keep[:, t], new, carry)
+        outs[t] = torch.where(keep[:, t], out, 0.0)
+    return carry, torch.stack(outs, dim=1)
+
+
+# ------------------------------------------------------------- attention --
+def luong_attention(query_h, enc_outs, enc_mask):
+    """Dot-product (Luong) attention: (H,), (N,H), (N,) -> context (H,)."""
+    scores = torch.where(enc_mask > 0, enc_outs @ query_h, -1e30)
+    return torch.softmax(scores, dim=-1) @ enc_outs
+
+
+def luong_attention_batch(query_h, enc_outs, enc_mask):
+    """Batched Luong: (B,H), (B,N,H), (B,N) -> context (B,H)."""
+    scores = torch.bmm(enc_outs, query_h[:, :, None])[:, :, 0]
+    scores = torch.where(enc_mask > 0, scores, -1e30)
+    w = torch.softmax(scores, dim=-1)
+    return torch.bmm(w[:, None, :], enc_outs)[:, 0]
 
 
 # ----------------------------------------------------------------- decode --
@@ -186,6 +320,113 @@ def batched_greedy_decode(decode_step, init_state, batch: int, max_len: int,
                              keep_eos=False, forced=forced_len is not None)
 
 
+def _decode_to_host(model, state, batch: int, forced_len):
+    """Batched greedy decode from ``state``, then the one transfer off the
+    device (it waits for the last kernel).  The fused translate and the
+    split decode leg both end here, so they run the same operations."""
+    lengths, toks = batched_greedy_decode(
+        model.decode_step, state, batch, model.cfg.max_decode_len,
+        forced_len, device=model.device)
+    host = torch.cat([lengths[:, None], toks], dim=1).cpu().numpy()
+    return host[:, 0], host[:, 1:]
+
+
+def _as_device_batch(model, src, src_mask):
+    """(B,N) tokens and a prefix mask (default all ones) as int32 and
+    float32 tensors on the model's device."""
+    src = np.asarray(src, np.int32)
+    mask = (np.ones(src.shape, np.float32) if src_mask is None
+            else np.asarray(src_mask, np.float32))
+    return (torch.as_tensor(src, device=model.device),
+            torch.as_tensor(mask, device=model.device))
+
+
+def _leaves(node):
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            yield from _leaves(child)
+    else:
+        yield node
+
+
+def _map(fn, node):
+    if isinstance(node, (tuple, list)):
+        return tuple(_map(fn, child) for child in node)
+    return fn(node)
+
+
+@dataclasses.dataclass
+class EncoderStates:
+    """The wire format of a split placement's encoder→decoder hand-off.
+
+    ``data`` is the model-specific encoder output, a nested tuple of
+    tensors (hidden state for the GRU, carries + annotation vectors +
+    mask for the BiLSTM, memory + mask for the transformer); ``src_lens``
+    (B,) int32 carries the true source lengths so the decode tier can
+    rebuild ragged masks without re-reading the tokens.
+    """
+
+    data: object
+    src_lens: torch.Tensor
+
+    @property
+    def batch(self) -> int:
+        return int(self.src_lens.shape[0])
+
+    def payload_bytes(self) -> int:
+        """Actual wire size: the sum of every tensor's bytes (what a split
+        executor reports to the engine, vs. the scheduler's a-priori
+        ``ActivationCostModel`` estimate)."""
+        return int(sum(t.numel() * t.element_size()
+                       for t in _leaves((self.data, self.src_lens))))
+
+    def to(self, device) -> "EncoderStates":
+        """The states on ``device``: the decode leg's end of the wire."""
+        return EncoderStates(_map(lambda t: t.to(device), self.data),
+                             self.src_lens.to(device))
+
+
+def build_encode_states(model, encode_data):
+    """Shared scaffolding behind the models' ``make_encode_states``.
+
+    ``encode_data(src (B,N), src_mask (B,N)) -> nested tuple of tensors``
+    is the model-specific encoder pass; the wrapper packs its result
+    into :class:`EncoderStates` with the per-row source lengths.
+    ``encode_states(src, src_mask=None)`` takes numpy arrays; the states
+    stay on the model's device.
+    """
+    def encode_states(src, src_mask=None):
+        with torch.inference_mode():
+            src_t, mask_t = _as_device_batch(model, src, src_mask)
+            data = encode_data(src_t, mask_t)
+            lens = (mask_t > 0).sum(dim=-1, dtype=torch.int32)
+        return EncoderStates(data, lens)
+
+    return encode_states
+
+
+def build_decode_from_states(model, state_from_data):
+    """Shared scaffolding behind the models' ``make_decode_from_states``.
+
+    ``state_from_data(data) -> batched decode state`` rebuilds the
+    model's decode-step carry from the shipped :class:`EncoderStates`
+    payload (identity for the RNNs; the transformer re-derives its
+    cross-attention K/V cache decoder-side so only the raw memory
+    crosses the wire).  The states are first moved to the model's
+    device.  The decode itself is the batched greedy loop the fused
+    path runs, so ``decode_from_states(encode_states(src, mask))`` equals
+    ``make_translate_batched()(src, mask)`` bit for bit on one device.
+    Returns ``(lengths (B,), tokens (B, steps))`` numpy int32.
+    """
+    def decode_from_states(states: EncoderStates, forced_len=None):
+        states = states.to(model.device)
+        with torch.inference_mode():
+            return _decode_to_host(model, state_from_data(states.data),
+                                   states.batch, forced_len)
+
+    return decode_from_states
+
+
 def build_translate_batched(model, make_state, *, compiled: bool = True):
     """Shared scaffolding behind the models' ``make_translate_batched``.
 
@@ -208,18 +449,10 @@ def build_translate_batched(model, make_state, *, compiled: bool = True):
         return translate_host
 
     def translate_batch(src, src_mask=None, forced_len=None):
-        src = np.asarray(src, np.int32)
-        mask = (np.ones(src.shape, np.float32) if src_mask is None
-                else np.asarray(src_mask, np.float32))
         with torch.inference_mode():
-            state = make_state(torch.as_tensor(src, device=model.device),
-                               torch.as_tensor(mask, device=model.device))
-            lengths, toks = batched_greedy_decode(
-                model.decode_step, state, src.shape[0],
-                model.cfg.max_decode_len, forced_len, device=model.device)
-            # the one transfer off the device; it waits for the last kernel
-            host = torch.cat([lengths[:, None], toks], dim=1).cpu().numpy()
-        return host[:, 0], host[:, 1:]
+            src_t, mask_t = _as_device_batch(model, src, src_mask)
+            return _decode_to_host(model, make_state(src_t, mask_t),
+                                   src_t.shape[0], forced_len)
 
     return translate_batch
 

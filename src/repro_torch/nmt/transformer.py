@@ -41,6 +41,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.nmt.common import (
     TransformerConfig,
+    build_decode_from_states,
+    build_encode_states,
     build_translate_batched,
     dense,
     embed_init_,
@@ -297,6 +299,31 @@ class MarianTransformer(nn.Module):
         def checked(src, src_mask=None, forced_len=None):
             self._check_forced_len(forced_len)
             return translate(src, src_mask, forced_len)
+
+        return checked
+
+    def make_encode_states(self):
+        """Encode leg of a split placement: ships only the encoder memory
+        (B,N,D) and the mask — NOT the decoder cache.  The cross-attention
+        K/V projections use *decoder* weights, so they are rebuilt on the
+        decode tier (``make_decode_from_states``), keeping the wire
+        payload at n x d_model as the scheduler's ``ActivationCostModel``
+        prices it."""
+        return build_encode_states(self, self.encode)
+
+    def make_decode_from_states(self):
+        """Decode leg: rebuilds the cache (cross K/V projections and empty
+        self K/V) from the shipped memory with ``init_cache``, then runs
+        the batched greedy loop of the fused path."""
+        def state_from_data(data):
+            enc_outs, mask = data
+            return self.init_cache(enc_outs, mask)
+
+        decode = build_decode_from_states(self, state_from_data)
+
+        def checked(states, forced_len=None):
+            self._check_forced_len(forced_len)
+            return decode(states, forced_len)
 
         return checked
 

@@ -144,7 +144,7 @@ class Tier:
     # ContinuousGenerationSession — marks the tier for serve_continuous's
     # in-flight batching (slot-table space replaces server space there)
     continuous_session: Optional[object] = None
-    # Split-placement legs (not ported yet, so inert without them): the
+    # Split-placement legs (serving.build_executor kind="split"): the
     # tier can run just the encoder (tokens -> EncoderStates) and/or just
     # the decoder (EncoderStates -> (m_out, tokens)).  Both tiers of a
     # split plan need their respective leg for REAL execution; otherwise

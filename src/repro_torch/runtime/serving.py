@@ -23,9 +23,9 @@ and the batched executor runs one sub-batch per distinct prompt length.
 :func:`build_executor` is the one factory for the executor shapes a
 :class:`~repro_torch.runtime.engine.Tier` accepts: ``kind="solo"``
 (per-request), ``kind="batched"`` (one drained ``TokenBatcher`` block per
-call), ``kind="raw"`` (pass-through, to apply ``faults=``).  ``kind=
-"split"`` needs the RNN models' ``EncoderStates`` legs, which come in a
-later slice.  :class:`ContinuousGenerationSession` and the sharded
+call), ``kind="split"`` (the two legs of a split placement over an NMT
+model's ``EncoderStates``), ``kind="raw"`` (pass-through, to apply
+``faults=``).  :class:`ContinuousGenerationSession` and the sharded
 sessions are not ported yet.
 """
 
@@ -143,7 +143,39 @@ def _batched_executor(session: "GenerationSession", *, max_new: int = 16,
     return executor
 
 
-def build_executor(session_or_executor, *, kind: str = "solo",
+def _split_executors(model, *, vocab_clip: Optional[int] = None
+                     ) -> Tuple[Callable, Callable]:
+    """Adapt an NMT model into the two LEGS of a split placement.
+
+    Returns ``(encode_executor, decode_executor)`` for
+    :class:`~repro_torch.runtime.engine.Tier`:
+
+    * ``encode_executor(tokens) -> EncoderStates`` runs just the encoder
+      (1-D int token array in, states on the model's device out);
+    * ``decode_executor(states) -> (m_out, out_tokens)`` moves the states
+      onto its model's device and runs the batched greedy decode.
+
+    ``decode_executor(encode_executor(t))`` is bit for bit the fused
+    ``make_translate_batched`` path on one device — splitting is a
+    placement choice, never a quality change.  Give the encode tier the
+    first and the decode tier the second; a tier serving both legs of
+    different requests can carry both.
+    """
+    encode_states = model.make_encode_states()
+    decode_from_states = model.make_decode_from_states()
+
+    def encode_executor(tokens: np.ndarray):
+        return encode_states(_clip(tokens, vocab_clip)[None, :])
+
+    def decode_executor(states):
+        lens, out = decode_from_states(states)
+        m = int(lens[0])
+        return m, out[0, :max(m, 1)]
+
+    return encode_executor, decode_executor
+
+
+def build_executor(session_or_model, *, kind: str = "solo",
                    max_new: int = 16, vocab_clip: Optional[int] = None,
                    faults=None, fault_message: str = "injected tier fault"):
     """The one factory for the executor shapes a Tier accepts.
@@ -153,28 +185,39 @@ def build_executor(session_or_executor, *, kind: str = "solo",
     * ``"batched"`` — the same in; the real batched ``executor(batch,
       lengths=None) -> [(m_out, tokens), ...]`` the engine's
       ``submit_batch`` drives (``Tier.batched_executor``).
+    * ``"split"`` — an NMT model in (its weights live in it, so no
+      ``params=``); the ``(encode_executor, decode_executor)`` pair of a
+      split placement out (``Tier.encode_executor`` /
+      ``Tier.decode_executor``).
     * ``"raw"`` — an executor callable in, passed through (to apply
       ``faults=``).
-    * ``"split"`` — not ported yet (it needs the NMT models'
-      ``EncoderStates`` legs).
 
     ``faults`` wraps the result with deterministic fault injection (see
-    :class:`TierFaultError`); the wrapper exposes ``.calls``.
+    :class:`TierFaultError`); the wrapper exposes ``.calls``.  It composes
+    with every kind except ``"split"`` (two legs — wrap each leg with
+    ``kind="raw"``).
     """
     if kind == "solo":
-        executor = _solo_executor(session_or_executor, max_new=max_new,
+        executor = _solo_executor(session_or_model, max_new=max_new,
                                   vocab_clip=vocab_clip)
     elif kind == "batched":
-        executor = _batched_executor(session_or_executor, max_new=max_new,
+        executor = _batched_executor(session_or_model, max_new=max_new,
                                      vocab_clip=vocab_clip)
     elif kind == "raw":
-        if not callable(session_or_executor):
+        if not callable(session_or_model):
             raise ValueError("kind='raw' expects an executor callable")
-        executor = session_or_executor
+        executor = session_or_model
     elif kind == "split":
-        raise NotImplementedError(
-            "kind='split' needs the EncoderStates legs of the NMT models, "
-            "which come with the RNN slice of the port")
+        if faults is not None:
+            raise ValueError(
+                "faults= does not compose with kind='split' (two legs); "
+                "wrap each leg via build_executor(leg, kind='raw', "
+                "faults=...)")
+        if not hasattr(session_or_model, "make_encode_states"):
+            raise ValueError(
+                "kind='split' expects an NMT model with make_encode_states, "
+                f"got {type(session_or_model).__name__}")
+        return _split_executors(session_or_model, vocab_clip=vocab_clip)
     else:
         raise ValueError(
             f"kind must be 'solo'|'batched'|'split'|'raw', got {kind!r}")

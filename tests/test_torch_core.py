@@ -227,6 +227,8 @@ def test_importing_the_port_loads_no_jax_or_reference_modules():
         "import repro_torch, repro_torch.core, repro_torch.data\n"
         "import repro_torch.kernels.ops, repro_torch.nmt, repro_torch.convert\n"
         "import repro_torch.models, repro_torch.runtime\n"
+        "import repro_torch.nmt.gru, repro_torch.nmt.lstm\n"
+        "import repro_torch.core.simulator, repro_torch.core.arrivals\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith"
         "('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

@@ -13,6 +13,8 @@ kernels, 2e-4 for ``rwkv6_wkv`` and 3e-4 for ``ssd_scan``, those of
 reductions run in another order through every layer.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -438,3 +440,76 @@ def test_smoke_lm_on_the_card_matches_the_cpu(dev, arch):
                 seq.append(logits)
             outs.append(torch.stack(seq).cpu())
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+
+
+def _ragged_batch(lens, vocab, seed=0):
+    rng = np.random.default_rng(seed)
+    src = np.zeros((len(lens), max(lens)), np.int32)
+    mask = np.zeros(src.shape, np.float32)
+    for i, L in enumerate(lens):
+        src[i, :L] = rng.integers(4, vocab, L)
+        mask[i, :L] = 1.0
+    return src, mask
+
+
+def _tensors(state):
+    from repro_torch.nmt.common import _leaves
+    return list(_leaves(state))
+
+
+def _nmt(family, dev):
+    from repro_torch.nmt import BiLSTMSeq2Seq, GRUSeq2Seq, RNNConfig
+    if family == "marian":
+        return MarianTransformer(TransformerConfig(
+            vocab_src=64, vocab_tgt=64, d_model=64, heads=4, d_ff=128,
+            enc_layers=2, dec_layers=2, max_decode_len=12), device=dev,
+            seed=3)
+    cls = GRUSeq2Seq if family == "gru" else BiLSTMSeq2Seq
+    return cls(RNNConfig(vocab_src=64, vocab_tgt=64, embed=32, hidden=32,
+                         layers=2, max_decode_len=12), device=dev, seed=3)
+
+
+@pytest.mark.parametrize("family", ["gru", "bilstm"])
+def test_rnn_on_the_card_matches_the_cpu(dev, family):
+    """Encoder outputs and carries on a ragged batch, then four decode-step
+    logits, on the card and on a CPU copy of the same weights."""
+    card = _nmt(family, dev)
+    cpu = copy.deepcopy(card).to("cpu")
+    src, mask = _ragged_batch([9, 3, 12, 1], 64)
+    outs = []
+    for model in (card, cpu):
+        state = model.make_encode_states()(src, mask).data
+        with torch.inference_mode():
+            seq = [t.flatten() for t in _tensors(state)]
+            for tok in (1, 17, 42, 9):
+                state, logits = model.decode_step(state, torch.full(
+                    (4,), tok, dtype=torch.int32, device=model.device))
+                seq.append(logits.flatten())
+            outs.append(torch.cat(seq).cpu())
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("family", ["gru", "bilstm", "marian"])
+def test_split_equals_fused_bitwise_on_the_card(dev, family):
+    """``decode(encode(src))`` runs the fused path's operations on the
+    card, so its tokens are the fused translate's, bit for bit; states
+    encoded on a CPU copy decode on the card through ``to``."""
+    from repro_torch.runtime.serving import build_executor
+    model = _nmt(family, dev)
+    src, mask = _ragged_batch([9, 3, 12, 1, 7, 12, 5, 2], 64, seed=1)
+    for forced in (None, 5):
+        want = model.make_translate_batched()(src, mask, forced_len=forced)
+        got = model.make_decode_from_states()(
+            model.make_encode_states()(src, mask), forced_len=forced)
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(g, w)
+    cpu = copy.deepcopy(model).to("cpu")
+    enc, dec = build_executor(model, kind="split")
+    host_states = cpu.make_encode_states()(src[:1, :9])
+    card_states = enc(src[0, :9])
+    assert host_states.payload_bytes() == card_states.payload_bytes()
+    for h, c in zip(_tensors((host_states.data, host_states.src_lens)),
+                    _tensors((card_states.data, card_states.src_lens))):
+        torch.testing.assert_close(h.to(dev), c, rtol=1e-4, atol=1e-4)
+    m, out = dec(host_states)                      # the wire: CPU -> card
+    assert 0 <= m <= 12 and len(out) == max(m, 1)

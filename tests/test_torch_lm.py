@@ -240,7 +240,7 @@ def test_executors_solo_batched_raw_and_faults():
         faulty(reqs[0])
     assert faulty.calls == {"n": 2, "faults": 1}
     assert build_executor(solo, kind="raw") is solo
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="make_encode_states"):
         build_executor(sess, kind="split")
     with pytest.raises(ValueError):
         build_executor(42, kind="raw")

@@ -238,8 +238,7 @@ def test_registry_scale_rules_match_jax(scale):
     assert r.name == "cnmt:en-zh" and r.pair == "en-zh" and r.cfg == got
 
 
-@pytest.mark.parametrize("name", ["cnmt:de-en", "en-de", "cnmt:fr-en",
-                                  "qwen3_8b", "whisper-large-v3"])
+@pytest.mark.parametrize("name", ["qwen3_8b", "whisper-large-v3"])
 def test_registry_later_slices_raise_not_implemented(name):
     with pytest.raises(NotImplementedError):
         t_resolve(name, device="cpu")
