@@ -69,7 +69,27 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    cheapest plan for that model's calibrated planes) serving 24
    requests, checking that split plans ran on the real legs with the
    shipped states' measured payload, and that Marian's split launched
-   both attention kernels.
+   both attention kernels;
+11. trains the paper's three NMT models at full width through
+   ``launch/train_nmt.py``'s loop on their pairs' synthetic corpora at
+   B=32 and max_len 48: Marian en-zh 200 AdamW steps, the BiLSTM de-en
+   and the GRU fr-en 50 each.  Each checks a finite loss whose last-10
+   mean is below its first-10 mean, the first step's loss against a CPU
+   copy of the same weights and batch (within 1e-4 relative), that no
+   kernel launched while training, and a checkpoint in the reference's
+   format read back bitwise; it prints ms per step, target tokens/s and
+   peak memory.  The trained Marian's kernel-path ``forward_teacher``
+   (no grad) is held against its training path (within 1e-4), the same
+   call under autograd must raise (the kernels are forward-only), and a
+   greedy decode of 32 corpus sources prints the mean output length, the
+   N->M correlation and the share that reaches ``max_decode_len``
+   (reported, not gated);
+12. the LM train step (loss, gradients, clipping, AdamW) at full width
+   for zamba2-1.2b and rwkv6-3b, 5 steps each on one B=1 S=64 batch,
+   each model freed before the next: a finite loss that falls, no kernel
+   launched while training, and ``train_logits``' last position against
+   ``prefill``'s kernel-path logits (phases 7-8's rule); it prints ms
+   per step and peak memory.
 
 It prints one JSON line of kernel numbers (each kernel's launches summed
 over the main paths that run it) and, last, the line
@@ -87,6 +107,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1067,8 +1088,12 @@ def cloud_delay_scale(edge_prof, cloud_prof, n2m, ns, ship_s, edge_rtt_s,
     (token serialization terms dropped: microseconds).  A model fast enough
     on the card has hi below cp1's 45 ms and never splits, so the trace is
     scaled to put its mean one-way delay at sqrt(lo * hi) over the stream's
-    means: the same ratio of margin on either side.  Returns (scale, lo,
-    hi), lo and hi in seconds."""
+    means: the same ratio of margin on either side.  The plane's beta is
+    an intercept fitted to wall times of up to a second, so its noise can
+    take lo to 0 or below: split then beats whole(cloud) at any delay, and
+    the window starts at the edge's own one-way delay instead (a cloud
+    nearer than the edge is no deployment).  Returns (scale, lo, hi), lo
+    the window's start and hi its end, in seconds."""
     e, c = edge_prof.model, cloud_prof.model
     half_beta = 0.5 * (e.beta - c.beta)
     lo, hi = [], []
@@ -1078,8 +1103,9 @@ def cloud_delay_scale(edge_prof, cloud_prof, n2m, ns, ship_s, edge_rtt_s,
                   + ship)
         hi.append((e.alpha_m - c.alpha_m) * m_hat + half_beta
                   + edge_rtt_s / 2 - ship)
-    lo, hi = float(np.mean(lo)), float(np.mean(hi))
-    if not 0.0 < lo < hi:
+    lo = max(float(np.mean(lo)), edge_rtt_s / 2)
+    hi = float(np.mean(hi))
+    if not lo < hi:
         raise AssertionError(f"no cloud delay makes split(edge, cloud) the "
                              f"cheapest plan: lo {lo} s >= hi {hi} s")
     return 2.0 * float(np.sqrt(lo * hi)) / mean_rtt_s, lo, hi
@@ -1211,6 +1237,243 @@ def split_phase(name, model, cpu, planes, ops):
     return launches
 
 
+# --------------------------------------------------------- phases 11-12 --
+def nmt_training(family, pair, ops, steps, smi):
+    """``launch/train_nmt.py``'s loop for ``family`` at the paper's width on
+    the pair's corpus, B=32 and max_len 48.  Checks: finite loss that
+    falls (last-10 mean below first-10), the first step's loss equal to a
+    CPU copy's on the same weights and batch within 1e-4 relative, no
+    kernel launched while training, a checkpoint that reads back
+    bitwise.  Returns (model, losses)."""
+    from repro_torch.launch import train_nmt as tn
+    from repro_torch.training.checkpoint import (load_checkpoint,
+                                                 save_checkpoint,
+                                                 state_from_jax, state_to_jax)
+
+    model = tn.build_model(family, full_width=True, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    src, tgt = tn.corpus_tokens(pair, model.cfg)
+    first = next(tn.batches(src, tgt, batch=32))
+    cpu = copy.deepcopy(model).to("cpu")
+    with torch.no_grad():
+        cpu_loss = float(cpu.loss({k: torch.as_tensor(v)
+                                   for k, v in first.items()}))
+    del cpu
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, losses, step_s, tokens = tn.train(model, src, tgt, steps=steps,
+                                             batch=32, log_every=50)
+    train_launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = 1e3 * float(np.mean(step_s[1:]))
+    rate = sum(tokens[1:]) / sum(step_s[1:])
+    head, tail = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    rel = abs(losses[0] - cpu_loss) / cpu_loss
+    log(f"  {family} {pair} ({n_params / 1e6:.2f}M parameters), {steps} "
+        f"AdamW steps at B=32 max_len 48: {ms:.2f}ms per step after the "
+        f"first ({1e3 * step_s[0]:.1f}ms), {rate:.0f} target tokens/s, "
+        f"peak memory {peak:.2f} GiB on {smi}")
+    log(f"  loss first-10 mean {head:.4f} -> last-10 mean {tail:.4f}; step "
+        f"0 loss {losses[0]:.6f} on the card vs {cpu_loss:.6f} on a CPU "
+        f"copy (rel {rel:.2e}); kernel launches while training "
+        f"{train_launches}")
+    if not (np.all(np.isfinite(losses)) and tail < head):
+        raise AssertionError(f"{family}: the loss did not fall ({head} -> "
+                             f"{tail})")
+    if rel > 1e-4:
+        raise AssertionError(f"{family}: step 0 loss {losses[0]} vs CPU "
+                             f"{cpu_loss}")
+    if any(train_launches.values()):
+        raise AssertionError(f"{family}: a kernel launched while training")
+    trees = state_to_jax(model, state.params, state.opt)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt.npz")
+        save_checkpoint(path, {"params": trees[0], "opt": trees[1]},
+                        step=steps)
+        back = load_checkpoint(path, {"params": trees[0], "opt": trees[1]})
+    sd, opt = state_from_jax(model, back["params"], back["opt"])
+    same = all(torch.equal(sd[n], p.detach())
+               for n, p in state.params.items())
+    same &= all(torch.equal(opt.mu[n], state.opt.mu[n]) and
+                torch.equal(opt.nu[n], state.opt.nu[n]) for n in sd)
+    same &= int(opt.step) == int(state.opt.step) == steps
+    log(f"  checkpoint ({len(sd)} parameters and both moments, "
+        f"{sum(t.numel() for t in sd.values()) * 12 / 2**20:.1f} MiB) "
+        f"written and read back: bitwise equal {same}")
+    if not same:
+        raise AssertionError(f"{family}: checkpoint did not read back")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in first.items()}
+    step_breakdown(family, lambda: model.loss(batch), state.params,
+                   state.opt, tn.leaf_ndims(model))
+    return model, losses
+
+
+def step_breakdown(what, loss_fn, params, opt, leaf_ndim):
+    """Where a train step's time goes: loss + backward, then clip + AdamW,
+    each ended by a device sync (3 reps, median), and one step under
+    ``torch.profiler`` for the device's kernel time and launch count.
+    AdamW runs at lr 0, so the weights do not move."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
+                                                clip_by_global_norm)
+
+    def halves():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            grads = torch.autograd.grad(loss_fn(), list(params.values()))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads, _ = clip_by_global_norm(dict(zip(params, grads)), 1.0)
+        adamw_update(params, grads, opt, lr=0.0, cfg=AdamWConfig(),
+                     leaf_ndim=leaf_ndim)
+        torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1
+
+    fb, up = np.median([halves() for _ in range(3)], axis=0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        halves()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and "cuda" in str(e.device_type).lower()]
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+               for e in events) / 1e3
+    kernels = sum(e.count for e in events)
+    log(f"  {what} step: loss + backward {fb:.2f}ms, clip + AdamW "
+        f"{up:.2f}ms ({len(params)} parameter tensors); one profiled step: "
+        f"{kernels} device kernels, {busy:.2f}ms of device time = "
+        f"{100 * busy / (fb + up):.1f}% of the step")
+
+
+def marian_after_training(model, ops):
+    """The trained Marian: kernel-path ``forward_teacher`` (no grad) vs the
+    training path on a corpus batch, the kernel guard under autograd, and
+    a greedy decode of 32 corpus sources (M, the N->M correlation, the
+    share that reaches max_decode_len; reported, not gated).  Returns the
+    kernel launches of the two kernel paths."""
+    from repro_torch.data.tokenizer import EOS_ID, PAD_ID
+    from repro_torch.launch import train_nmt as tn
+
+    src, tgt = tn.corpus_tokens("en-zh", model.cfg)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(tn.batches(src, tgt, batch=32)).items()}
+    args = (batch["src"], batch["src_mask"], batch["tgt_in"])
+    launches = {}
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        kern = model.forward_teacher(*args, kernels=True)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        train = model.forward_teacher(*args)
+    log(f"  trained Marian, forward_teacher B=32 M={args[2].shape[1]}: "
+        f"kernel path launches {launches}")
+    within("kernel path vs training path logits", kern, train, MODEL_TOL)
+    if launches["flash_attention"] == 0:
+        raise AssertionError("the kernel path launched no flash_attention")
+    try:
+        with torch.enable_grad():
+            model.forward_teacher(*args, kernels=True)
+    except RuntimeError as e:
+        log(f"  kernel path under autograd refused: {str(e)[:72]}...")
+    else:
+        raise AssertionError("flash_attention ran under autograd")
+
+    # the sources as training saw them: cut to max_len - 1, then EOS
+    rows = [np.concatenate([s[:tn.MAX_LEN - 1], [EOS_ID]]) for s in src[:32]]
+    n = np.array([len(r) for r in rows])
+    block = np.full((32, n.max()), PAD_ID, np.int32)
+    for i, r in enumerate(rows):
+        block[i, :len(r)] = r
+    mask = (block != PAD_ID).astype(np.float32)
+    translate = model.make_translate_batched()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    m, _ = translate(block, mask)
+    wall = time.perf_counter() - t0
+    decode = ops.launch_counts()
+    top = model.cfg.max_decode_len
+    corr = (float(np.corrcoef(n, m)[0, 1]) if np.std(m) > 0
+            else float("nan"))
+    log(f"  greedy decode of 32 en-zh sources (N {n.min()}-{n.max()}, mean "
+        f"{n.mean():.2f}) in {wall:.2f}s: mean M {m.mean():.2f}, N->M "
+        f"correlation {corr:.4f}, {np.mean(m >= top) * 100:.1f}% reach "
+        f"max_decode_len {top}; launches {decode}")
+    return {k: launches[k] + decode[k] for k in launches}
+
+
+def lm_training(name, ops, steps=5):
+    """The LM train step (loss, grads, clip, AdamW) at full width, B=1
+    S=64, ``steps`` times on one batch.  Checks: finite loss that falls,
+    and ``train_logits``' last position against ``prefill``'s kernel-path
+    logits (within 1e-4, or ten times the effect of a 1e-7 perturbation of
+    the embeddings, phases 7-8's rule).  Returns the prefill's launches."""
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.models.registry import resolve
+    from repro_torch.training.losses import lm_loss
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 leaf_ndims, make_train_step)
+
+    r = resolve(name, size="full", device="cuda", seed=0)
+    model = r.model
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(0)
+    stream = rng.integers(1, r.cfg.vocab_size, 4 * 65).astype(np.int32)
+    batch = next(lm_batches(stream, batch_size=1, seq_len=64))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model)
+    step = make_train_step(model)
+    losses, times = [], []
+    ops.reset_launch_counts()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    train_launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  {name} ({n_params / 1e9:.3f}B parameters, all {r.cfg.num_layers}"
+        f" layer slots), {steps} train steps at B=1 S=64: losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + "; ms per step " + ", ".join(f"{1e3 * t:.1f}" for t in times)
+        + f"; peak memory {peak:.2f} GiB (float32 parameters, gradients "
+        f"and two moments: {16 * n_params / 2**30:.2f} GiB); kernel "
+        f"launches while training {train_launches}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{name}: the loss did not fall: {losses}")
+    if any(train_launches.values()):
+        raise AssertionError(f"{name}: a kernel launched while training")
+    tensors = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    step_breakdown(name, lambda: lm_loss(model, tensors)[0], state.params,
+                   state.opt, leaf_ndims(model))
+    toks = tensors["tokens"]
+    with torch.no_grad():
+        want = model.train_logits(toks)["logits"][:, -1]
+        hook = perturbed(model, 1e-7)
+        floor = max_err(model.train_logits(toks)["logits"][:, -1], want)
+        hook.remove()
+        ops.reset_launch_counts()
+        got, _ = model.prefill(toks)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    err = max_err(got, want)
+    limit = MODEL_TOL if err <= MODEL_TOL else 10 * floor
+    log(f"  trained {name}: prefill (kernels, launches {launches}) vs "
+        f"train_logits' last position max_abs_err={err:.3e}; train_logits "
+        f"with the embeddings perturbed by 1e-7 {floor:.3e} (max |ref| "
+        f"{float(want.abs().max()):.3f}); limit {limit:.1e}")
+    if not (err <= limit and torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: prefill vs train_logits {err} > "
+                             f"{limit}")
+    del model, r, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a card",
@@ -1295,6 +1558,19 @@ def main() -> int:
     del models, rnns, r
     gc.collect()
     torch.cuda.empty_cache()
+
+    log("== phase 11: training the paper's three NMT models at full width")
+    model, _ = nmt_training("marian", "en-zh", ops, 200, smi)
+    paths["train marian"] = marian_after_training(model, ops)
+    del model
+    for family, pair in (("bilstm", "de-en"), ("gru", "fr-en")):
+        nmt_training(family, pair, ops, 50, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("== phase 12: the LM train step at full width")
+    for name in ("zamba2-1.2b", "rwkv6-3b"):
+        paths[f"train {name}"] = lm_training(name, ops)
 
     for row in rows:
         row["launches"] = sum(c[row["name"]] for c in paths.values())

@@ -1,15 +1,24 @@
-"""Carry the reference's weights across to the port.
+"""Carry weights between the reference's parameter pytrees and the port.
 
 ``jax.random`` and ``torch.Generator`` draw different numbers from the
 same seed, so the port never re-draws a reference model's weights: it
 converts the reference's parameter pytree instead.  The pytree arrives
 as nested dicts/lists of numpy arrays (``jax.tree.map(np.asarray,
 params)`` on the JAX side), so this module needs no JAX.
+
+The ``*_params_to_jax`` functions go the other way: a port state dict
+(parameters, or anything keyed like them, such as AdamW moments) to a
+numpy pytree with the reference's keys, shapes and transposes, plus the
+``jax.tree_util.keystr`` path of each port name's leaf.  Both directions
+read one name map, :func:`reference_leaves`, which the optimizer also
+reads for the reference's weight-decay rule (a leaf's rank, where a
+stacked LM group adds one) and the checkpoints for their keys.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -154,3 +163,149 @@ def lm_params_from_jax(tree, cfg) -> Dict[str, torch.Tensor]:
             for li in range(g.count):
                 flat[f"groups.{gi}.{li}.{name}"] = stacked[li]
     return {name: _t(a) for name, a in flat.items()}
+
+
+# ------------------------------------------------------ port -> reference --
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    """Where a port parameter lives in the reference's pytree.
+
+    ``path`` holds dict keys (str) and list indices (int); ``transpose``
+    marks an ``nn.Linear`` weight, stored (d_out, d_in) against the
+    reference's (d_in, d_out); ``layer`` is the index along the leading
+    ``count`` axis of a stacked LM group's leaf, None where the leaf is
+    the tensor itself."""
+
+    path: Tuple
+    transpose: bool = False
+    layer: Optional[int] = None
+
+    @property
+    def keystr(self) -> str:
+        """``jax.tree_util.keystr`` of the leaf's path."""
+        return "".join(f"[{k!r}]" for k in self.path)
+
+    def ndim(self, tensor: torch.Tensor) -> int:
+        """The rank of the reference's leaf (stacking adds an axis)."""
+        return tensor.dim() + (self.layer is not None)
+
+
+def _key(part: str):
+    return int(part) if part.isdigit() else part
+
+
+_NMT_RENAMES = {"self_attn": "self", "inp": "in"}
+
+
+def _nmt_leaf(name: str) -> Leaf:
+    """The NMT models' names: ``nn.Linear`` weight/bias are ``w`` (d_in,
+    d_out)/``b``, a layer norm's are ``g``/``b``, an embedding's weight is
+    the leaf itself, the RNN cells' ``wx``/``wh``/``b`` keep their names."""
+    parts = name.split(".")
+    *mod, last = parts
+    path = tuple(_key(_NMT_RENAMES.get(p, p)) for p in mod)
+    if mod[-1] in ("src_embed", "tgt_embed"):
+        return Leaf(path)
+    if mod[-1].startswith("ln"):
+        return Leaf(path + ({"weight": "g", "bias": "b"}[last],))
+    if last == "weight":
+        return Leaf(path + ("w",), transpose=True)
+    return Leaf(path + ({"bias": "b"}.get(last, last),))
+
+
+def _lm_leaf(name: str) -> Leaf:
+    """The LM's names are the reference's paths; ``groups.<g>.<layer>.*``
+    is layer ``layer`` of group ``g``'s stacked leaf."""
+    parts = name.split(".")
+    if parts[0] == "groups":
+        return Leaf(("groups", int(parts[1])) + tuple(parts[3:]),
+                    layer=int(parts[2]))
+    return Leaf(tuple(parts))
+
+
+def _is_lm(model) -> bool:
+    return hasattr(getattr(model, "cfg", None), "layer_plan")
+
+
+def reference_leaves(model) -> Dict[str, Leaf]:
+    """Each parameter name of ``model`` (one of the port's three NMT
+    models or an LM) with its place in the reference's pytree."""
+    leaf = _lm_leaf if _is_lm(model) else _nmt_leaf
+    return {name: leaf(name) for name, _ in model.named_parameters()}
+
+
+def _put(tree, path, value) -> None:
+    """Set ``tree[path] = value``, making the dicts and lists on the way
+    (a list's entries are dicts in every model here)."""
+    node = tree
+    for key, nxt in zip(path[:-1], path[1:]):
+        if isinstance(key, int):
+            while len(node) <= key:
+                node.append({})
+            node = node[key]
+        else:
+            node = node.setdefault(key, [] if isinstance(nxt, int) else {})
+    node[path[-1]] = value
+
+
+def _to_jax(sd, leaf_of, tree) -> Tuple[dict, Dict[str, str]]:
+    stacks: Dict[Tuple, Dict[int, np.ndarray]] = {}
+    paths: Dict[str, str] = {}
+    for name, tensor in sd.items():
+        leaf = leaf_of(name)
+        a = tensor.detach().to("cpu", copy=True).numpy()
+        if leaf.transpose:
+            a = np.ascontiguousarray(a.T)
+        if leaf.layer is None:
+            _put(tree, leaf.path, a)
+        else:
+            stacks.setdefault(leaf.path, {})[leaf.layer] = a
+        paths[name] = leaf.keystr
+    for path, layers in stacks.items():
+        _put(tree, path, np.stack([layers[i] for i in range(len(layers))]))
+    return tree, paths
+
+
+def marian_params_to_jax(sd) -> Tuple[dict, Dict[str, str]]:
+    """The inverse of :func:`marian_params_from_jax`: the reference
+    ``MarianTransformer.init`` pytree (numpy leaves) from a port state
+    dict, and each name's keystr path."""
+    return _to_jax(sd, _nmt_leaf, {})
+
+
+def gru_params_to_jax(sd) -> Tuple[dict, Dict[str, str]]:
+    """The inverse of :func:`gru_params_from_jax`."""
+    return _to_jax(sd, _nmt_leaf, {})
+
+
+def bilstm_params_to_jax(sd) -> Tuple[dict, Dict[str, str]]:
+    """The inverse of :func:`bilstm_params_from_jax`."""
+    return _to_jax(sd, _nmt_leaf, {})
+
+
+def lm_params_to_jax(sd, cfg) -> Tuple[dict, Dict[str, str]]:
+    """The inverse of :func:`lm_params_from_jax`: each group's layers
+    stacked along a leading ``count`` axis again, a shared-attention
+    group's place in ``groups`` an empty dict, as the reference's."""
+    return _to_jax(sd, _lm_leaf,
+                   {"groups": [{} for _ in cfg.layer_plan]})
+
+
+def params_to_jax(model, sd=None) -> Tuple[dict, Dict[str, str]]:
+    """The reference pytree of ``sd`` (default: ``model``'s parameters),
+    by ``model``'s family."""
+    sd = dict(model.named_parameters()) if sd is None else sd
+    if _is_lm(model):
+        return lm_params_to_jax(sd, model.cfg)
+    return _to_jax(sd, _nmt_leaf, {})
+
+
+def params_from_jax(model, tree) -> Dict[str, torch.Tensor]:
+    """The port state dict of the reference pytree ``tree``, by
+    ``model``'s family."""
+    if _is_lm(model):
+        return lm_params_from_jax(tree, model.cfg)
+    name = type(model).__name__
+    return {"MarianTransformer": marian_params_from_jax,
+            "GRUSeq2Seq": gru_params_from_jax,
+            "BiLSTMSeq2Seq": bilstm_params_from_jax}[name](tree)

@@ -9,16 +9,53 @@ which launches on a CUDA tensor or raises.  Nothing falls back.
 Each wrapper counts its kernel launches in a plain integer attribute
 (``flash_attention.launches``, ``rwkv6_wkv.launches``, ...), so a run
 can show that its main path went through the kernels.
+
+The kernels are forward-only, as their Pallas originals are (none has a
+VJP), and their outputs come from ``torch.empty`` through ``ctypes``, so
+autograd would not see them: a backward through one would silently drop
+the gradient of everything in front of it.  So each wrapper raises
+before it launches while grad mode is on and a tensor argument requires
+grad.  Training takes the differentiable paths the reference's training
+takes (``MarianTransformer.forward_teacher(kernels=False)``, which
+``loss`` uses, and ``LM.train_logits``); evaluation calls the kernel
+paths under ``torch.no_grad()``.  On the CPU nothing changes: the plain
+versions there are differentiable.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rwkv6_wkv as _wkv
 from repro_torch.kernels import ssd_scan as _ssd
+
+
+_TRAINING_PATHS = {
+    "flash_attention": "MarianTransformer.loss, which runs forward_teacher("
+                       "kernels=False), or LM.train_logits",
+    "flash_decode": "the cached decode step is inference only; "
+                    "MarianTransformer.loss trains the decoder by teacher "
+                    "forcing",
+    "rwkv6_wkv": "LM.train_logits",
+    "ssd_scan": "LM.train_logits",
+}
+
+
+def _refuse_autograd(name: str, *tensors) -> None:
+    """Raise if launching kernel ``name`` on these operands would need a
+    backward it does not have."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is a forward-only CUDA kernel, as its Pallas original "
+            "is: autograd cannot differentiate it and would silently drop "
+            "the gradient of every operand.  Train through the "
+            f"differentiable path ({_TRAINING_PATHS[name]}), or call this "
+            "under torch.no_grad().")
 
 
 def flash_attention(q, k, v, lengths=None, *, causal: bool = True,
@@ -27,6 +64,7 @@ def flash_attention(q, k, v, lengths=None, *, causal: bool = True,
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, lengths, causal=causal,
                                          scale=scale)
+    _refuse_autograd("flash_attention", q, k, v)
     out = _fa.flash_attention_cuda(q, k, v, lengths, causal=causal,
                                    scale=scale)
     flash_attention.launches += 1
@@ -38,6 +76,7 @@ def flash_decode(q, k_cache, v_cache, lengths, *, scale=None):
     if q.device.type == "cpu":
         return _da.flash_decode_plain(q, k_cache, v_cache, lengths,
                                       scale=scale)
+    _refuse_autograd("flash_decode", q, k_cache, v_cache)
     out = _da.flash_decode_cuda(q, k_cache, v_cache, lengths, scale=scale)
     flash_decode.launches += 1
     return out
@@ -48,6 +87,7 @@ def rwkv6_wkv(r, k, v, log_w, u, s0=None, *, chunk: int = 32):
     -> (y (B,S,H,P), s_final (B,H,P,P) float32)."""
     if r.device.type == "cpu":
         return _wkv.rwkv6_wkv_plain(r, k, v, log_w, u, s0, chunk=chunk)
+    _refuse_autograd("rwkv6_wkv", r, k, v, log_w, u, s0)
     out = _wkv.rwkv6_wkv_cuda(r, k, v, log_w, u, s0, chunk=chunk)
     rwkv6_wkv.launches += 1
     return out
@@ -59,6 +99,7 @@ def ssd_scan(x, dt, a_log, b_in, c_in, s0=None, *, chunk: int = 64):
     float32)."""
     if x.device.type == "cpu":
         return _ssd.ssd_scan_plain(x, dt, a_log, b_in, c_in, s0, chunk=chunk)
+    _refuse_autograd("ssd_scan", x, dt, a_log, b_in, c_in, s0)
     out = _ssd.ssd_scan_cuda(x, dt, a_log, b_in, c_in, s0, chunk=chunk)
     ssd_scan.launches += 1
     return out

@@ -5,6 +5,11 @@ Port of the GQA part of ``repro/models/layers/attention.py``.  Prefill
 runs :func:`repro_torch.kernels.ops.flash_attention` with the causal
 mask at offset 0; the reference's ``blocked_sdpa`` aligns the queries to
 the last S keys, which is the same mask when S == T, as in prefill.
+Training (``attn_full(..., kernels=False)``) runs the reference's jnp
+attention instead, materialized scores and softmax in torch ops that
+autograd differentiates: the arithmetic of the kernel's plain version,
+:func:`~repro_torch.kernels.flash_attention.flash_attention_plain`, which
+it calls (the reference's query blocks only bound its memory).
 Decode writes K/V in place at slot ``pos`` (slot == position) and runs
 :func:`repro_torch.kernels.ops.flash_decode` over ``lengths = pos + 1``,
 the reference's mask ``idx <= pos``.
@@ -21,6 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.basic import Linear, apply_rope
 
@@ -56,15 +62,19 @@ def _qkv(p: GQA, cfg: ModelConfig, x, positions):
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def attn_full(p: GQA, cfg: ModelConfig, x, *, window: Optional[int] = None):
-    """Causal self-attention over a full sequence (prefill).  Returns
-    (y (B,S,D), (k, v)) with k/v (B,S,Hkv,Dh), k after RoPE."""
+def attn_full(p: GQA, cfg: ModelConfig, x, *, window: Optional[int] = None,
+              kernels: bool = True):
+    """Causal self-attention over a full sequence: through the kernel
+    (prefill) or, with ``kernels=False``, the differentiable training
+    path.  Returns (y (B,S,D), (k, v)) with k/v (B,S,Hkv,Dh), k after
+    RoPE."""
     if window is not None:
         raise NotImplementedError("sliding-window attention is not ported")
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     q, k, v = _qkv(p, cfg, x, positions)
-    y = ops.flash_attention(q, k, v, causal=True)
+    attend = ops.flash_attention if kernels else flash_attention_plain
+    y = attend(q, k, v, causal=True)
     return p.o(y.reshape(b, s, -1)), (k, v)
 
 

@@ -10,8 +10,14 @@ Prefill (:func:`mamba2_full`) is the reference's kernel route: the SSD
 scan goes through :func:`repro_torch.kernels.ops.ssd_scan` (the CUDA
 kernel on the card, its plain version on the CPU), fed strided head views
 of the conv output and, with one B/C group, B and C expanded over the
-heads rather than repeated.  Decode (:func:`mamba2_decode`) is the O(1)
-state update in plain torch ops.
+heads rather than repeated.  Training (``mamba2_full(...,
+kernels=False)``) is the reference's ``impl="xla"`` chunked scan in torch
+ops that autograd differentiates; its arithmetic is the kernel's plain
+version's, :func:`~repro_torch.kernels.ssd_scan.ssd_scan_plain`, which it
+calls as the reference's ``"xla"`` mixer, not as a fallback from the
+kernel (with the decay's prefix sums in float64, as everywhere in the
+port).  Decode (:func:`mamba2_decode`) is the O(1) state update in plain
+torch ops.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.basic import (
     Linear,
@@ -113,9 +120,10 @@ def _gate_out(p: Mamba2Mixer, cfg, y, z):
     return p.out_proj(rmsnorm(p.norm_g.g, y * F.silu(z), cfg.norm_eps))
 
 
-def mamba2_full(p: Mamba2Mixer, cfg: ModelConfig, x
+def mamba2_full(p: Mamba2Mixer, cfg: ModelConfig, x, *, kernels: bool = True
                 ) -> Tuple[torch.Tensor, MambaState]:
-    """Chunked SSD over a full sequence through the kernel.  Returns
+    """Chunked SSD over a full sequence, through the kernel or, with
+    ``kernels=False``, the differentiable chunked scan.  Returns
     (y (B,S,D), final state).  Needs at least conv_width - 1 tokens: the
     decode's conv buffer is the last W-1 pre-activation inputs."""
     s = cfg.ssm
@@ -132,8 +140,9 @@ def mamba2_full(p: Mamba2Mixer, cfg: ModelConfig, x
     x_in, b_in, c_in = torch.split(xbc, [d_in, gn, gn], dim=-1)
     xh, bh, ch = _heads(cfg, x_in, b_in, c_in)       # (B,S,nh,P),(B,S,nh,N)
     dt = F.softplus(dt_raw.float() + p.dt_bias)       # (B,S,nh)
-    y, h_final = ops.ssd_scan(xh.float(), dt, p.a_log, bh.float(), ch.float(),
-                              chunk=pick_chunk(seq, s.chunk))
+    ssd = ops.ssd_scan if kernels else ssd_scan_plain
+    y, h_final = ssd(xh.float(), dt, p.a_log, bh.float(), ch.float(),
+                     chunk=pick_chunk(seq, s.chunk))
     y = y.to(xh.dtype) + xh * p.d_skip[None, None, :, None].to(xh.dtype)
     y = _gate_out(p, cfg, y.reshape(b, seq, d_in), z)
     # rolling conv buffer = the last W-1 pre-activation conv inputs,

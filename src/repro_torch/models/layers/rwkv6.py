@@ -12,7 +12,12 @@ chunked kernel's e^{-cum} stays finite in float32 over 32 steps.
 
 Prefill (:func:`rwkv6_full`) is the reference's kernel route: the WKV
 recurrence goes through :func:`repro_torch.kernels.ops.rwkv6_wkv` (the
-CUDA kernel on the card, its plain version on the CPU).  Decode
+CUDA kernel on the card, its plain version on the CPU).  Training
+(``rwkv6_full(..., kernels=False)``) is the reference's ``impl="xla"``
+chunked scan in torch ops that autograd differentiates; its arithmetic
+is the kernel's plain version's, :func:`~repro_torch.kernels.rwkv6_wkv.
+rwkv6_wkv_plain`, which it calls as the reference's ``"xla"`` mixer, not
+as a fallback from the kernel.  Decode
 (:func:`rwkv6_decode`) is the O(1) one-token recurrence in plain torch
 ops; the reference has no kernel for it.
 """
@@ -26,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv_plain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.basic import Linear, const_param
 from repro_torch.models.layers.mamba2 import pick_chunk
@@ -110,18 +116,19 @@ def _out(p: TimeMix, cfg, y, g, dtype):
     return p.o((y * F.silu(g.float())).to(dtype))
 
 
-def rwkv6_full(p: TimeMix, cfg: ModelConfig, x, state: RWKVState
-               ) -> Tuple[torch.Tensor, RWKVState]:
-    """Chunked WKV over a full sequence through the kernel.  Returns
+def rwkv6_full(p: TimeMix, cfg: ModelConfig, x, state: RWKVState, *,
+               kernels: bool = True) -> Tuple[torch.Tensor, RWKVState]:
+    """Chunked WKV over a full sequence, through the kernel or, with
+    ``kernels=False``, the differentiable chunked scan.  Returns
     (y (B,S,D), final state)."""
     b, seq, d = x.shape
     pdim = cfg.rwkv.head_dim
     hnum = d // pdim
     r, k, v, g, log_w = _streams(p, x, state.shift_tm)
     heads = lambda t: t.float().view(b, seq, hnum, pdim)
-    y, s_final = ops.rwkv6_wkv(heads(r), heads(k), heads(v), heads(log_w),
-                               p.u, state.wkv.float(),
-                               chunk=pick_chunk(seq, WKV_CHUNK))
+    wkv = ops.rwkv6_wkv if kernels else rwkv6_wkv_plain
+    y, s_final = wkv(heads(r), heads(k), heads(v), heads(log_w), p.u,
+                     state.wkv.float(), chunk=pick_chunk(seq, WKV_CHUNK))
     y = _out(p, cfg, y, g, x.dtype)
     return y, RWKVState(wkv=s_final.to(state.wkv.dtype),
                         shift_tm=x[:, -1, :], shift_cm=state.shift_cm)

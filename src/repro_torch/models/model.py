@@ -15,6 +15,11 @@ seeded with ``seed`` on the target device.
 
 Entry points:
 
+* ``train_logits(tokens)`` — the full causal forward with no cache, for
+  training: attention and both mixers take their differentiable paths
+  (the reference's jnp attention and ``mixer_impl="xla"`` chunked scans),
+  never a kernel, so autograd runs through it.  Returns ``{"logits",
+  "aux_loss"}``.
 * ``prefill(tokens, max_len=, lengths=)`` — full-sequence forward; returns
   the last position's logits and the decode state (KV caches padded to
   ``max_len``, recurrent states, ``pos``).  rwkv6 and mamba2 prefill go
@@ -133,20 +138,22 @@ class LM(nn.Module):
             p.ffn, self.cfg, h, rstate)
         return x + y, rstate
 
-    def _block_full(self, p: Block, g: LayerGroup, x):
-        """One layer over the full sequence.  Returns (x, cache entry)."""
+    def _block_full(self, p: Block, g: LayerGroup, x, *, kernels: bool):
+        """One layer over the full sequence, its mixer through the kernels
+        or (``kernels=False``) the training path.  Returns (x, cache
+        entry)."""
         cfg = self.cfg
         h = rmsnorm(p.ln1.g, x, cfg.norm_eps)
         rstate = None
         if g.mixer in ("attn", "shared_attn"):
-            y, (k, v) = att.attn_full(p.mixer, cfg, h)
+            y, (k, v) = att.attn_full(p.mixer, cfg, h, kernels=kernels)
             cache = {"k": k, "v": v}
         elif g.mixer == "mamba2":
-            y, st = mb.mamba2_full(p.mixer, cfg, h)
+            y, st = mb.mamba2_full(p.mixer, cfg, h, kernels=kernels)
             cache = st._asdict()
         else:                                   # rwkv6, from the zero state
             st0 = rk.init_rwkv_state(cfg, x.shape[0], x.dtype, x.device)
-            y, rstate = rk.rwkv6_full(p.mixer, cfg, h, st0)
+            y, rstate = rk.rwkv6_full(p.mixer, cfg, h, st0, kernels=kernels)
         x, rstate = self._ffn(p, g, x + y, rstate, full=True)
         if g.mixer == "rwkv6":
             cache = rstate._asdict()
@@ -188,6 +195,25 @@ class LM(nn.Module):
             logits[..., cfg.vocab_size:] = NEG_LOGIT
         return logits
 
+    # ------------------------------------------------------------ train --
+    def train_logits(self, tokens):
+        """Full causal forward for training: tokens (B,S) -> {"logits"
+        (B,S,V), "aux_loss"}.
+
+        No decode state is kept.  Attention and the recurrent mixers take
+        their training paths (the reference's jnp attention and ``"xla"``
+        chunked scans); no kernel runs.  zamba2's shared block is one set
+        of parameters called by every shared group, so its gradient is
+        the sum over the calls, as the reference's.  ``aux_loss`` is 0:
+        neither ported family has MoE layers (the constructor refuses
+        MoE, MTP and encoders)."""
+        x = self.embed(tokens)
+        for gi, g in enumerate(self.cfg.layer_plan):
+            for p in self._layers(gi, g):
+                x, _ = self._block_full(p, g, x, kernels=False)
+        return {"logits": self._logits(x),
+                "aux_loss": torch.zeros((), device=x.device)}
+
     # ---------------------------------------------------------- prefill --
     @torch.no_grad()
     def prefill(self, tokens, *, max_len: Optional[int] = None,
@@ -213,7 +239,7 @@ class LM(nn.Module):
         for gi, g in enumerate(cfg.layer_plan):
             entries = []
             for p in self._layers(gi, g):
-                x, cache = self._block_full(p, g, x)
+                x, cache = self._block_full(p, g, x, kernels=True)
                 entries.append(cache)
             caches.append(_stack(entries))
         if max_len is not None and max_len > s:

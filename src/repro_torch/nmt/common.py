@@ -2,8 +2,8 @@
 
 Port of ``repro/nmt/common.py``: the configs, the LSTM and GRU cells and
 their scans, Luong attention, the split placement's
-:class:`EncoderStates` hand-off and its two legs, and the greedy decode
-loops.  Two greedy-decode paths live here, with opposite goals:
+:class:`EncoderStates` hand-off and its two legs, the greedy decode
+loops, and the training loss (:func:`cross_entropy`).  Two greedy-decode paths live here, with opposite goals:
 
 * :func:`greedy_decode` — the HOST loop: one model step per token and
   one host sync per token (``int(token)``).  Its wall-clock is linear in
@@ -484,3 +484,13 @@ def host_translate_batched(translate, src_tokens, src_mask=None,
     for i, r in enumerate(rows):
         out[i, :len(r)] = r
     return lengths, out
+
+
+def cross_entropy(logits, targets, mask):
+    """Masked token-mean CE. logits (…,V), targets (…), mask (…).
+
+    The divisor is ``max(mask.sum(), 1)``, as the reference's."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)

@@ -8,8 +8,10 @@ architecture of Fig. 1a).  Like the reference it is one layer whatever
 
 Weights live in the module, drawn from a seeded ``torch.Generator`` at
 construction; :func:`repro_torch.convert.gru_params_from_jax` loads the
-reference's instead.  Inference only: ``forward_teacher`` and ``loss``
-belong to training, not ported yet.
+reference's instead.  Parameters are frozen at construction; a trainer
+unfreezes them (``model.requires_grad_(True)``).  Training
+(``forward_teacher``, ``loss``) runs the same cells; no kernel is
+involved.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from repro_torch.nmt.common import (
     build_decode_from_states,
     build_encode_states,
     build_translate_batched,
+    cross_entropy,
     dense,
     embed_init_,
     greedy_decode,
@@ -114,3 +117,23 @@ class GRUSeq2Seq(nn.Module):
         """Decode leg: EncoderStates -> (lengths, tokens); the shipped
         hidden state IS the decode carry, no rebuild needed."""
         return build_decode_from_states(self, lambda data: data)
+
+    def forward_teacher(self, src, src_mask, tgt_in):
+        """Teacher-forced logits: (B,N), (B,N), (B,M) -> (B,M,V).
+
+        As the reference's (a ``vmap`` of its per-sequence encode, whose
+        scan ignores the mask), the encoder runs over every position,
+        padding included; then one decode step per target token."""
+        h = self.encode(src, torch.ones_like(src_mask))
+        logits = []
+        for t in range(tgt_in.shape[1]):
+            h, lg = self.decode_step(h, tgt_in[:, t])
+            logits.append(lg)
+        return torch.stack(logits, dim=1)
+
+    def loss(self, batch):
+        """Masked token-mean cross entropy on a ``padded_batches`` batch
+        (tensors on the model's device)."""
+        logits = self.forward_teacher(batch["src"], batch["src_mask"],
+                                      batch["tgt_in"])
+        return cross_entropy(logits, batch["tgt_out"], batch["tgt_mask"])

@@ -9,8 +9,10 @@ dependency is exactly what makes T_exe linear in N and M (paper §II-A).
 
 Weights live in the module, drawn from a seeded ``torch.Generator`` at
 construction; :func:`repro_torch.convert.bilstm_params_from_jax` loads
-the reference's instead.  Inference only: ``forward_teacher`` and
-``loss`` belong to training, not ported yet.
+the reference's instead.  Parameters are frozen at construction; a
+trainer unfreezes them (``model.requires_grad_(True)``).  Training
+(``forward_teacher``, ``loss``) runs the same cells and attention; no
+kernel is involved.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from repro_torch.nmt.common import (
     build_decode_from_states,
     build_encode_states,
     build_translate_batched,
+    cross_entropy,
     dense,
     embed_init_,
     greedy_decode,
@@ -167,3 +170,26 @@ class BiLSTMSeq2Seq(nn.Module):
         """Decode leg: EncoderStates -> (lengths, tokens); the shipped
         data is already the decode carry."""
         return build_decode_from_states(self, lambda data: data)
+
+    # ------------------------------------------------------------- train
+    def forward_teacher(self, src, src_mask, tgt_in):
+        """Teacher-forced logits: (B,N), (B,N), (B,M) -> (B,M,V).
+
+        As the reference's (a ``vmap`` of its per-sequence encode, whose
+        scans ignore the mask), both encoder directions run over every
+        position, padding included; the mask reaches only the decoder's
+        attention.  Then one decode step per target token."""
+        enc_outs, carries, _ = self.encode(src, torch.ones_like(src_mask))
+        state = (carries, enc_outs, src_mask)
+        logits = []
+        for t in range(tgt_in.shape[1]):
+            state, lg = self.decode_step(state, tgt_in[:, t])
+            logits.append(lg)
+        return torch.stack(logits, dim=1)
+
+    def loss(self, batch):
+        """Masked token-mean cross entropy on a ``padded_batches`` batch
+        (tensors on the model's device)."""
+        logits = self.forward_teacher(batch["src"], batch["src_mask"],
+                                      batch["tgt_in"])
+        return cross_entropy(logits, batch["tgt_out"], batch["tgt_mask"])

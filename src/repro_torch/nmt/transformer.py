@@ -12,17 +12,30 @@ the paper measures — a parallel encoder vs strictly sequential decoding
   :func:`repro_torch.kernels.ops.flash_decode` (lengths = pos+1 and the
   source lengths).
 
-Every path is the batched one: the per-sequence ``encode`` /
+Every serving path is the batched one: the per-sequence ``encode`` /
 ``init_cache`` / ``decode_step`` / ``make_translate`` run it at B=1, so
 every path on the card reaches the kernels.  The attention backend
 follows the tensors' device (kernel on the card, plain version on the
 CPU), so there is no ``attn_impl`` knob.
 
+Teacher forcing (``forward_teacher``) has two paths, named by its
+``kernels`` argument, as the reference's has two by ``attn_impl``:
+
+* ``kernels=False``, the training path: the reference's default
+  (``attn_impl="xla"``) einsum attention ``mha`` — scores masked with
+  -1e30, then softmax — in plain torch ops that autograd differentiates.
+  ``loss`` always takes it: it is what the reference differentiates.
+* ``kernels=True``, the kernel path: the reference's
+  ``attn_impl="pallas"`` branch — encoder self-attention, causal decoder
+  self-attention and cross-attention through ``ops.flash_attention``.
+  The kernels are forward-only, so evaluation calls it under
+  ``torch.no_grad()``; under autograd their wrappers raise.
+
 Weights live in the module.  They are drawn from an explicit seeded
 ``torch.Generator`` at construction; :func:`repro_torch.convert.
-marian_params_from_jax` loads the reference's parameters instead.  The
-model is inference-only (parameters do not require grad);
-``forward_teacher`` and ``loss`` belong to training, not ported yet.
+marian_params_from_jax` loads the reference's parameters instead.
+Parameters are frozen at construction; a trainer unfreezes them
+(``model.requires_grad_(True)``).
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ from repro_torch.nmt.common import (
     build_decode_from_states,
     build_encode_states,
     build_translate_batched,
+    cross_entropy,
     dense,
     embed_init_,
     greedy_decode,
@@ -166,7 +180,23 @@ class MarianTransformer(nn.Module):
         b, sq = q_in.shape[0], q_in.shape[1]
         return p.o(out.reshape(b, sq, -1))
 
-    def _encode_batch(self, src_tokens, src_mask):
+    def _mha(self, p: MultiHeadAttention, q_in, kv_in, keep):
+        """The reference's einsum ``mha``, batched: ``keep`` (B|1,S|1,T)
+        bool marks the keys each query sees; masked scores are -1e30
+        before the softmax.  Plain torch ops, so autograd runs through."""
+        q = self._heads(p.q(q_in))
+        k = self._heads(p.k(kv_in))
+        v = self._heads(p.v(kv_in))
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(
+            q.shape[-1])
+        scores = scores.masked_fill(~keep[:, None], -1e30)
+        out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1),
+                           v)
+        return p.o(out.reshape(q_in.shape[0], q_in.shape[1], -1))
+
+    def _encode_batch(self, src_tokens, src_mask, *, kernels: bool = True):
+        """The batched encoder: attention through the kernel (``kernels``)
+        or the training path's ``_mha`` over the mask's keys."""
         b, n = src_tokens.shape
         if n > self._pe.shape[0]:
             raise ValueError(f"source length {n} exceeds the position "
@@ -177,10 +207,15 @@ class MarianTransformer(nn.Module):
         # all-pad row then attends slot 0 only; its output is discarded)
         lengths = torch.clamp((src_mask > 0).sum(dim=-1, dtype=torch.int32),
                               min=1)
+        keep = (src_mask > 0)[:, None, :]
         x = F.embedding(src_tokens, self.src_embed.weight) * self._emb_scale
         x = x + self._pe[:n]
         for layer in self.enc:
-            a = self._attend_batch(layer.attn, x, x, lengths, causal=False)
+            if kernels:
+                a = self._attend_batch(layer.attn, x, x, lengths,
+                                       causal=False)
+            else:
+                a = self._mha(layer.attn, x, x, keep)
             x = layer.ln1(x + a)
             x = layer.ln2(x + layer.ffn(x))
         return x, src_mask
@@ -326,6 +361,49 @@ class MarianTransformer(nn.Module):
             return decode(states, forced_len)
 
         return checked
+
+    # -------------------------------------------------------------- train
+    def forward_teacher(self, src, src_mask, tgt_in, *,
+                        kernels: bool = False):
+        """Teacher-forced logits: (B,N), (B,N), (B,M) -> (B,M,V).
+
+        ``kernels=False`` is the training path (the reference's default
+        einsum attention: source keys from the mask, a lower-triangular
+        causal mask); ``kernels=True`` the kernel path (``flash_attention``
+        with the source lengths ``max(sum(mask), 1)``, causal at offset 0
+        with S == T), which the caller runs under ``torch.no_grad()``.
+        """
+        b, t = tgt_in.shape
+        enc, m = self._encode_batch(src, src_mask, kernels=kernels)
+        if kernels:
+            src_lens = torch.clamp((m > 0).sum(dim=-1, dtype=torch.int32),
+                                   min=1)
+            tgt_lens = torch.full((b,), t, dtype=torch.int32,
+                                  device=tgt_in.device)
+            self_attn = lambda p, x: self._attend_batch(
+                p, x, x, tgt_lens, causal=True)
+            cross = lambda p, x: self._attend_batch(p, x, enc, src_lens,
+                                                    causal=False)
+        else:
+            causal = torch.ones((t, t), dtype=torch.bool,
+                                device=tgt_in.device).tril()[None]
+            src_keep = (m > 0)[:, None, :]
+            self_attn = lambda p, x: self._mha(p, x, x, causal)
+            cross = lambda p, x: self._mha(p, x, enc, src_keep)
+        x = F.embedding(tgt_in, self.tgt_embed.weight) * self._emb_scale
+        x = x + self._pe[:t]
+        for layer in self.dec:
+            x = layer.ln1(x + self_attn(layer.self_attn, x))
+            x = layer.ln2(x + cross(layer.cross, x))
+            x = layer.ln3(x + layer.ffn(x))
+        return self.out(x)
+
+    def loss(self, batch):
+        """Masked token-mean cross entropy of the training path on a
+        ``padded_batches`` batch (tensors on the model's device)."""
+        logits = self.forward_teacher(batch["src"], batch["src_mask"],
+                                      batch["tgt_in"])
+        return cross_entropy(logits, batch["tgt_out"], batch["tgt_mask"])
 
 
 def make_executors(model: MarianTransformer):

@@ -8,8 +8,11 @@ edge gateway, regional pod, central cloud, ...) and carries
 * a latency plane (``DeviceProfile`` — measured by ``core.calibration``
   or priced from dry-run rooflines via ``device_from_roofline``),
 * optionally a REAL executor callable (built by
-  :func:`repro_torch.nmt.transformer.make_executors` over the Marian
-  translate path) — the engine then measures actual wall-clock; without
+  :func:`repro_torch.runtime.serving.build_executor` — over an LM's
+  ``GenerationSession``, or the two legs of an NMT model's split with
+  ``kind="split"`` — or, for a Marian tier's translate path, by
+  :func:`repro_torch.nmt.transformer.make_executors`) — the engine then
+  measures actual wall-clock; without
   one the tier is MODELLED and the engine simulates the latency (how
   tiers that are not run locally participate, mirroring the paper's
   simulated network + real inference testbed),
@@ -38,6 +41,8 @@ member's reported latency reflects the batch state at its own admission;
 ``batch_size=1`` keeps the exact unbatched virtual-time bookkeeping.
 
 REAL batched execution: a tier carrying a ``batched_executor`` (from
+:func:`repro_torch.runtime.serving.build_executor` with
+``kind="batched"``, or Marian's
 :func:`repro_torch.nmt.transformer.make_executors`) serves
 :meth:`CollaborativeEngine.submit_batch` — concurrent arrivals routed
 to it are drained through a length-bucketed
@@ -124,7 +129,9 @@ class Tier:
     (``repro_torch.core.calibration.fit_batch_overhead``).
 
     ``batched_executor`` (``(block (b,w), lengths) -> [(m_out, tokens)]``,
-    built by :func:`repro_torch.nmt.transformer.make_executors`)
+    built by :func:`repro_torch.runtime.serving.build_executor` with
+    ``kind="batched"`` or by Marian's
+    :func:`repro_torch.nmt.transformer.make_executors`)
     makes execution itself batched: ``submit_batch`` drains concurrent
     arrivals into length-bucketed blocks of up to ``batch_size`` and runs
     each block as one real batched generate.  Per-request ``executor``

@@ -1,0 +1,142 @@
+"""Checkpoints in the reference's format: one ``.npz`` per tree, one
+array per leaf, keyed by the leaf's ``jax.tree_util.keystr`` path, plus
+a JSON ``__manifest__``.
+
+Port of ``repro/training/checkpoint.py``, without JAX: the key strings
+are built here, as ``keystr`` builds them (``['params']['dec'][0]``
+for dict keys and list indices, ``.mu`` for a NamedTuple's field), and
+dicts are walked in sorted key order, as JAX flattens them.  A tree is
+nested dicts, lists, tuples and NamedTuples of numpy arrays or tensors;
+the port's state reaches the reference's structure through
+:func:`state_to_jax` (the converters' name map).  So a checkpoint that
+``examples/train_nmt.py`` or ``repro.launch.train`` writes loads here,
+and one written here loads with ``repro.training.checkpoint``.
+
+The write is atomic (a temporary file, then ``os.replace``); loading
+restores exact dtypes and shapes and raises ``KeyError`` on a missing
+leaf and ``ValueError`` on a shape mismatch.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+from typing import Any, Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.convert import params_from_jax, params_to_jax
+from repro_torch.training.optimizer import AdamWState
+
+
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
+def _leaves(node, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(keystr, leaf) pairs in the order ``tree_flatten_with_path``
+    gives them; None is an empty subtree, as in JAX."""
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for key in sorted(node):
+            yield from _leaves(node[key], f"{prefix}[{key!r}]")
+    elif _is_namedtuple(node):
+        for field in node._fields:
+            yield from _leaves(getattr(node, field), f"{prefix}.{field}")
+    elif isinstance(node, (list, tuple)):
+        for i, child in enumerate(node):
+            yield from _leaves(child, f"{prefix}[{i}]")
+    else:
+        yield prefix, node
+
+
+def _numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def _rebuild(node, leaves: Iterator):
+    """``node``'s structure with its leaves taken in order from
+    ``leaves``."""
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {key: _rebuild(node[key], leaves) for key in sorted(node)}
+    if _is_namedtuple(node):
+        return type(node)(*(_rebuild(getattr(node, f), leaves)
+                            for f in node._fields))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_rebuild(child, leaves) for child in node)
+    return next(leaves)
+
+
+def save_checkpoint(path: str, tree, *, step: int | None = None) -> str:
+    """Atomically write ``tree`` to ``path`` (.npz). Returns final path."""
+    flat = {key: _numpy(leaf) for key, leaf in _leaves(tree)}
+    manifest = {
+        "step": step,
+        "num_leaves": len(flat),
+        "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+                   for k, v in flat.items()},
+    }
+    folder = os.path.dirname(os.path.abspath(path))
+    os.makedirs(folder, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=folder, suffix=".tmp")
+    os.close(fd)
+    try:
+        np.savez(tmp, __manifest__=json.dumps(manifest), **flat)
+        # np.savez appends .npz to the filename it writes
+        os.replace(tmp + ".npz", path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
+
+
+def load_checkpoint(path: str, like) -> Any:
+    """Restore into the structure of ``like``; the leaves come back as
+    numpy arrays."""
+    with np.load(path, allow_pickle=False) as z:
+        flat = {k: z[k] for k in z.files if k != "__manifest__"}
+    leaves = []
+    for key, leaf in _leaves(like):
+        if key not in flat:
+            raise KeyError(f"checkpoint missing leaf {key}")
+        arr = flat[key]
+        if tuple(arr.shape) != tuple(np.shape(leaf)):
+            raise ValueError(f"shape mismatch for {key}: "
+                             f"{arr.shape} vs {tuple(np.shape(leaf))}")
+        leaves.append(arr)
+    return _rebuild(like, iter(leaves))
+
+
+def checkpoint_step(path: str) -> int | None:
+    with np.load(path, allow_pickle=False) as z:
+        m = json.loads(str(z["__manifest__"]))
+    return m.get("step")
+
+
+def state_to_jax(model, params: Dict[str, torch.Tensor],
+                 opt: AdamWState) -> Tuple[dict, AdamWState]:
+    """The reference's pytrees of a training state: the parameters, and
+    an ``AdamWState`` whose moments are keyed, shaped and transposed as
+    the parameters' leaves (numpy leaves throughout)."""
+    to_jax = lambda sd: params_to_jax(model, sd)[0]
+    return to_jax(params), AdamWState(step=_numpy(opt.step),
+                                      mu=to_jax(opt.mu), nu=to_jax(opt.nu))
+
+
+def state_from_jax(model, params_tree, opt_tree: AdamWState
+                   ) -> Tuple[Dict[str, torch.Tensor], AdamWState]:
+    """The inverse of :func:`state_to_jax`: a state dict for ``model``
+    and the port's ``AdamWState``, on ``model``'s device."""
+    dev = model.device
+    on_dev = lambda sd: {n: t.to(dev) for n, t in sd.items()}
+    from_jax = lambda tree: on_dev(params_from_jax(model, tree))
+    step = torch.as_tensor(np.asarray(opt_tree.step, np.int32), device=dev)
+    return from_jax(params_tree), AdamWState(
+        step=step, mu=from_jax(opt_tree.mu), nu=from_jax(opt_tree.nu))

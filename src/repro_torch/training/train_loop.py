@@ -1,0 +1,104 @@
+"""Train-step factory: loss -> grads -> clip -> AdamW.
+
+Port of ``repro/training/train_loop.py``.  The reference's state holds
+the parameter pytree; the port's holds the model's parameters by name
+(the same tensors the model computes with, updated in place), so a
+train step needs no copy of the weights.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Optional
+
+import torch
+import torch.utils.checkpoint
+
+from repro_torch.convert import reference_leaves
+from repro_torch.training.losses import lm_loss
+from repro_torch.training.optimizer import (
+    AdamWConfig,
+    AdamWState,
+    adamw_init,
+    adamw_update,
+    clip_by_global_norm,
+)
+
+
+class TrainState(NamedTuple):
+    params: Dict[str, torch.Tensor]
+    opt: AdamWState
+
+
+def init_train_state(model, moments_dtype=torch.float32) -> TrainState:
+    """The model's parameters, unfrozen (the port's models are built
+    frozen), and zero AdamW moments.  The weights are the model's own,
+    drawn at construction (the reference draws them here from a key)."""
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    return TrainState(params=params,
+                      opt=adamw_init(params, moments_dtype=moments_dtype))
+
+
+def leaf_ndims(model) -> Dict[str, int]:
+    """Each parameter's rank in the reference's pytree: the rank
+    :func:`adamw_update`'s weight-decay rule reads."""
+    leaves = reference_leaves(model)
+    return {name: leaves[name].ndim(p)
+            for name, p in model.named_parameters()}
+
+
+def apply_gradients(params: Dict[str, torch.Tensor], loss: torch.Tensor,
+                    opt: AdamWState, *, lr, cfg: AdamWConfig,
+                    leaf_ndim: Dict[str, int]):
+    """The body of every train step here: grads of ``loss`` (zeros for a
+    parameter it does not reach, as ``jax.grad`` gives) -> clip -> AdamW.
+    Returns (params, new opt state, global grad norm)."""
+    names = list(params)
+    grads = torch.autograd.grad(loss, [params[n] for n in names],
+                                allow_unused=True)
+    grads = {n: torch.zeros_like(params[n]) if g is None else g
+             for n, g in zip(names, grads)}
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    params, opt = adamw_update(params, grads, opt, lr=lr, cfg=cfg,
+                               leaf_ndim=leaf_ndim)
+    return params, opt, gnorm
+
+
+def make_train_step(model, *, lr_schedule: Optional[Callable] = None,
+                    opt_cfg: AdamWConfig = AdamWConfig(),
+                    remat: bool = False) -> Callable:
+    """Returns train_step(state, batch) -> (state, metrics) for an LM.
+
+    ``batch`` holds numpy arrays or tensors ({"tokens", "targets"[,
+    "mask"]}).  ``remat=True`` wraps the loss in
+    ``torch.utils.checkpoint`` (its activations are recomputed in the
+    backward instead of kept), as ``jax.checkpoint`` does."""
+    ndims = leaf_ndims(model)
+
+    def loss_fn(tokens, targets, mask):
+        batch = {"tokens": tokens, "targets": targets}
+        if mask is not None:
+            batch["mask"] = mask
+        loss, metrics = lm_loss(model, batch)
+        return loss, metrics["ce"], metrics["aux"]
+
+    def train_step(state: TrainState, batch):
+        args = [None if batch.get(k) is None
+                else torch.as_tensor(batch[k], device=model.device)
+                for k in ("tokens", "targets", "mask")]
+        with torch.enable_grad():
+            if remat:
+                loss, ce, aux = torch.utils.checkpoint.checkpoint(
+                    loss_fn, *args, use_reentrant=False)
+            else:
+                loss, ce, aux = loss_fn(*args)
+            lr = (lr_schedule(state.opt.step) if lr_schedule is not None
+                  else opt_cfg.lr)
+            params, opt, gnorm = apply_gradients(
+                state.params, loss, state.opt, lr=lr, cfg=opt_cfg,
+                leaf_ndim=ndims)
+        metrics = {"ce": ce.detach(), "aux": aux.detach(),
+                   "loss": loss.detach(), "grad_norm": gnorm, "lr": lr}
+        return TrainState(params=params, opt=opt), metrics
+
+    return train_step

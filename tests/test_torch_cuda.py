@@ -513,3 +513,67 @@ def test_split_equals_fused_bitwise_on_the_card(dev, family):
         torch.testing.assert_close(h.to(dev), c, rtol=1e-4, atol=1e-4)
     m, out = dec(host_states)                      # the wire: CPU -> card
     assert 0 <= m <= 12 and len(out) == max(m, 1)
+
+
+# ------------------------------------------------------- training guard --
+def _guard_calls(dev):
+    """One call of each wrapper on small operands whose first tensor
+    requires grad (as a trained projection's output would)."""
+    q = _randn(60, (1, 8, 2, 16), dev, torch.float32).requires_grad_(True)
+    lens = torch.tensor([8], dtype=torch.int32, device=dev)
+    u = torch.zeros((2, 16), device=dev)
+    dt = torch.ones((1, 8, 2), device=dev)
+    return {
+        "flash_attention": lambda: ops.flash_attention(q, q, q, causal=True),
+        "flash_decode": lambda: ops.flash_decode(q[:, 0], q, q, lens),
+        "rwkv6_wkv": lambda: ops.rwkv6_wkv(q, q, q, -q.abs(), u, chunk=8),
+        "ssd_scan": lambda: ops.ssd_scan(q, dt, torch.zeros(2, device=dev),
+                                         q, q, chunk=4),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_decode",
+                                  "rwkv6_wkv", "ssd_scan"])
+def test_wrappers_refuse_autograd_and_run_under_no_grad(dev, name):
+    """The kernels are forward-only: under autograd with an operand that
+    requires grad each wrapper raises before it launches; under no_grad
+    the same call launches."""
+    call = _guard_calls(dev)[name]
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        call()
+    assert ops.launch_counts()[name] == 0
+    with torch.no_grad():
+        call()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == 1
+
+
+def test_marian_teacher_kernel_path_matches_training_path(dev):
+    cfg = TransformerConfig(vocab_src=500, vocab_tgt=500, d_model=128,
+                            heads=2, d_ff=256, enc_layers=2, dec_layers=2,
+                            max_decode_len=20, max_src_len=64)
+    model = MarianTransformer(cfg, device=dev, seed=2)
+    rng = np.random.default_rng(1)
+    src = torch.as_tensor(rng.integers(4, 500, (3, 11)), dtype=torch.int32,
+                          device=dev)
+    mask = torch.ones((3, 11), device=dev)
+    mask[1, 6:] = 0.0
+    mask[2, 2:] = 0.0
+    tgt = torch.as_tensor(rng.integers(4, 500, (3, 9)), dtype=torch.int32,
+                          device=dev)
+    model.requires_grad_(True)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        kern = model.forward_teacher(src, mask, tgt, kernels=True)
+        train = model.forward_teacher(src, mask, tgt)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 2 + 2 * 2
+    torch.testing.assert_close(kern, train, rtol=1e-4, atol=1e-4)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        model.forward_teacher(src, mask, tgt, kernels=True)
+    loss = model.loss({"src": src, "src_mask": mask, "tgt_in": tgt,
+                       "tgt_out": tgt, "tgt_mask": torch.ones((3, 9),
+                                                              device=dev)})
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    assert all(torch.isfinite(g).all() for g in grads)
