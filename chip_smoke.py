@@ -17,7 +17,10 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    zamba2's 64 heads of P = N = 64 (within 3e-4), at the chunk lengths
    prefill meets, with and without an initial state, and under every
    value tile their hosts can pick; then the attention
-   kernels' edge cases: a 2048-slot cache cut into many splits, GQA,
+   kernels at qwen3-8b's shapes (32 query heads over 8 KV heads of 128:
+   a causal B=8 S=64 prefill, a B=8 T=256 decode over ragged lengths and
+   over lengths past the cache, the idle slots of a slot table); then the
+   attention kernels' edge cases: a 2048-slot cache cut into many splits, GQA,
    length 0 in a batch, every query tile on ragged shapes (head dims 16,
    32, 64, 128, causal with S != T), a captured ``flash_decode`` replayed
    after ``lengths`` changed on the device, and bitwise repeatability;
@@ -35,7 +38,8 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    (float32 FLOP at 3 x TF32's 165 TFLOP/s), its plain version and, where
    one PyTorch call computes the same function, that call
    (``rwkv6_wkv`` also at B=1 S=37, the chunk of 1 a prime prompt gives
-   rwkv6-3b), and each scan kernel under every value tile its host
+   rwkv6-3b; the attention kernels also at qwen3-8b's phase-3 shapes),
+   and each scan kernel under every value tile its host
    chooses between; the tokens/s and peak memory of one batch-8
    translate; and Marian's decode step, eager and from a CUDA graph, with
    ``flash_decode``'s share of it;
@@ -47,7 +51,12 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    concurrent slots of 4, ``max_new=8``), checks that ``rwkv6_wkv``
    launched, and prints prefill and decode tokens/s and peak memory;
 8. the same for zamba2-1.2b, checking that ``ssd_scan``,
-   ``flash_attention`` and ``flash_decode`` launched;
+   ``flash_attention`` and ``flash_decode`` launched; then a
+   ``ContinuousGenerationSession`` (4 slots, ``max_len=64``) serves 8
+   prompts of three lengths through ``CollaborativeEngine.
+   serve_continuous``, block-to-completion and continuous, in
+   exact-width admission waves, each row held against solo generation
+   (tokens equal up to the first whose top-2 logit margin is under 1e-4);
 9. builds the paper's two RNN models at full width (the BiLSTM de-en and
    the GRU fr-en, ``resolve("cnmt:<pair>", scale=1.0)``), holds each
    against a CPU copy of the same weights (encoder outputs and carries
@@ -90,6 +99,22 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    launched while training, and ``train_logits``' last position against
    ``prefill``'s kernel-path logits (phases 7-8's rule); it prints ms
    per step and peak memory.
+13. (run after phase 10, before phases 11-12, so that its weights are
+   freed before rwkv6-3b trains) builds qwen3-8b at full width
+   (``resolve("qwen3-8b", size="full")``, random weights from a seed),
+   prints its parameter count, holds its prefill and four decode-step
+   logits against the plain kernels (phases 7-8's rule), runs the tiered
+   path, then serves 32 ragged prompts (5-100 tokens, ``max_new=32``) on
+   a Poisson schedule through ``serve_continuous`` with a
+   ``ContinuousGenerationSession(max_slots=8, max_len=256)``, once
+   block-to-completion and once continuous, after a warm-up pass.  It
+   checks that the continuous run admitted more waves than ``ceil(32/8)``
+   and filled all 8 slots, that both attention kernels launched, and
+   that every row equals solo generation (the rule above); it prints
+   p50/p95 of both modes, steps, waves, the eager step at 8 live slots
+   beside the weight-read bound, the device busy share of a step
+   (profiler), decode tokens/s, an admission wave's prefill time and
+   the phase's peak memory.
 
 It prints one JSON line of kernel numbers (each kernel's launches summed
 over the main paths that run it) and, last, the line
@@ -130,6 +155,12 @@ MAX_DECODE = 256
 WKV_H, WKV_P = 40, 64           # rwkv6-3b: 40 heads of 64
 SSD_H, SSD_P, SSD_N = 64, 64, 64  # zamba2-1.2b: 64 heads, P = N = 64
 ZA_H = 32                       # zamba2-1.2b shared attention: 32 heads of 64
+QW_H, QW_HKV, QW_D = 32, 8, 128  # qwen3-8b: 32 query heads over 8 KV heads
+QW_T = 256                      # phase 13's slot-table capacity (max_len)
+QW_LENS = (37, 256, 100, 5, 180, 64, 1, 129)   # a table step's pos + 1
+QW_RATE_HZ = 40.0               # phase 13's Poisson arrivals: twice what 8
+                                # slots serve at ~25 ms a step
+MARGIN = 1e-4                   # top-2 logit margin behind a compared token
 
 
 def log(msg: str) -> None:
@@ -267,7 +298,30 @@ def check_kernels(fa, da, gen):
                    da.flash_decode_plain(q[:, 0], kc, vc, lens), tol)
             cases += 2
     torch.cuda.synchronize()
-    return cases + check_tile_cases(fa, da, gen)
+    return cases + check_gqa_cases(fa, da, gen) + check_tile_cases(fa, da, gen)
+
+
+def check_gqa_cases(fa, da, gen):
+    """qwen3-8b's attention in float32: an admission wave's causal
+    prefill, a slot-table step's decode over ragged lengths, and the
+    decode of idle slots whose lengths run past the cache (they attend to
+    every slot, as the reference's mask ``idx <= pos`` does there)."""
+    q = randn(gen, (8, 64, QW_H, QW_D))
+    k, v = (randn(gen, (8, 64, QW_HKV, QW_D)) for _ in range(2))
+    within(f"flash_attention f32 B=8 S=T=64 H={QW_H} Hkv={QW_HKV} "
+           f"D={QW_D} causal", fa.flash_attention_cuda(q, k, v, causal=True),
+           fa.flash_attention_plain(q, k, v, causal=True), F32_TOL)
+    q = randn(gen, (8, QW_H, QW_D))
+    kc, vc = (randn(gen, (8, QW_T, QW_HKV, QW_D)) for _ in range(2))
+    for what, lens in (("ragged", QW_LENS),
+                       ("past the cache",
+                        (QW_T + 1, 300, QW_T, 1000, 511, 2**20, 258, 1))):
+        lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        within(f"flash_decode f32 B=8 T={QW_T} H={QW_H} Hkv={QW_HKV} "
+               f"D={QW_D} {what} lens={lens}",
+               da.flash_decode_cuda(q, kc, vc, lt),
+               da.flash_decode_plain(q, kc, vc, lt), F32_TOL)
+    return 3
 
 
 def check_tile_cases(fa, da, gen):
@@ -579,25 +633,56 @@ def attention_case(fa, gen, b, s):
     return row
 
 
-def causal_case(fa, gen, b, s):
-    """flash_attention over one zamba2-1.2b shared-attention prefill call:
-    causal, 32 heads of 64, all keys valid; the yardstick is SDPA with
-    is_causal on the same numbers.  FLOP count the causal half."""
+def causal_case(fa, gen, b, s, h=ZA_H, hkv=ZA_H, d=DH, model="zamba2-1.2b"):
+    """flash_attention over one causal prefill call with all keys valid:
+    zamba2-1.2b's shared attention (32 heads of 64) or, with ``h``,
+    ``hkv``, ``d`` given, qwen3-8b's (32 query heads over 8 KV heads of
+    128).  The yardstick is SDPA with is_causal (and enable_gqa) on the
+    same numbers.  FLOP count the causal half."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    q, k, v = (randn(gen, (b, s, ZA_H * DH)).view(b, s, ZA_H, DH)
-               for _ in range(3))
+    q = randn(gen, (b, s, h, d))
+    k, v = (randn(gen, (b, s, hkv, d)) for _ in range(2))
     qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
     big = b * s > 1024
     row = time_case(
         lambda: fa.flash_attention_cuda(q, k, v, causal=True),
         lambda: fa.flash_attention_plain(q, k, v, causal=True),
-        lambda: sdpa(qs, ks, vs, is_causal=True),
-        4 * 4 * b * s * ZA_H * DH, 2 * b * ZA_H * s * (s + 1) * DH,
+        lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=h != hkv),
+        4 * 2 * b * s * (h + hkv) * d, 2 * b * h * s * (s + 1) * d,
         per_graph=5 if big else 50, plain_per_graph=1 if big else 10)
     row["library_err"] = max_err(
         fa.flash_attention_cuda(q, k, v, causal=True),
-        sdpa(qs, ks, vs, is_causal=True).permute(0, 2, 1, 3))
-    row["shape"] = f"B={b} S=T={s} H={ZA_H} dh={DH} causal f32"
+        sdpa(qs, ks, vs, is_causal=True,
+             enable_gqa=h != hkv).permute(0, 2, 1, 3))
+    row["shape"] = f"{model} B={b} S=T={s} H={h} Hkv={hkv} dh={d} causal f32"
+    return row
+
+
+def gqa_decode_case(da, gen, b):
+    """flash_decode over one qwen3-8b layer of a slot-table step: a cache
+    of ``QW_T`` slots, ragged lengths, 32 query heads over 8 KV heads of
+    128.  Bytes count the valid slots only; the yardstick is SDPA with a
+    key mask and enable_gqa."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q = randn(gen, (b, QW_H, QW_D))
+    kc, vc = (randn(gen, (b, QW_T, QW_HKV, QW_D)) for _ in range(2))
+    lens = torch.tensor(QW_LENS[:b], dtype=torch.int32, device="cuda")
+    valid = sum(QW_LENS[:b])
+    qs = q[:, :, None, :]
+    ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (kc, vc))
+    keymask = (torch.arange(QW_T, device="cuda")[None, :]
+               < lens[:, None])[:, None, None, :]
+    row = time_case(
+        lambda: da.flash_decode_cuda(q, kc, vc, lens),
+        lambda: da.flash_decode_plain(q, kc, vc, lens),
+        lambda: sdpa(qs, ks, vs, attn_mask=keymask, enable_gqa=True),
+        4 * (2 * valid * QW_HKV * QW_D + 2 * b * QW_H * QW_D + b),
+        4 * valid * QW_H * QW_D)
+    row["library_err"] = max_err(
+        da.flash_decode_cuda(q, kc, vc, lens),
+        sdpa(qs, ks, vs, attn_mask=keymask, enable_gqa=True)[:, :, 0])
+    row["shape"] = (f"qwen3-8b B={b} H={QW_H} Hkv={QW_HKV} dh={QW_D} "
+                    f"T={QW_T} lens={QW_LENS[:b]} f32")
     return row
 
 
@@ -678,7 +763,10 @@ def timings(gen):
              ("flash_attention", attention_case(fa, gen, 8, 64)),
              ("flash_attention", attention_case(fa, gen, 8, 512)),
              ("flash_attention", causal_case(fa, gen, 1, 64)),
-             ("flash_attention", causal_case(fa, gen, 8, 2048))]
+             ("flash_attention", causal_case(fa, gen, 8, 2048)),
+             ("flash_attention", causal_case(fa, gen, 8, 64, QW_H, QW_HKV,
+                                             QW_D, "qwen3-8b")),
+             ("flash_decode", gqa_decode_case(da, gen, 8))]
     cases += scan_cases(gen)
     for name, r in cases:
         lib = ("library — (no single PyTorch call computes it)"
@@ -700,7 +788,7 @@ def timings(gen):
                              source=KERNELS[name][0],
                              replaces=KERNELS[name][1]))
     decode_ms = {r["batch"]: r["ms"] for name, r in cases
-                 if name == "flash_decode"}
+                 if name == "flash_decode" and "batch" in r}
     return rows, decode_ms
 
 
@@ -926,27 +1014,247 @@ def lm_rates(model, ops, kernel_name):
                 f"memory {peak:.2f} GiB")
 
 
-def lm_phase(name, ops, needed):
-    """Build ``name`` at full width on the card, check it against its
-    plain kernels, drive the tiered serving path and time it."""
+def build_lm(name):
+    """``name`` at full width on the card, random weights from seed 0."""
     from repro_torch.models.registry import resolve
 
     t0 = time.perf_counter()
     r = resolve(name, size="full", device="cuda", seed=0)
-    model = r.model
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
+    n_params = sum(p.numel() for p in r.model.parameters())
     log(f"  {r.name}: d_model {r.cfg.d_model}, {r.cfg.num_layers} layer "
         f"slots, vocab {r.cfg.vocab_size}; {n_params / 1e9:.3f}B parameters "
         f"({4 * n_params / 1e9:.2f} GB f32), built in "
         f"{time.perf_counter() - t0:.2f}s")
+    return r.model, n_params
+
+
+def lm_phase(name, ops, needed, continuous=None):
+    """Build ``name`` at full width on the card, check it against its
+    plain kernels, drive the tiered serving path and time it; then
+    ``continuous(model)``, if given, whose launches join the paths."""
+    model, _ = build_lm(name)
     check_lm(model, ops)
-    launches = lm_main_path(model, ops, needed)
+    paths = {name: lm_main_path(model, ops, needed)}
     lm_rates(model, ops, needed[0])
-    del model, r
+    if continuous is not None:
+        paths[f"{name} continuous"] = continuous(model)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
+    return paths
+
+
+class Recorder:
+    """A continuous session as the engine drives it, keeping each finished
+    row's ``(m_out, tokens)`` (the engine's results carry ``m_out``
+    only)."""
+
+    def __init__(self, sess):
+        self.sess, self.rows = sess, {}
+
+    def __getattr__(self, name):
+        return getattr(self.sess, name)
+
+    def step(self):
+        stream, finished = self.sess.step()
+        for rid, m, toks in finished:
+            self.rows[rid] = (m, toks)
+        return stream, finished
+
+
+def serve_both_modes(sess, ops, prompts, max_new, rate_hz, needed):
+    """``CollaborativeEngine.serve_continuous`` over one Poisson schedule,
+    block-to-completion (``refill=False``) then continuous, with the
+    session as the card's one tier, after a warm-up pass.  Checks that
+    every request was served with a finite latency and that the
+    ``needed`` kernels launched.  Returns ({refill: (stats, steps, waves,
+    peak live, rows)}, launches)."""
+    from repro_torch.core.latency_model import (DeviceProfile,
+                                                LinearLatencyModel)
+    from repro_torch.core.length_regressor import LinearN2M
+    from repro_torch.runtime.engine import CollaborativeEngine, Tier
+
+    sess.serve(prompts[:sess.max_slots], max_new=min(max_new, 4))
+    arrivals = np.cumsum(np.random.default_rng(11).exponential(
+        1 / rate_hz, len(prompts)))
+    card = DeviceProfile("card", LinearLatencyModel(0.0, 0.0, 0.01), 0.0)
+    runs = {}
+    ops.reset_launch_counts()
+    for refill in (False, True):
+        sess.reset()
+        rec = Recorder(sess)
+        engine = CollaborativeEngine(
+            n2m=LinearN2M(1.0, 0.0),
+            tiers=[Tier(card, name="card", servers=1, queue_capacity=256,
+                        batch_size=sess.max_slots, continuous_session=rec)],
+            seed=0)
+        t0 = time.perf_counter()
+        results = engine.serve_continuous(prompts, arrival_s=arrivals,
+                                          max_new=max_new, refill=refill)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s = engine.stats()
+        if len(results) != len(prompts) or any(r.shed for r in results) \
+                or len(rec.rows) != len(prompts):
+            raise AssertionError(f"refill={refill}: not every request was "
+                                 "served")
+        for r in results:
+            if not (np.isfinite(r.latency_s) and r.latency_s > 0
+                    and r.m_out == rec.rows[r.req_id][0]):
+                raise AssertionError(f"bad result {r}")
+        mode = "continuous (refill=True)" if refill else \
+            "block-to-completion"
+        log(f"  {mode}: p50={s['p50_latency_s'] * 1e3:.1f}ms "
+            f"p95={s['p95_latency_s'] * 1e3:.1f}ms mean="
+            f"{s['mean_latency_s'] * 1e3:.1f}ms steps={sess.n_steps} "
+            f"prefill waves={sess.n_prefills} peak live={sess.peak_live} "
+            f"wall {wall:.2f}s ({len(prompts)} requests, arrivals over "
+            f"{arrivals[-1]:.2f}s)")
+        runs[refill] = (s, sess.n_steps, sess.n_prefills, sess.peak_live,
+                        rec.rows)
+    launches = ops.launch_counts()
+    log(f"  kernel launches over both runs: {launches}")
+    for name in needed:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} never launched in serve_continuous")
+    return runs, launches
+
+
+def check_against_solo(model, prompts, runs, max_new, max_len):
+    """Each row of each run against the same model's solo
+    ``generate_with_lengths``: tokens equal up to the first whose top-2
+    logit margin (``greedy_margins``) is under 1e-4, and ``m`` equal when
+    there is none; a mismatch above that margin fails."""
+    from repro_torch.runtime.serving import GenerationSession, greedy_margins
+
+    sess = GenerationSession(model, max_len=max_len)
+    compared = ties = 0
+    low = float("inf")
+    for i, p in enumerate(prompts):
+        lens, out = sess.generate_with_lengths(p[None], max_new=max_new)
+        m, ref = int(lens[0]), out[0]
+        margins = greedy_margins(model, p, ref[:min(m + 1, max_new)])
+        tie = np.flatnonzero(margins < MARGIN)
+        k = int(tie[0]) if len(tie) else len(margins)
+        low, ties, compared = min(low, float(margins.min())), \
+            ties + bool(len(tie)), compared + k
+        for refill, (*_, rows) in runs.items():
+            m2, toks = rows[i]
+            if not np.array_equal(toks[:k], ref[:k]) or (
+                    not len(tie) and (m2 != m or len(toks) != k)):
+                raise AssertionError(
+                    f"request {i} (refill={refill}): ({m2}, {toks.tolist()})"
+                    f" != solo ({m}, {ref.tolist()}); margins "
+                    f"{np.round(margins, 6).tolist()}")
+    log(f"  every row == solo generate_with_lengths in both modes: "
+        f"{compared} tokens compared per mode, {ties} of {len(prompts)} "
+        f"rows stop at a top-2 margin under {MARGIN:g}; smallest margin "
+        f"{low:.3e}")
+
+
+def zamba2_continuous(model, ops):
+    """Phase 8's slot table: 8 prompts of three lengths, so the recurrent
+    plan admits exact-width waves through ``ssd_scan``."""
+    from repro_torch.runtime.serving import ContinuousGenerationSession
+
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(4, model.cfg.vocab_size, n).astype(np.int32)
+               for n in (3, 17, 40, 3, 17, 40, 17, 3)]
+    sess = ContinuousGenerationSession(model, max_slots=4, max_len=64)
+    runs, launches = serve_both_modes(
+        sess, ops, prompts, 8, 50.0,
+        ("ssd_scan", "flash_attention", "flash_decode"))
+    check_against_solo(model, prompts, runs, 8, 64)
     return launches
+
+
+def profiled_busy_ms(fn):
+    """Device kernel time and kernel count of one ``fn()`` under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and "cuda" in str(e.device_type).lower()]
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+               for e in events) / 1e3
+    return busy, sum(e.count for e in events)
+
+
+def qwen3_phase(ops):
+    """qwen3-8b at full width: kernels vs plain, the tiered path, then
+    continuous in-flight batching through the engine, held against solo
+    generation, and the slot table's step and wave times."""
+    from repro_torch.runtime.serving import ContinuousGenerationSession
+
+    torch.cuda.reset_peak_memory_stats()
+    model, n_params = build_lm("qwen3-8b")
+    log(f"  allocated after the build "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    check_lm(model, ops)
+    check_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    paths = {"qwen3-8b": lm_main_path(model, ops, ("flash_attention",
+                                                   "flash_decode"))}
+
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(4, model.cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(5, 101, 32)]
+    sess = ContinuousGenerationSession(model, max_slots=8, max_len=QW_T)
+    runs, paths["qwen3-8b continuous"] = serve_both_modes(
+        sess, ops, prompts, 32, QW_RATE_HZ, ("flash_attention",
+                                             "flash_decode"))
+    waves = -(-len(prompts) // sess.max_slots)
+    if not (runs[True][2] > waves and runs[True][3] == sess.max_slots):
+        raise AssertionError(
+            f"refill=True ran {runs[True][2]} prefill waves (need more than "
+            f"{waves}) at peak {runs[True][3]} live (need {sess.max_slots})")
+    check_against_solo(model, prompts, runs, 32, QW_T)
+
+    # a full table: 8 live slots mid-decode, one step each call
+    sess.reset()
+    sess.admit([p[:16] for p in prompts[:8]], max_new=QW_T - 32)
+    for _ in range(3):
+        sess.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        sess.step()
+    step_ms = (time.perf_counter() - t0) / 20 * 1e3
+    busy, kernels = profiled_busy_ms(lambda: [sess.step() for _ in range(5)])
+    with torch.inference_mode():
+        tok = sess._tok[:, None].clone()
+        graph_ms = device_ms(lambda: model.decode_step(sess._state, tok),
+                             per_graph=10, replays=3)
+    weights_ms = 4 * n_params / HBM_BYTES_S * 1e3
+    block = torch.as_tensor(np.stack([p[:5].repeat(13)[:64]
+                                      for p in prompts[:8]]),
+                            device=model.device)
+    with torch.inference_mode():
+        wave_ms = wall_ms(lambda: model.prefill(block, max_len=QW_T))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  slot-table step at 8 live slots: {step_ms:.2f}ms eager = "
+        f"{8 / step_ms * 1e3:.1f} decode tokens/s; bound {weights_ms:.2f}ms "
+        f"(the {4 * n_params / 1e9:.2f} GB of float32 weights at 3.35 TB/s); "
+        f"profiled: {kernels / 5:.0f} device kernels and "
+        f"{busy / 5:.2f}ms device time per step = device busy "
+        f"{100 * busy / 5 / step_ms:.1f}% of the step; the model's decode "
+        f"step from a CUDA graph {graph_ms:.2f}ms")
+    log(f"  admission wave prefill B=8 S=64 (max_len {QW_T}): {wave_ms:.2f}ms"
+        f" = {8 * 64 / wave_ms * 1e3:.0f} tokens/s, "
+        f"{2 * n_params * 8 * 64 / wave_ms / 1e9:.1f} TFLOP/s of weight "
+        f"GEMMs; peak memory while serving {peak:.2f} GiB (while checking "
+        f"against the plain kernels, with a 2-layer copy: "
+        f"{check_peak:.2f} GiB)")
+    del model, sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
 
 
 # ---------------------------------------------------------- phases 9-10 --
@@ -1314,8 +1622,6 @@ def step_breakdown(what, loss_fn, params, opt, leaf_ndim):
     each ended by a device sync (3 reps, median), and one step under
     ``torch.profiler`` for the device's kernel time and launch count.
     AdamW runs at lr 0, so the weights do not move."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
                                                 clip_by_global_norm)
 
@@ -1333,15 +1639,7 @@ def step_breakdown(what, loss_fn, params, opt, leaf_ndim):
         return t1 - t0, time.perf_counter() - t1
 
     fb, up = np.median([halves() for _ in range(3)], axis=0) * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        halves()
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None
-              and "cuda" in str(e.device_type).lower()]
-    busy = sum(getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-               for e in events) / 1e3
-    kernels = sum(e.count for e in events)
+    busy, kernels = profiled_busy_ms(halves)
     log(f"  {what} step: loss + backward {fb:.2f}ms, clip + AdamW "
         f"{up:.2f}ms ({len(params)} parameter tensors); one profiled step: "
         f"{kernels} device kernels, {busy:.2f}ms of device time = "
@@ -1526,11 +1824,12 @@ def main() -> int:
 
     log("== phase 7: rwkv6-3b at full width through GenerationSession and "
         "CollaborativeEngine")
-    paths["rwkv6-3b"] = lm_phase("rwkv6-3b", ops, ("rwkv6_wkv",))
-    log("== phase 8: zamba2-1.2b at full width through GenerationSession and "
-        "CollaborativeEngine")
-    paths["zamba2-1.2b"] = lm_phase(
-        "zamba2-1.2b", ops, ("ssd_scan", "flash_attention", "flash_decode"))
+    paths.update(lm_phase("rwkv6-3b", ops, ("rwkv6_wkv",)))
+    log("== phase 8: zamba2-1.2b at full width through GenerationSession, "
+        "CollaborativeEngine and a ContinuousGenerationSession")
+    paths.update(lm_phase(
+        "zamba2-1.2b", ops, ("ssd_scan", "flash_attention", "flash_decode"),
+        continuous=lambda model: zamba2_continuous(model, ops)))
 
     log("== phase 9: the paper's BiLSTM de-en and GRU fr-en at full width")
     planes = {"cnmt:en-zh": marian_planes}
@@ -1558,6 +1857,12 @@ def main() -> int:
     del models, rnns, r
     gc.collect()
     torch.cuda.empty_cache()
+
+    log("== phase 13: qwen3-8b at full width through GenerationSession, "
+        "CollaborativeEngine and continuous in-flight batching "
+        "(run before phases 11-12, whose rwkv6-3b training would not fit "
+        "beside its weights)")
+    paths.update(qwen3_phase(ops))
 
     log("== phase 11: training the paper's three NMT models at full width")
     model, _ = nmt_training("marian", "en-zh", ops, 200, smi)

@@ -5,10 +5,11 @@ assigned configuration; ``smoke_config(name)`` the reduced same-family
 variant the CPU tests use, by the reference's exact rules (<=2 layers
 per group kind, d_model 256, vocab 512, narrower heads and states).
 
-This slice carries the two recurrent families, ``rwkv6-3b`` and
-``zamba2-1.2b``.  The other eight assigned names are known and raise
-``NotImplementedError``: the dense/MoE/MLA/encoder families come in a
-later slice of the port.
+The port carries the two recurrent families, ``rwkv6-3b`` and
+``zamba2-1.2b``, and the dense qk-norm family, ``qwen3-8b``.  The other
+seven assigned names are known and raise ``NotImplementedError``: the
+MoE/MLA/encoder families, qwen3-32b and the sliding-window variants come
+in a later slice of the port.
 """
 
 from __future__ import annotations
@@ -16,12 +17,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from repro_torch.configs import rwkv6_3b, zamba2_1p2b
+from repro_torch.configs import qwen3_8b, rwkv6_3b, zamba2_1p2b
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "rwkv6-3b": rwkv6_3b,
     "zamba2-1.2b": zamba2_1p2b,
+    "qwen3-8b": qwen3_8b,
 }
 
 # every architecture the reference registry assigns, in its order
@@ -36,8 +38,9 @@ def _module(name: str):
         return _MODULES[name]
     if name in ARCH_NAMES:
         raise NotImplementedError(
-            f"{name!r} is not ported yet: the dense, MoE, MLA and encoder "
-            "families come in a later slice of the port (ported: "
+            f"{name!r} is not ported yet: the MoE, MLA and encoder "
+            "families and the configurations too large for one card in "
+            "float32 come in a later slice of the port (ported: "
             f"{', '.join(PORTED)})")
     raise KeyError(f"unknown architecture {name!r}; have {ARCH_NAMES}")
 

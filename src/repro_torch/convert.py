@@ -137,7 +137,9 @@ def lm_params_from_jax(tree, cfg) -> Dict[str, torch.Tensor]:
     stacked along a leading ``count`` axis (``jax.vmap`` over the layer
     inits); it is cut into one entry per layer, ``groups.<g>.<layer>.*``.
     ``shared_attn``, ``embed``, ``lm_head`` and ``final_norm`` carry across
-    as they are.  Every tensor is used as given (float32), never redrawn.
+    as they are; qwen3's qk-norm scales (``mixer.q_norm.g`` /
+    ``mixer.k_norm.g``, stacked (count, head_dim)) are per-layer leaves
+    like any other.  Every tensor is used as given (float32), never redrawn.
     Load the result with ``model.load_state_dict(...)``.
     """
     unknown = set(tree) - {"embed", "final_norm", "lm_head", "groups",

@@ -1,11 +1,14 @@
 """Serving driver: batched LM generation, or the LM as a real tier of the
 C-NMT engine.
 
-    python -m repro_torch.launch.serve --arch rwkv6-3b --smoke --device cpu
+    python -m repro_torch.launch.serve --smoke --device cpu --tiered
     python -m repro_torch.launch.serve --arch zamba2-1.2b --tiered
 
-Port of ``repro/launch/serve.py`` without ``--mesh`` (one card).  It
-resolves the LM (weights drawn from ``--seed``) and serves it through a
+Port of ``repro/launch/serve.py`` without ``--mesh`` (one card); the
+architecture defaults to the reference's, qwen3-8b (``--smoke`` for its
+reduced same-family configuration; without it the full width, ≈32.8 GB
+of float32 weights on the card).  It resolves the LM (weights drawn from
+``--seed``) and serves it through a
 :class:`~repro_torch.runtime.serving.GenerationSession`.  With
 ``--tiered`` the session is the real ``edge`` tier of a
 :class:`~repro_torch.runtime.engine.CollaborativeEngine` beside a
@@ -83,7 +86,7 @@ def serve_tiered(sess: GenerationSession, vocab: int, *, requests: int = 16,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="rwkv6-3b")
+    ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=8)

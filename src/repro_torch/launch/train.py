@@ -3,14 +3,17 @@
     python -m repro_torch.launch.train --arch zamba2-1.2b --smoke \\
         --device cpu --steps 20
 
-Port of ``repro/launch/train.py`` for the two families the port has,
-``rwkv6-3b`` and ``zamba2-1.2b`` (``--smoke`` for the reduced
-same-family configuration); the other architectures wait for their
-model families.  Weights are drawn from seed 0; the data is the
-reference's: a uniform random token stream packed by ``lm_batches``;
-AdamW under a cosine schedule with a tenth of the steps warming up; a
-checkpoint of the ``TrainState`` in the reference's format if
-``--ckpt`` is given.  It runs on ``cuda`` unless given ``--device cpu``.
+Port of ``repro/launch/train.py`` for the architectures the port has,
+``rwkv6-3b``, ``zamba2-1.2b`` and ``qwen3-8b`` (``--smoke`` for the
+reduced same-family configuration); the other architectures wait for
+their model families.  On the card it refuses a full-width configuration
+whose float32 parameters, gradients and two AdamW moments (16 bytes a
+parameter) exceed the card's memory: qwen3-8b's take ≈131 GB.  Weights
+are drawn from seed 0; the data is the reference's: a uniform random
+token stream packed by ``lm_batches``; AdamW under a cosine schedule with
+a tenth of the steps warming up; a checkpoint of the ``TrainState`` in
+the reference's format if ``--ckpt`` is given.  It runs on ``cuda``
+unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -19,9 +22,12 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
-from repro_torch.configs import PORTED
+from repro_torch.configs import PORTED, get_config
 from repro_torch.data.pipeline import lm_batches
+from repro_torch.device import resolve_device
+from repro_torch.models.model import LM
 from repro_torch.models.registry import resolve
 from repro_torch.training.checkpoint import save_checkpoint, state_to_jax
 from repro_torch.training.optimizer import AdamWConfig, cosine_schedule
@@ -32,9 +38,27 @@ from repro_torch.training.train_loop import (
 )
 
 
+TRAIN_BYTES_PER_PARAM = 16   # float32 parameter, gradient, two moments
+
+
+def check_fits(arch: str, device_bytes: int) -> None:
+    """Raise ``ValueError`` if training ``arch`` at full width needs more
+    than ``device_bytes`` for its parameters, gradients and AdamW moments
+    (counted on the ``meta`` device: nothing is allocated)."""
+    n = sum(p.numel() for p in LM(get_config(arch), device="meta")
+            .parameters())
+    need = TRAIN_BYTES_PER_PARAM * n
+    if need > device_bytes:
+        raise ValueError(
+            f"training {arch} at full width needs {need / 1e9:.1f} GB for "
+            f"its {n / 1e9:.2f}B float32 parameters, their gradients and "
+            f"two AdamW moments; the card has {device_bytes / 1e9:.1f} GB "
+            "(use --smoke)")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="rwkv6-3b")
+    ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-runnable)")
     ap.add_argument("--steps", type=int, default=50)
@@ -49,7 +73,10 @@ def main(argv=None):
     if arch not in PORTED:
         raise NotImplementedError(
             f"LM training for {arch!r} waits for its model family in the "
-            f"port (ROADMAP A.4/A.5); trainable now: {', '.join(PORTED)}")
+            f"port (ROADMAP A.5); trainable now: {', '.join(PORTED)}")
+    dev = resolve_device(args.device)
+    if not args.smoke and dev.type == "cuda":
+        check_fits(arch, torch.cuda.get_device_properties(dev).total_memory)
     r = resolve(arch, size="smoke" if args.smoke else "full",
                 device=args.device, seed=0)
     model, cfg = r.model, r.cfg

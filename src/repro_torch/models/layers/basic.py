@@ -49,6 +49,12 @@ def rmsnorm(g, x, eps: float = 1e-5):
     return (xf * scale * g).to(x.dtype)
 
 
+def head_rmsnorm(g, x, eps: float = 1e-5):
+    """qk-norm (qwen3): the RMS norm over the last (head) dim of q or k
+    (..., H, Dh) with a scale ``g`` (Dh,), its statistics in float32."""
+    return rmsnorm(g, x, eps)
+
+
 # ------------------------------------------------------------------- rope --
 def apply_rope(x, positions, theta: float):
     """x (..., S, H, Dh), positions (..., S) -> rotated x (same dtype).

@@ -1,9 +1,10 @@
 """The composable LM: layer groups assembled into prefill and decode paths.
 
-Port of ``repro/models/model.py`` for the groups this slice carries:
+Port of ``repro/models/model.py`` for the groups the port carries:
 ``rwkv6/rwkv_cm`` (rwkv6-3b), ``mamba2/none`` and ``shared_attn/dense``
-(zamba2-1.2b) and ``attn/dense``.  MLA, MoE, cross-attention and
-encoder configurations raise ``NotImplementedError``.
+(zamba2-1.2b) and ``attn/dense`` with or without qk-norm (qwen3-8b).
+MLA, MoE, sliding-window, cross-attention and encoder configurations
+raise ``NotImplementedError``.
 
 Structure follows the reference's parameter tree, so the converter maps
 it name for name: ``groups[gi][li]`` is layer ``li`` of group ``gi`` (one
@@ -11,7 +12,8 @@ module per layer, where the reference stacks a group's layers along a
 leading ``count`` axis), and the zamba-style ``shared_attn`` block is
 held once and called by every shared group, each call with a KV cache of
 its own.  Weights are drawn at construction from a ``torch.Generator``
-seeded with ``seed`` on the target device.
+seeded with ``seed`` on the target device (on the ``meta`` device
+nothing is drawn or allocated: shapes only, to size a configuration).
 
 Entry points:
 
@@ -102,7 +104,8 @@ class LM(nn.Module):
             raise NotImplementedError(
                 "multi-token prediction and tied embeddings are not ported")
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = (None if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(seed))
         kw = dict(device=dev, generator=gen)
         self.embed = Embedding(cfg.padded_vocab, cfg.d_model, **kw)
         self.final_norm = RMSNorm(cfg.d_model, device=dev)

@@ -54,8 +54,9 @@ execution finally matches the batch-aware occupancy accounting instead
 of only being modelled by it.
 
 CONTINUOUS in-flight batching: a tier carrying a ``continuous_session``
-(a continuous-batching generation session; none is ported yet, so the
-branch stays inert) serves
+(a :class:`~repro_torch.runtime.serving.ContinuousGenerationSession`, or
+any object with its ``admit``/``step``/``live_count``/``free_slots``
+protocol) serves
 :meth:`CollaborativeEngine.serve_continuous` — an event loop over a
 virtual arrival schedule where the batch is re-formed BETWEEN decode
 steps: finished rows evict and free their slot immediately, and queued

@@ -1,4 +1,5 @@
-"""LM serving: greedy batched generation and the engine's executor factory.
+"""LM serving: greedy batched generation, continuous in-flight batching
+and the engine's executor factory.
 
 Port of the LM half of ``repro/runtime/serving.py``.
 
@@ -20,13 +21,22 @@ a recurrent mixer (mamba2, rwkv6) take no ragged prefill — their carried
 state would fold right-padding in — so only the batch is padded for them,
 and the batched executor runs one sub-batch per distinct prompt length.
 
+:class:`ContinuousGenerationSession` is continuous in-flight batching
+over a persistent slot table of ``max_slots`` sequences on the model's
+device: one decode step over the whole table per ``step()``, finished
+rows evicted between steps, queued prompts prefilled into the freed
+slots of the live batch (one bucketed ``prefill`` per admission wave,
+its real rows copied into the resident state), and tokens streamed out
+per step.  EOS bookkeeping is the same
+:func:`~repro_torch.nmt.common.greedy_update` the device loop uses.
+
 :func:`build_executor` is the one factory for the executor shapes a
 :class:`~repro_torch.runtime.engine.Tier` accepts: ``kind="solo"``
 (per-request), ``kind="batched"`` (one drained ``TokenBatcher`` block per
 call), ``kind="split"`` (the two legs of a split placement over an NMT
 model's ``EncoderStates``), ``kind="raw"`` (pass-through, to apply
-``faults=``).  :class:`ContinuousGenerationSession` and the sharded
-sessions are not ported yet.
+``faults=``).  A continuous session goes to a tier as its
+``continuous_session``.  The sharded sessions are not ported yet.
 """
 
 from __future__ import annotations
@@ -342,3 +352,279 @@ class GenerationSession:
         out[:, :len(emitted)] = torch.stack(emitted, dim=1)
         return torch.stack(lives, dim=1).sum(dim=1, dtype=torch.int32), out
 
+
+
+def greedy_margins(model, prompt: np.ndarray, tokens: np.ndarray
+                   ) -> np.ndarray:
+    """The top-2 logit margin behind each of ``tokens``, a greedy
+    continuation of ``prompt`` (1-D): entry i is the margin of the logits
+    that chose token i (prefill for i = 0, then one B=1 decode step per
+    token, teacher-forced on ``tokens``).
+
+    Generations from different batch shapes may round differently in the
+    last bits (a GEMM's kernel, a split plan and a query tile all depend
+    on the shape), so a token behind a margin near 0 may flip; comparisons
+    across batch shapes stop at the first such token."""
+    dev = model.device
+    toks = np.asarray(tokens, np.int32).reshape(-1)
+    out = []
+    with torch.inference_mode():
+        logits, state = model.prefill(
+            torch.as_tensor(np.asarray(prompt, np.int32)[None, :],
+                            device=dev),
+            max_len=len(prompt) + max(len(toks), 1))
+        for i, t in enumerate(toks):
+            top2 = torch.topk(logits[0].float(), 2).values
+            out.append(top2[0] - top2[1])
+            if i + 1 < len(toks):
+                logits, state = model.decode_step(state, torch.full(
+                    (1, 1), int(t), dtype=torch.int32, device=dev))
+        return torch.stack(out).cpu().numpy() if out else np.zeros(0)
+
+
+class ContinuousGenerationSession:
+    """Continuous in-flight batching over a persistent slot table.
+
+    ``max_slots`` sequences share ONE resident decode state on the model's
+    device (capacity ``max_len`` per slot).  The batch is re-formed
+    between decode steps:
+
+    * :meth:`step` runs one decode step over the whole slot table, brings
+      each slot's emitted token, live flag and done flag to the host in
+      one transfer (``max_slots`` scalars each), streams the live slots'
+      tokens and EVICTS rows that emitted EOS or used up their
+      ``max_new`` budget; their slots free at once.  Free slots step too
+      (their rows are done, their output ignored, their ``pos`` grows
+      past ``max_len``, where the decode writes nothing);
+    * :meth:`admit` PREFILLS queued prompts into free slots of the live
+      batch: one bucketed ``LM.prefill(max_len=, lengths=)`` per admission
+      wave, and its real rows copied into the resident state (every cache
+      tensor at batch axis 1, after the leading layer axis; ``pos``, the
+      carried token and ``done`` at axis 0).  The reference scatters the
+      batch-padding rows to an out-of-bounds index that JAX drops; here
+      only the real rows are copied.
+
+    EOS/done bookkeeping is :func:`repro_torch.nmt.common.greedy_update`
+    with ``keep_eos=True``, the semantics of
+    :meth:`GenerationSession.generate_with_lengths`, so a row's tokens and
+    pre-EOS length are what a solo generate gives, up to the rounding of
+    another batch shape (see :func:`greedy_margins`).
+
+    Position-masked plans (attention) admit one bucketed ragged wave per
+    call (batch padded to a power of two, width to ``_next_pow2(w, 8)``
+    capped at ``max_len - max_new``); recurrent plans (mamba2, rwkv6)
+    admit one exact-width wave per distinct prompt length.  The resident
+    state starts as ``model.init_decode_state(max_slots, max_len)``,
+    whose tensors have the shapes every admission prefill produces (the
+    reference seeds it with a one-token dummy prefill, which leaves a
+    mamba2 conv buffer of the wrong shape).
+    """
+
+    def __init__(self, model, *, max_slots: int = 8, max_len: int = 64,
+                 bucket_shapes: bool = True):
+        if max_slots < 1:
+            raise ValueError("max_slots must be >= 1")
+        if model.cfg.is_encoder_decoder:
+            raise ValueError("continuous batching needs a decoder-only LM")
+        self.model = model
+        self.max_slots = max_slots
+        self.max_len = max_len
+        self.bucket_shapes = bucket_shapes
+        self._ragged_ok = _ragged_plan_ok(model)
+        self.reset()
+
+    def reset(self) -> None:
+        """Empty the slot table and zero the counters."""
+        dev = self.model.device
+        with torch.inference_mode():
+            self._state = self.model.init_decode_state(self.max_slots,
+                                                       self.max_len)
+            self._tok = torch.full((self.max_slots,), PAD_ID,
+                                   dtype=torch.int32, device=dev)
+            self._done = torch.ones((self.max_slots,), dtype=torch.bool,
+                                    device=dev)
+        # host-side slot table
+        self._live = np.zeros(self.max_slots, bool)
+        self._req: List[object] = [None] * self.max_slots
+        self._emitted: List[List[int]] = [[] for _ in range(self.max_slots)]
+        self._m = np.zeros(self.max_slots, np.int64)      # pre-EOS count
+        self._steps_left = np.zeros(self.max_slots, np.int64)
+        self.n_steps = 0
+        self.n_prefills = 0
+        self.peak_live = 0
+
+    # ---------------------------------------------------------- queries --
+    @property
+    def supports_ragged(self) -> bool:
+        return self._ragged_ok
+
+    @property
+    def live_count(self) -> int:
+        return int(self._live.sum())
+
+    @property
+    def free_slots(self) -> int:
+        return self.max_slots - self.live_count
+
+    # ------------------------------------------------------------- admit --
+    def admit(self, prompts: Sequence[np.ndarray], *, max_new: int = 16,
+              req_ids: Optional[Sequence] = None) -> List[int]:
+        """Prefill ``prompts`` into free slots of the LIVE batch.
+
+        Returns the assigned slot indices (one per prompt, in order).
+        Raises ``ValueError`` when more prompts than free slots are
+        offered (the caller's admission control owns queueing), on a
+        prompt that does not fit ``max_len`` with ``max_new``, and on an
+        empty prompt; a refused call leaves the table as it was.
+        """
+        if not prompts:
+            return []
+        free = np.flatnonzero(~self._live)
+        if len(prompts) > len(free):
+            raise ValueError(
+                f"admit({len(prompts)}) exceeds {len(free)} free slots")
+        toks = [np.asarray(p, np.int32).reshape(-1) for p in prompts]
+        for t in toks:
+            if len(t) + max_new > self.max_len:
+                raise ValueError("exceeds session capacity")
+            if len(t) == 0:
+                raise ValueError("empty prompt")
+        if req_ids is None:
+            req_ids = list(range(len(prompts)))
+        slots = [int(free[j]) for j in range(len(prompts))]
+
+        if self._ragged_ok:
+            groups = [list(range(len(toks)))]
+        else:                     # recurrent state: exact width per group
+            by_len: dict = {}
+            for j, t in enumerate(toks):
+                by_len.setdefault(len(t), []).append(j)
+            groups = [by_len[n] for n in sorted(by_len)]
+        for idx in groups:
+            self._admit_group([toks[j] for j in idx],
+                              [slots[j] for j in idx], max_new)
+
+        for j, s in enumerate(slots):
+            self._live[s] = True
+            self._req[s] = req_ids[j]
+            self._emitted[s] = []
+            self._m[s] = 0
+            self._steps_left[s] = max_new
+        self.peak_live = max(self.peak_live, self.live_count)
+        return slots
+
+    def _admit_group(self, toks: List[np.ndarray], slots: List[int],
+                     max_new: int) -> None:
+        """One prefill wave: pad to the (batch, width) bucket, prefill,
+        copy the real rows into the resident slot-table state."""
+        k = len(toks)
+        w = max(len(t) for t in toks)
+        lens = np.asarray([len(t) for t in toks], np.int32)
+        uniform = bool(np.all(lens == w))
+        if self.bucket_shapes:
+            kp = _next_pow2(k)
+            wp = (max(min(_next_pow2(w, floor=8), self.max_len - max_new), w)
+                  if self._ragged_ok else w)
+        else:
+            kp, wp = k, w
+        block = np.full((kp, wp), PAD_ID, np.int32)
+        for j, t in enumerate(toks):
+            block[j, :len(t)] = t
+        lens_in = np.concatenate([lens, np.ones(kp - k, np.int32)])
+        dev = self.model.device
+        ragged = self._ragged_ok and not (uniform and kp == k and wp == w)
+        with torch.inference_mode():
+            logits, new = self.model.prefill(
+                torch.as_tensor(block, device=dev), max_len=self.max_len,
+                lengths=torch.as_tensor(lens_in, device=dev) if ragged
+                else None)
+            rows = torch.as_tensor(slots, dtype=torch.long, device=dev)
+            for resident, fresh in zip(self._state["caches"],
+                                       new["caches"]):
+                for name, t in resident.items():
+                    t.index_copy_(1, rows, fresh[name][:, :k])
+            self._state["pos"].index_copy_(0, rows, new["pos"][:k])
+            self._tok.index_copy_(0, rows, torch.argmax(
+                logits[:k], dim=-1).to(torch.int32))
+            self._done.index_fill_(0, rows, False)
+        self.n_prefills += 1
+
+    # -------------------------------------------------------------- step --
+    def step(self) -> Tuple[List[tuple], List[tuple]]:
+        """One in-flight decode step for every live slot.
+
+        Returns ``(stream, finished)``: ``stream`` is the step's tokens
+        ``[(req_id, token), ...]`` (EOS included when emitted) and
+        ``finished`` the rows evicted this step as ``(req_id, m_out,
+        tokens)``, ``m_out`` counting pre-EOS tokens and ``tokens`` the
+        emitted array (EOS kept, never PAD-padded).  An empty table is a
+        no-op.
+        """
+        if not self._live.any():
+            return [], []
+        with torch.inference_mode():
+            emit, live, done = greedy_update(self._tok, self._done,
+                                             keep_eos=True)
+            logits, _ = self.model.decode_step(self._state,
+                                               self._tok[:, None])
+            self._tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            self._done = done
+            # the step's one transfer to the host
+            emit, live, done = torch.stack(
+                [emit, live.to(torch.int32), done.to(torch.int32)]
+            ).cpu().numpy()
+        self.n_steps += 1
+
+        stream: List[tuple] = []
+        finished: List[tuple] = []
+        exhausted = []
+        for s in np.flatnonzero(self._live):
+            # a live slot entered the step with done=False (EOS and budget
+            # rows evict at once), so emit is a real token, possibly one
+            # whose id equals PAD_ID
+            t = int(emit[s])
+            self._emitted[s].append(t)
+            stream.append((self._req[s], t))
+            self._m[s] += int(live[s])
+            self._steps_left[s] -= 1
+            if done[s] or self._steps_left[s] <= 0:
+                if not done[s]:        # budget out: silence the row too
+                    exhausted.append(int(s))
+                self._live[s] = False
+                finished.append((self._req[s], int(self._m[s]),
+                                 np.asarray(self._emitted[s], np.int32)))
+                self._req[s] = None
+                self._emitted[s] = []
+        if exhausted:
+            with torch.inference_mode():
+                self._done.index_fill_(0, torch.as_tensor(
+                    exhausted, device=self._done.device), True)
+        return stream, finished
+
+    # ------------------------------------------------------------- serve --
+    def serve(self, prompts: Sequence[np.ndarray], *, max_new: int = 16,
+              refill: bool = True) -> List[Tuple[int, np.ndarray]]:
+        """Scheduling-free driver: run ``prompts`` through the slot table.
+
+        ``refill=True`` is continuous mode: freed slots are refilled from
+        the queue between steps.  ``refill=False`` is block-to-completion:
+        a block of up to ``max_slots`` prompts is admitted only into an
+        EMPTY table and runs until every member finishes.  Returns
+        ``(m_out, tokens)`` per prompt, in prompt order.
+        """
+        results: List[Optional[Tuple[int, np.ndarray]]] = \
+            [None] * len(prompts)
+        head = 0
+        while head < len(prompts) or self.live_count:
+            can_admit = self.free_slots if (refill or self.live_count == 0) \
+                else 0
+            take = min(can_admit, len(prompts) - head)
+            if take:
+                idx = list(range(head, head + take))
+                head += take
+                self.admit([prompts[i] for i in idx], max_new=max_new,
+                           req_ids=idx)
+            _, finished = self.step()
+            for rid, m, toks in finished:
+                results[rid] = (m, toks)
+        return results  # type: ignore[return-value]

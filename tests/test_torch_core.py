@@ -231,6 +231,9 @@ def test_importing_the_port_loads_no_jax_or_reference_modules():
         "import repro_torch.core.simulator, repro_torch.core.arrivals\n"
         "import repro_torch.training, repro_torch.training.checkpoint\n"
         "import repro_torch.launch.train, repro_torch.launch.train_nmt\n"
+        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.continuous_serving\n"
+        "import repro_torch.configs.qwen3_8b, repro_torch.runtime.serving\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith"
         "('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

@@ -421,7 +421,7 @@ def test_scan_wrappers_refuse_misaligned_operands(dev):
         ssd.ssd_scan_cuda(x, dt, a_log, bad_b, c_in, chunk=8)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b", "qwen3-8b"])
 def test_smoke_lm_on_the_card_matches_the_cpu(dev, arch):
     from repro_torch.models.registry import resolve
     gpu = resolve(arch, device=dev, seed=2).model
@@ -440,6 +440,48 @@ def test_smoke_lm_on_the_card_matches_the_cpu(dev, arch):
                 seq.append(logits)
             outs.append(torch.stack(seq).cpu())
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+
+
+def test_continuous_session_on_the_card(dev):
+    """The smoke qwen3-8b's slot table on the card: admission waves
+    launch ``flash_attention``, table steps ``flash_decode``; every row
+    equals its solo generate behind a 1e-4 top-2 margin; free slots step
+    past ``max_len`` and the decode there leaves the cache unchanged."""
+    from repro_torch.models.registry import resolve
+    from repro_torch.runtime.serving import (ContinuousGenerationSession,
+                                             GenerationSession,
+                                             greedy_margins)
+    model = resolve("qwen3-8b", device=dev, seed=2).model
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(3, 512, int(n)).astype(np.int32)
+               for n in rng.integers(2, 20, 6)]
+    solo = GenerationSession(model, max_len=32)
+    ref = [solo.generate_with_lengths(p[None], max_new=8) for p in prompts]
+    cont = ContinuousGenerationSession(model, max_slots=4, max_len=32)
+    ops.reset_launch_counts()
+    got = cont.serve(prompts, max_new=8, refill=True)
+    launches = ops.launch_counts()
+    assert launches["flash_attention"] > 0 and launches["flash_decode"] > 0
+    for p, (m, toks), (lens, out) in zip(prompts, got, ref):
+        margins = greedy_margins(model, p, out[0, :min(int(lens[0]) + 1, 8)])
+        k = int(np.argmax(margins < 1e-4)) if (margins < 1e-4).any() \
+            else len(margins)
+        assert np.array_equal(toks[:min(k, m)], out[0, :min(k, m)])
+        if k == len(margins):
+            assert m == int(lens[0])
+    # keep one slot free past max_len, then look at its cache
+    cont.reset()
+    for p in prompts[:5]:
+        cont.admit([p[:4]], max_new=8)
+        while cont.live_count:
+            cont.step()
+    assert int(cont._state["pos"][1]) >= 32
+    before = [c["k"][:, 1].clone() for c in cont._state["caches"]]
+    cont.admit([prompts[0][:4]], max_new=2)
+    cont.step()
+    torch.cuda.synchronize()
+    for b, c in zip(before, cont._state["caches"]):
+        assert torch.equal(b, c["k"][:, 1])
 
 
 def _ragged_batch(lens, vocab, seed=0):

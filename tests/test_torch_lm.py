@@ -1,6 +1,8 @@
 """The port's big-LM serving path on the CPU against the JAX package.
 
-The smoke rwkv6-3b and zamba2-1.2b LMs are built by JAX
+The smoke rwkv6-3b and zamba2-1.2b LMs (and, for the configuration,
+generation and engine cases, qwen3-8b; its own file is
+``tests/test_torch_qwen3.py``) are built by JAX
 (``LM(cfg, mixer_impl="pallas")``, the kernel route, its Pallas kernels
 in interpret mode), carried across by ``lm_params_from_jax`` and held
 against the port: prefill logits and decode state, four decode-step
@@ -42,7 +44,7 @@ from repro_torch.runtime.serving import (
 )
 
 TOL = 1e-4
-ARCHS = ("rwkv6-3b", "zamba2-1.2b")
+ARCHS = ("rwkv6-3b", "zamba2-1.2b", "qwen3-8b")
 _MODELS = {}
 
 
