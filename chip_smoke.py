@@ -156,6 +156,10 @@ WKV_H, WKV_P = 40, 64           # rwkv6-3b: 40 heads of 64
 SSD_H, SSD_P, SSD_N = 64, 64, 64  # zamba2-1.2b: 64 heads, P = N = 64
 ZA_H = 32                       # zamba2-1.2b shared attention: 32 heads of 64
 QW_H, QW_HKV, QW_D = 32, 8, 128  # qwen3-8b: 32 query heads over 8 KV heads
+# the D=128 attention shapes of the GQA models: qwen3-8b's group of 4,
+# qwen3-moe-30b-a3b's group of 8 and moonshot-v1-16b-a3b's MHA
+GQA_SHAPES = (("qwen3-8b", QW_H, QW_HKV), ("qwen3-moe-30b-a3b", 32, 4),
+              ("moonshot-v1-16b-a3b", 16, 16))
 QW_T = 256                      # phase 13's slot-table capacity (max_len)
 QW_LENS = (37, 256, 100, 5, 180, 64, 1, 129)   # a table step's pos + 1
 QW_RATE_HZ = 40.0               # phase 13's Poisson arrivals: twice what 8
@@ -302,26 +306,32 @@ def check_kernels(fa, da, gen):
 
 
 def check_gqa_cases(fa, da, gen):
-    """qwen3-8b's attention in float32: an admission wave's causal
-    prefill, a slot-table step's decode over ragged lengths, and the
-    decode of idle slots whose lengths run past the cache (they attend to
-    every slot, as the reference's mask ``idx <= pos`` does there)."""
-    q = randn(gen, (8, 64, QW_H, QW_D))
-    k, v = (randn(gen, (8, 64, QW_HKV, QW_D)) for _ in range(2))
-    within(f"flash_attention f32 B=8 S=T=64 H={QW_H} Hkv={QW_HKV} "
-           f"D={QW_D} causal", fa.flash_attention_cuda(q, k, v, causal=True),
-           fa.flash_attention_plain(q, k, v, causal=True), F32_TOL)
-    q = randn(gen, (8, QW_H, QW_D))
-    kc, vc = (randn(gen, (8, QW_T, QW_HKV, QW_D)) for _ in range(2))
-    for what, lens in (("ragged", QW_LENS),
-                       ("past the cache",
-                        (QW_T + 1, 300, QW_T, 1000, 511, 2**20, 258, 1))):
-        lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        within(f"flash_decode f32 B=8 T={QW_T} H={QW_H} Hkv={QW_HKV} "
-               f"D={QW_D} {what} lens={lens}",
-               da.flash_decode_cuda(q, kc, vc, lt),
-               da.flash_decode_plain(q, kc, vc, lt), F32_TOL)
-    return 3
+    """The D=128 models' attention in float32 (``GQA_SHAPES``: qwen3-8b,
+    qwen3-moe-30b-a3b's group of 8, moonshot-v1-16b-a3b's MHA): an
+    admission wave's causal prefill, a slot-table step's decode over
+    ragged lengths, and the decode of idle slots whose lengths run past
+    the cache (they attend to every slot, as the reference's mask ``idx
+    <= pos`` does there)."""
+    cases = 0
+    for model, h, hkv in GQA_SHAPES:
+        q = randn(gen, (8, 64, h, QW_D))
+        k, v = (randn(gen, (8, 64, hkv, QW_D)) for _ in range(2))
+        within(f"{model} flash_attention f32 B=8 S=T=64 H={h} Hkv={hkv} "
+               f"D={QW_D} causal",
+               fa.flash_attention_cuda(q, k, v, causal=True),
+               fa.flash_attention_plain(q, k, v, causal=True), F32_TOL)
+        q = randn(gen, (8, h, QW_D))
+        kc, vc = (randn(gen, (8, QW_T, hkv, QW_D)) for _ in range(2))
+        for what, lens in (("ragged", QW_LENS),
+                           ("past the cache",
+                            (QW_T + 1, 300, QW_T, 1000, 511, 2**20, 258, 1))):
+            lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            within(f"{model} flash_decode f32 B=8 T={QW_T} H={h} Hkv={hkv} "
+                   f"D={QW_D} {what} lens={lens}",
+                   da.flash_decode_cuda(q, kc, vc, lt),
+                   da.flash_decode_plain(q, kc, vc, lt), F32_TOL)
+        cases += 3
+    return cases
 
 
 def check_tile_cases(fa, da, gen):
@@ -658,14 +668,15 @@ def causal_case(fa, gen, b, s, h=ZA_H, hkv=ZA_H, d=DH, model="zamba2-1.2b"):
     return row
 
 
-def gqa_decode_case(da, gen, b):
-    """flash_decode over one qwen3-8b layer of a slot-table step: a cache
-    of ``QW_T`` slots, ragged lengths, 32 query heads over 8 KV heads of
-    128.  Bytes count the valid slots only; the yardstick is SDPA with a
-    key mask and enable_gqa."""
+def gqa_decode_case(da, gen, b, h=QW_H, hkv=QW_HKV, model="qwen3-8b"):
+    """flash_decode over one layer of a slot-table step: a cache of
+    ``QW_T`` slots, ragged lengths, ``h`` query heads over ``hkv`` KV
+    heads of 128 (qwen3-8b's 32 over 8 by default).  Bytes count the
+    valid slots only; the yardstick is SDPA with a key mask and
+    enable_gqa."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    q = randn(gen, (b, QW_H, QW_D))
-    kc, vc = (randn(gen, (b, QW_T, QW_HKV, QW_D)) for _ in range(2))
+    q = randn(gen, (b, h, QW_D))
+    kc, vc = (randn(gen, (b, QW_T, hkv, QW_D)) for _ in range(2))
     lens = torch.tensor(QW_LENS[:b], dtype=torch.int32, device="cuda")
     valid = sum(QW_LENS[:b])
     qs = q[:, :, None, :]
@@ -675,13 +686,13 @@ def gqa_decode_case(da, gen, b):
     row = time_case(
         lambda: da.flash_decode_cuda(q, kc, vc, lens),
         lambda: da.flash_decode_plain(q, kc, vc, lens),
-        lambda: sdpa(qs, ks, vs, attn_mask=keymask, enable_gqa=True),
-        4 * (2 * valid * QW_HKV * QW_D + 2 * b * QW_H * QW_D + b),
-        4 * valid * QW_H * QW_D)
+        lambda: sdpa(qs, ks, vs, attn_mask=keymask, enable_gqa=h != hkv),
+        4 * (2 * valid * hkv * QW_D + 2 * b * h * QW_D + b),
+        4 * valid * h * QW_D)
     row["library_err"] = max_err(
         da.flash_decode_cuda(q, kc, vc, lens),
-        sdpa(qs, ks, vs, attn_mask=keymask, enable_gqa=True)[:, :, 0])
-    row["shape"] = (f"qwen3-8b B={b} H={QW_H} Hkv={QW_HKV} dh={QW_D} "
+        sdpa(qs, ks, vs, attn_mask=keymask, enable_gqa=h != hkv)[:, :, 0])
+    row["shape"] = (f"{model} B={b} H={h} Hkv={hkv} dh={QW_D} "
                     f"T={QW_T} lens={QW_LENS[:b]} f32")
     return row
 
@@ -764,9 +775,11 @@ def timings(gen):
              ("flash_attention", attention_case(fa, gen, 8, 512)),
              ("flash_attention", causal_case(fa, gen, 1, 64)),
              ("flash_attention", causal_case(fa, gen, 8, 2048)),
-             ("flash_attention", causal_case(fa, gen, 8, 64, QW_H, QW_HKV,
-                                             QW_D, "qwen3-8b")),
-             ("flash_decode", gqa_decode_case(da, gen, 8))]
+             *[("flash_attention", causal_case(fa, gen, 8, 64, h, hkv, QW_D,
+                                               model))
+               for model, h, hkv in GQA_SHAPES],
+             *[("flash_decode", gqa_decode_case(da, gen, 8, h, hkv, model))
+               for model, h, hkv in GQA_SHAPES]]
     cases += scan_cases(gen)
     for name, r in cases:
         lib = ("library — (no single PyTorch call computes it)"
@@ -1255,6 +1268,346 @@ def qwen3_phase(ops):
     gc.collect()
     torch.cuda.empty_cache()
     return paths
+
+
+# --------------------------------------------------------------- phase 14 --
+# phase 14's depth cuts: every width is the configuration's own; the depth
+# is what fits one 80 GB card in float32 (ROADMAP A.5)
+MOE_CUTS = {
+    # 24 of 48 MoE layers: 15.6 B parameters, 62 GB
+    "qwen3-moe-30b-a3b": dict(counts=(24,)),
+    # the dense first layer and 3 of 47 MoE layers: 2.5 B parameters
+    "moonshot-v1-16b-a3b": dict(counts=(1, 3)),
+    # the 3 dense MLA layers and 1 of 58 MoE layers, no MTP block (training
+    # only; a second 11.5 B MoE layer): 15.1 B parameters, 60 GB
+    "deepseek-v3-671b": dict(counts=(3, 1), mtp_depth=0),
+}
+
+
+def empty_cache() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def cut_config(name, counts, **fields):
+    """``name``'s configuration at its full width, its groups cut to
+    ``counts`` layers (and ``fields`` replaced)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    plan = tuple(dataclasses.replace(g, count=n)
+                 for g, n in zip(cfg.layer_plan, counts))
+    return dataclasses.replace(cfg, layer_plan=plan, **fields).validate()
+
+
+def build_cut(cfg, seed=0):
+    """The LM of ``cfg`` on the card, random weights drawn there from
+    ``seed`` (a CPU copy of a 60 GB cut could not be made)."""
+    from repro_torch.models.model import LM
+
+    t0 = time.perf_counter()
+    model = LM(cfg, device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log(f"  {cfg.name} cut to {[g.count for g in cfg.layer_plan]} layers of "
+        f"{[g.mixer + '/' + g.ffn for g in cfg.layer_plan]}: d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}; {n / 1e9:.3f}B parameters "
+        f"({4 * n / 1e9:.2f} GB f32), built in "
+        f"{time.perf_counter() - t0:.2f}s")
+    return model, n
+
+
+@contextlib.contextmanager
+def drop_free(model):
+    """The model with ``capacity_factor = E / top_k`` while active (the
+    reference's smoke rule: capacity >= group size, nothing dropped, so a
+    row's output does not depend on the other rows of its batch); the
+    weights are the model's own."""
+    cfg = model.cfg
+    mo = cfg.moe
+    model.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        mo, capacity_factor=mo.num_experts / mo.top_k))
+    try:
+        yield model
+    finally:
+        model.cfg = cfg
+
+
+def floor_and_err(fn, model, want):
+    """(the effect of a 1e-7 perturbation of the embeddings on ``fn()``,
+    ``fn()``'s difference from ``want``): the float32 noise floor of this
+    random-weight stack beside an error."""
+    got = fn()
+    hook = perturbed(model, 1e-7)
+    floor = max_err(fn(), got)
+    hook.remove()
+    return floor, max_err(got, want)
+
+
+def check_moe_model(model, ops, what):
+    """On ``model`` (a shallow copy of an MoE / MLA model): the kernel path
+    against the plain versions (prefill + four decode-step logits at two
+    prompt lengths), then, with the model made drop-free, decode against
+    the teacher-forced forward and the slot table (both modes) against
+    solo generation.  Each logit limit is ten times the
+    1e-7-perturbation floor; tokens follow ``check_against_solo``."""
+    from repro_torch.runtime.serving import ContinuousGenerationSession
+
+    rng = np.random.default_rng(21)
+    vocab = model.cfg.vocab_size
+    for s in (37, 64):
+        toks = torch.as_tensor(rng.integers(4, vocab, (2, s)),
+                               dtype=torch.int32, device="cuda")
+        ops.reset_launch_counts()
+        got = lm_logits(model, toks)
+        launches = ops.launch_counts()
+        with plain_kernels(ops):
+            floor, err = floor_and_err(lambda: lm_logits(model, toks), model,
+                                       got)
+        log(f"  {what} B=2 S={s}: prefill + 4 decode-step logits, kernels "
+            f"(launches {launches}) vs plain max_abs_err={err:.3e}; the "
+            f"1e-7 perturbation {floor:.3e}")
+        if not (err <= 10 * floor and torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: kernels vs plain {err} > "
+                                 f"10 x {floor}")
+    with drop_free(model):
+        toks = torch.as_tensor(rng.integers(4, vocab, (2, 32)),
+                               dtype=torch.int32, device="cuda")
+
+        def decoded():
+            with torch.inference_mode():
+                _, state = model.prefill(toks[:, :28], max_len=32)
+                return torch.stack([model.decode_step(
+                    state, toks[:, t:t + 1])[0] for t in range(28, 32)])
+
+        with torch.no_grad():
+            full = model.train_logits(toks)["logits"][:, 28:].transpose(0, 1)
+        floor, err = floor_and_err(decoded, model, full)
+        log(f"  {what} drop-free: 4 decode steps vs the teacher-forced "
+            f"forward max_abs_err={err:.3e}; the 1e-7 perturbation "
+            f"{floor:.3e}")
+        if not err <= 10 * floor:
+            raise AssertionError(f"{what}: decode vs teacher-forced {err} > "
+                                 f"10 x {floor}")
+        prompts = [rng.integers(4, vocab, int(n)).astype(np.int32)
+                   for n in rng.integers(3, 30, 12)]
+        sess = ContinuousGenerationSession(model, max_slots=8, max_len=64)
+        runs = {refill: (dict(enumerate(sess.serve(prompts, max_new=8,
+                                                   refill=refill))),)
+                for refill in (False, True)}
+        check_against_solo(model, prompts, runs, 8, 64)
+
+
+def dropped_shares(model, toks):
+    """The share of routed assignments that capacity drops in one prefill
+    of ``toks`` (one group per row) and in the decode step after it (the
+    whole batch one group), over every MoE layer."""
+    from repro_torch.models.layers import moe as moe_lib
+
+    shares = {True: [], False: []}
+    real = moe_lib.moe_ffn
+
+    def counting(p, cfg, x):
+        shares[x.shape[1] == 1].append(moe_lib.dropped_share(p, cfg, x))
+        return real(p, cfg, x)
+
+    moe_lib.moe_ffn = counting
+    try:
+        with torch.inference_mode():
+            logits, state = model.prefill(toks, max_len=toks.shape[1] + 1)
+            model.decode_step(state, torch.argmax(logits, -1).to(
+                torch.int32)[:, None])
+    finally:
+        moe_lib.moe_ffn = real
+    return float(np.mean(shares[False])), float(np.mean(shares[True]))
+
+
+def slot_table_numbers(model, n_params, prompts, what):
+    """An eager slot-table step at 8 live slots, the device's busy share of
+    it (profiler), a B=8 S=64 admission wave, beside the step's bound: ALL
+    weights read once at 3.35 TB/s.  The MoE dispatch multiplies the whole
+    (E, C, D) buffer, so every expert's weights are read at every step,
+    even at capacity 1."""
+    from repro_torch.runtime.serving import ContinuousGenerationSession
+
+    sess = ContinuousGenerationSession(model, max_slots=8, max_len=QW_T)
+    sess.admit([p[:16] for p in prompts[:8]], max_new=QW_T - 32)
+    for _ in range(3):
+        sess.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        sess.step()
+    step_ms = (time.perf_counter() - t0) / 10 * 1e3
+    busy, kernels = profiled_busy_ms(lambda: [sess.step() for _ in range(3)])
+    bound_ms = 4 * n_params / HBM_BYTES_S * 1e3
+    block = torch.as_tensor(np.stack([np.resize(p, 64) for p in prompts[:8]]),
+                            device="cuda")
+    with torch.inference_mode():
+        wave_ms = wall_ms(lambda: model.prefill(block, max_len=QW_T))
+    log(f"  {what} slot-table step at 8 live slots: {step_ms:.2f}ms eager = "
+        f"{8 / step_ms * 1e3:.1f} decode tokens/s; bound {bound_ms:.2f}ms "
+        f"(all {4 * n_params / 1e9:.2f} GB of float32 weights at 3.35 TB/s: "
+        f"the dispatch multiplies the whole (E, C, D) buffer, so every "
+        f"expert's weights are read each step, even at capacity 1; not the "
+        f"active experts' share); profiled: {kernels / 3:.0f} device kernels "
+        f"and {busy / 3:.2f}ms device time per step = device busy "
+        f"{100 * busy / 3 / step_ms:.1f}% of the step")
+    log(f"  {what} admission wave prefill B=8 S=64 (max_len {QW_T}): "
+        f"{wave_ms:.2f}ms = {8 * 64 / wave_ms * 1e3:.0f} tokens/s")
+
+
+def checked_copy(name, counts, ops):
+    """Build a shallow copy of ``name`` (full width, ``counts`` layers,
+    seed 1), run :func:`check_moe_model` on it and free it."""
+    shallow, _ = build_cut(cut_config(name, counts), seed=1)
+    check_moe_model(shallow, ops, f"{name} ({shallow.cfg.num_layers} "
+                    "layers)")
+    del shallow
+    empty_cache()
+
+
+def qwen3_moe_phase(ops, rng):
+    """qwen3-moe-30b-a3b: GQA with a group of 8, 128 experts top-8."""
+    from repro_torch.runtime.serving import ContinuousGenerationSession
+
+    name, attn = "qwen3-moe-30b-a3b", ("flash_attention", "flash_decode")
+    checked_copy(name, (2,), ops)
+    torch.cuda.reset_peak_memory_stats()
+    model, n_params = build_cut(cut_config(name, **MOE_CUTS[name]))
+    paths = {name: lm_main_path(model, ops, attn)}
+    toks = torch.as_tensor(rng.integers(4, model.cfg.vocab_size, (8, 64)),
+                           dtype=torch.int32, device="cuda")
+    pre, dec = dropped_shares(model, toks)
+    log(f"  {name} at capacity_factor 1.25: {100 * pre:.2f}% of routed "
+        f"assignments dropped in a B=8 S=64 prefill (8 groups of 64 tokens, "
+        f"capacity 5) and {100 * dec:.2f}% in the B=8 decode step after it "
+        f"(one group of 8, capacity 1)")
+    prompts = [rng.integers(4, model.cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(5, 61, 16)]
+    sess = ContinuousGenerationSession(model, max_slots=8, max_len=128)
+    runs, paths[f"{name} continuous"] = serve_both_modes(
+        sess, ops, prompts, 16, 20.0, attn)
+    waves = -(-len(prompts) // sess.max_slots)
+    if not (runs[True][2] > waves and runs[True][3] == sess.max_slots):
+        raise AssertionError(
+            f"refill=True ran {runs[True][2]} prefill waves (need more than "
+            f"{waves}) at peak {runs[True][3]} live (need {sess.max_slots})")
+    log("  (rows are not held against solo generation at capacity factor "
+        "1.25: the decode group couples the rows; the drop-free copy above "
+        "is)")
+    del sess, runs
+    slot_table_numbers(model, n_params, prompts, name)
+    log(f"  {name}: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model
+    empty_cache()
+    return paths
+
+
+def deepseek_v3_phase(ops, rng):
+    """deepseek-v3-671b: MLA, 256 experts top-8 and a shared expert;
+    neither MLA nor the MoE runs a kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import costs
+    from repro_torch.runtime.serving import GenerationSession
+
+    name = "deepseek-v3-671b"
+    torch.cuda.reset_peak_memory_stats()
+    model, n_params = build_cut(cut_config(name, **MOE_CUTS[name]))
+    check_moe_model(model, ops, f"{name} ({model.cfg.num_layers} layers)")
+    sess = GenerationSession(model, max_len=64)
+    prompts = rng.integers(4, model.cfg.vocab_size, (4, 24)).astype(np.int32)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lens, out = sess.generate_with_lengths(prompts, max_new=16)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    if not (out.shape == (4, 16) and (lens >= 0).all()
+            and (out < model.cfg.vocab_size).all()):
+        raise AssertionError(f"{name}: bad generation {lens} {out.shape}")
+    toks = torch.as_tensor(prompts, device="cuda")
+    with torch.inference_mode():
+        logits, state = model.prefill(toks, max_len=64)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        step_ms = wall_ms(lambda: model.decode_step(state, tok))
+        prefill_ms = wall_ms(lambda: model.prefill(toks, max_len=64))
+    full = get_config(name)
+    gqa = dataclasses.replace(full, mla=None, layer_plan=tuple(
+        dataclasses.replace(g, mixer="attn") for g in full.layer_plan))
+    log(f"  {name} GenerationSession: 4 prompts of 24 tokens, 16 new tokens "
+        f"each in {wall:.2f}s (kernel launches {launches}); prefill B=4 "
+        f"S=24 {prefill_ms:.2f}ms; a decode step at B=4 {step_ms:.2f}ms "
+        f"(bound {4 * n_params / HBM_BYTES_S * 1e3:.2f}ms: all weights "
+        f"once); MLA cache {costs.kv_bytes_per_token(model.cfg, 4):.0f} B per "
+        f"token at this depth, {costs.kv_bytes_per_token(full, 4) / 1e3:.1f} "
+        f"kB at all 61 layers vs "
+        f"{costs.kv_bytes_per_token(gqa, 4) / 1e6:.2f} MB for a GQA cache of "
+        f"the same 128 heads of 128 (float32, costs.kv_bytes_per_token); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    toks = torch.as_tensor(rng.integers(4, model.cfg.vocab_size, (8, 64)),
+                           dtype=torch.int32, device="cuda")
+    pre, dec = dropped_shares(model, toks)
+    log(f"  {name} at capacity_factor 1.25: {100 * pre:.2f}% of routed "
+        f"assignments dropped in a B=8 S=64 prefill and {100 * dec:.2f}% in "
+        f"the B=8 decode step after it")
+    del model, sess, state, logits
+    empty_cache()
+
+
+def moe_phase(ops):
+    """qwen3-moe-30b-a3b, moonshot-v1-16b-a3b and deepseek-v3-671b at full
+    width, cut in depth (``MOE_CUTS``), each freed before the next; the
+    checks run on shallow copies built first (deepseek-v3's on its cut,
+    whose one MoE layer alone is 46 GB)."""
+    empty_cache()
+    rng = np.random.default_rng(14)
+    paths = qwen3_moe_phase(ops, rng)
+    name = "moonshot-v1-16b-a3b"
+    checked_copy(name, (1, 1), ops)
+    model, _ = build_cut(cut_config(name, **MOE_CUTS[name]))
+    paths[name] = lm_main_path(model, ops, ("flash_attention",
+                                            "flash_decode"))
+    del model
+    empty_cache()
+    deepseek_v3_phase(ops, rng)
+    return paths
+
+
+def mtp_training(ops, steps=8):
+    """deepseek-v3-671b's train step at smoke size on the card: MLA, MoE
+    (the load-balance term) and the MTP loss; ``mtp_ce`` and ``aux``
+    finite, the loss falls, no kernel launched."""
+    from repro_torch.models.registry import resolve
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+
+    r = resolve("deepseek-v3-671b", size="smoke", device="cuda", seed=0)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(1, r.cfg.vocab_size, (2, 32)).astype(np.int32)
+    batch = {"tokens": toks, "targets": np.roll(toks, -1, 1)}
+    state = init_train_state(r.model)
+    step = make_train_step(r.model)
+    ops.reset_launch_counts()
+    mets = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        mets.append({k: float(m[k]) for k in ("loss", "ce", "aux", "mtp_ce")})
+    launches = ops.launch_counts()
+    log(f"  deepseek-v3-671b (smoke: {r.cfg.num_layers} layers, d_model "
+        f"{r.cfg.d_model}, MTP depth {r.cfg.mtp_depth}), {steps} train steps "
+        f"at B=2 S=32, first and last: " + "; ".join(
+            f"loss {m['loss']:.4f} ce {m['ce']:.4f} aux {m['aux']:.4f} "
+            f"mtp_ce {m['mtp_ce']:.4f}" for m in (mets[0], mets[-1]))
+        + f"; kernel launches {launches}")
+    if not all(np.isfinite(list(m.values())).all() for m in mets):
+        raise AssertionError(f"deepseek-v3-671b: non-finite metrics {mets}")
+    if not mets[-1]["loss"] < mets[0]["loss"]:
+        raise AssertionError("deepseek-v3-671b: the loss did not fall")
+    if any(launches.values()):
+        raise AssertionError("deepseek-v3-671b: a kernel launched while "
+                             "training")
+    del r, state, step
+    empty_cache()
 
 
 # ---------------------------------------------------------- phases 9-10 --
@@ -1864,6 +2217,11 @@ def main() -> int:
         "beside its weights)")
     paths.update(qwen3_phase(ops))
 
+    log("== phase 14: qwen3-moe-30b-a3b, moonshot-v1-16b-a3b and "
+        "deepseek-v3-671b at full width, cut in depth, through "
+        "GenerationSession, CollaborativeEngine and continuous batching")
+    paths.update(moe_phase(ops))
+
     log("== phase 11: training the paper's three NMT models at full width")
     model, _ = nmt_training("marian", "en-zh", ops, 200, smi)
     paths["train marian"] = marian_after_training(model, ops)
@@ -1876,6 +2234,7 @@ def main() -> int:
     log("== phase 12: the LM train step at full width")
     for name in ("zamba2-1.2b", "rwkv6-3b"):
         paths[f"train {name}"] = lm_training(name, ops)
+    mtp_training(ops)
 
     for row in rows:
         row["launches"] = sum(c[row["name"]] for c in paths.values())

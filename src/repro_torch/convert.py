@@ -136,14 +136,17 @@ def lm_params_from_jax(tree, cfg) -> Dict[str, torch.Tensor]:
     Parameter names are the reference's tree paths.  Each group's tree is
     stacked along a leading ``count`` axis (``jax.vmap`` over the layer
     inits); it is cut into one entry per layer, ``groups.<g>.<layer>.*``.
-    ``shared_attn``, ``embed``, ``lm_head`` and ``final_norm`` carry across
-    as they are; qwen3's qk-norm scales (``mixer.q_norm.g`` /
-    ``mixer.k_norm.g``, stacked (count, head_dim)) are per-layer leaves
-    like any other.  Every tensor is used as given (float32), never redrawn.
-    Load the result with ``model.load_state_dict(...)``.
+    ``shared_attn``, ``embed``, ``lm_head`` (absent with tied embeddings),
+    ``final_norm`` and deepseek-v3's ``mtp`` (``proj``, ``norm`` and one
+    unstacked ``block``) carry across as they are; qwen3's qk-norm scales
+    (``mixer.q_norm.g`` / ``mixer.k_norm.g``), the MoE leaves
+    (``ffn.router``, ``ffn.experts_*``, ``ffn.shared.*``) and the eight MLA
+    leaves are per-layer leaves like any other.  Every tensor is used as
+    given (float32), never redrawn.  Load the result with
+    ``model.load_state_dict(...)``.
     """
     unknown = set(tree) - {"embed", "final_norm", "lm_head", "groups",
-                           "shared_attn"}
+                           "shared_attn", "mtp"}
     if unknown:
         raise NotImplementedError(
             f"parameters {sorted(unknown)} belong to layers not ported yet")
@@ -151,7 +154,7 @@ def lm_params_from_jax(tree, cfg) -> Dict[str, torch.Tensor]:
         raise ValueError(f"{len(tree['groups'])} groups in the tree, "
                          f"{len(cfg.layer_plan)} in the config")
     flat: Dict[str, np.ndarray] = {}
-    for key in ("embed", "final_norm", "lm_head", "shared_attn"):
+    for key in ("embed", "final_norm", "lm_head", "shared_attn", "mtp"):
         if key in tree:
             _flatten(key, tree[key], flat)
     for gi, (g, gtree) in enumerate(zip(cfg.layer_plan, tree["groups"])):

@@ -3,12 +3,14 @@
     python -m repro_torch.launch.train --arch zamba2-1.2b --smoke \\
         --device cpu --steps 20
 
-Port of ``repro/launch/train.py`` for the architectures the port has,
-``rwkv6-3b``, ``zamba2-1.2b`` and ``qwen3-8b`` (``--smoke`` for the
-reduced same-family configuration); the other architectures wait for
-their model families.  On the card it refuses a full-width configuration
-whose float32 parameters, gradients and two AdamW moments (16 bytes a
-parameter) exceed the card's memory: qwen3-8b's take ≈131 GB.  Weights
+Port of ``repro/launch/train.py`` for the nine architectures the port
+has (``--smoke`` for the reduced same-family configuration);
+whisper-large-v3 waits for the encoder.  On the card it refuses a
+full-width configuration whose float32 parameters, gradients and two
+AdamW moments (16 bytes a parameter) exceed the card's memory:
+qwen3-8b's take ≈131 GB, and every larger model's more.  The loss is
+``lm_loss``'s: cross entropy, the MoE load-balance term and, for
+deepseek-v3-671b, the MTP cross entropy.  Weights
 are drawn from seed 0; the data is the reference's: a uniform random
 token stream packed by ``lm_batches``; AdamW under a cosine schedule with
 a tenth of the steps warming up; a checkpoint of the ``TrainState`` in

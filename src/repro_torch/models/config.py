@@ -7,13 +7,12 @@ model.  A model is a stack of (mixer, ffn) layer groups described by
 become several groups.
 
 Mixer kinds : "attn", "mla", "mamba2", "rwkv6", "shared_attn".
-FFN kinds   : "dense" (SwiGLU), "moe", "rwkv_cm" (RWKV channel mix),
-              "none".
+FFN kinds   : "dense" (SwiGLU), "moe" (top-k routed + shared experts),
+              "rwkv_cm" (RWKV channel mix), "none".
 
-The port's :class:`repro_torch.models.model.LM` builds the rwkv6, mamba2,
-shared-attention and GQA groups; ``MoEConfig``, ``MLAConfig`` and
-``EncoderConfig`` are carried as plain data so every configuration
-loads, and the LM raises ``NotImplementedError`` on them.
+The port's :class:`repro_torch.models.model.LM` builds every group kind
+but cross-attention; ``EncoderConfig`` is carried as plain data so every
+configuration loads, and the LM raises ``NotImplementedError`` on it.
 """
 
 from __future__ import annotations
@@ -128,3 +127,67 @@ class ModelConfig:
         if self.is_encoder_decoder:
             assert self.encoder is not None
         return self
+
+    # -- parameter counting (for the cost model's roofline) -----------------
+    def param_counts(self) -> dict:
+        """Returns {"total": n, "active": n_active} parameter counts."""
+        d = self.d_model
+        total = d * self.vocab_size  # input embed
+        if not self.tie_embeddings:
+            total += d * self.vocab_size  # lm head
+        active = total
+        shared_attn_counted = False
+        for g in self.layer_plan:
+            mixer = ffn = 0
+            if g.mixer in ("attn", "shared_attn") and self.mla is None:
+                q = d * self.num_heads * self.head_dim
+                kv = 2 * d * self.num_kv_heads * self.head_dim
+                o = self.num_heads * self.head_dim * d
+                mixer = q + kv + o
+                if g.cross_attn:
+                    mixer *= 2
+            elif g.mixer == "mla":
+                m = self.mla
+                mixer = (d * m.q_lora_rank
+                         + m.q_lora_rank * self.num_heads
+                         * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+                         + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                         + m.kv_lora_rank * self.num_heads
+                         * (m.qk_nope_head_dim + m.v_head_dim)
+                         + self.num_heads * m.v_head_dim * d)
+            elif g.mixer == "mamba2":
+                s = self.ssm
+                d_in = s.expand * d
+                nh = d_in // s.head_dim
+                mixer = (d * (2 * d_in + 2 * s.n_groups * s.state_dim + nh)
+                         + d_in * d)
+            elif g.mixer == "rwkv6":
+                r = self.rwkv
+                mixer = 4 * d * d + d * d  # r,k,v,g + output
+                mixer += 2 * d * r.decay_lora  # decay LoRA
+            if g.ffn == "dense":
+                ffn = 3 * d * self.d_ff
+            elif g.ffn == "moe":
+                mo = self.moe
+                per_exp = 3 * d * mo.d_ff_expert
+                ffn = mo.num_experts * per_exp + d * mo.num_experts  # + router
+                ffn += mo.num_shared_experts * per_exp
+                ffn_active = (mo.top_k + mo.num_shared_experts) * per_exp \
+                    + d * mo.num_experts
+            elif g.ffn == "rwkv_cm":
+                ffn = int(3.5 * d * d)
+            if g.mixer == "shared_attn":
+                # weights stored once, applied g.count times
+                if not shared_attn_counted:
+                    total += mixer + ffn
+                    shared_attn_counted = True
+                active += (mixer + ffn) * g.count
+                continue
+            total += (mixer + ffn) * g.count
+            active += (mixer + (ffn_active if g.ffn == "moe" else ffn)) * g.count
+        if self.encoder is not None:
+            enc_attn = 4 * d * self.num_heads * self.head_dim
+            enc = self.encoder.num_layers * (enc_attn + 3 * d * self.d_ff)
+            total += enc
+            active += enc
+        return {"total": int(total), "active": int(active)}

@@ -2,8 +2,12 @@
 
 Port of ``repro/models/model.py`` for the groups the port carries:
 ``rwkv6/rwkv_cm`` (rwkv6-3b), ``mamba2/none`` and ``shared_attn/dense``
-(zamba2-1.2b) and ``attn/dense`` with or without qk-norm (qwen3-8b).
-MLA, MoE, sliding-window, cross-attention and encoder configurations
+(zamba2-1.2b), ``attn/dense`` with or without qk-norm (qwen3-8b,
+qwen3-32b, deepseek-67b, chameleon-34b), ``attn/moe``
+(qwen3-moe-30b-a3b, and moonshot-v1-16b-a3b after its dense first
+layer) and ``mla/dense`` + ``mla/moe`` (deepseek-v3-671b), with
+deepseek-v3's multi-token-prediction block (``mtp``) and tied
+embeddings.  Sliding-window, cross-attention and encoder configurations
 raise ``NotImplementedError``.
 
 Structure follows the reference's parameter tree, so the converter maps
@@ -21,7 +25,8 @@ Entry points:
   training: attention and both mixers take their differentiable paths
   (the reference's jnp attention and ``mixer_impl="xla"`` chunked scans),
   never a kernel, so autograd runs through it.  Returns ``{"logits",
-  "aux_loss"}``.
+  "aux_loss"}`` (the sum of the MoE layers' load-balance losses) and,
+  with ``mtp_depth``, ``"mtp_logits"``.
 * ``prefill(tokens, max_len=, lengths=)`` — full-sequence forward; returns
   the last position's logits and the decode state (KV caches padded to
   ``max_len``, recurrent states, ``pos``).  rwkv6 and mamba2 prefill go
@@ -31,7 +36,12 @@ Entry points:
   state's caches and ``pos`` in place and returns ``(logits, state)``.
 
 The decode state mirrors the reference's: ``{"caches": [one dict per
-group, every tensor with a leading count axis], "pos": (B,) int32}``.
+group, every tensor with a leading count axis], "pos": (B,) int32}``; an
+MLA group caches the compressed latent ``{"ckv", "kpe"}``.  MoE layers
+dispatch within one group per batch row in prefill and training and one
+group for the whole batch in decode (the reference's rule), so with a
+capacity factor that drops assignments a row's output depends on the
+other rows of its batch.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import LayerGroup, ModelConfig
 from repro_torch.models.layers import attention as att
 from repro_torch.models.layers import mamba2 as mb
+from repro_torch.models.layers import moe as moe_lib
 from repro_torch.models.layers import rwkv6 as rk
 from repro_torch.models.layers.basic import (
     Embedding,
@@ -75,7 +86,7 @@ class Block(nn.Module):
         elif g.mixer == "rwkv6":
             self.mixer = rk.TimeMix(cfg, **kw)
         elif g.mixer == "mla":
-            raise NotImplementedError("MLA attention is not ported yet")
+            self.mixer = att.MLA(cfg, **kw)
         else:
             raise ValueError(g.mixer)
         if g.ffn != "none":
@@ -85,7 +96,7 @@ class Block(nn.Module):
         elif g.ffn == "rwkv_cm":
             self.ffn = rk.ChannelMix(cfg, **kw)
         elif g.ffn == "moe":
-            raise NotImplementedError("MoE layers are not ported yet")
+            self.ffn = moe_lib.MoE(cfg, **kw)
         elif g.ffn != "none":
             raise ValueError(g.ffn)
 
@@ -100,16 +111,14 @@ class LM(nn.Module):
         self.cfg = cfg.validate()
         if cfg.is_encoder_decoder or cfg.encoder is not None:
             raise NotImplementedError("encoder-decoder LMs are not ported yet")
-        if cfg.mtp_depth or cfg.tie_embeddings:
-            raise NotImplementedError(
-                "multi-token prediction and tied embeddings are not ported")
         dev = resolve_device(device)
         gen = (None if dev.type == "meta"
                else torch.Generator(device=dev).manual_seed(seed))
         kw = dict(device=dev, generator=gen)
         self.embed = Embedding(cfg.padded_vocab, cfg.d_model, **kw)
         self.final_norm = RMSNorm(cfg.d_model, device=dev)
-        self.lm_head = Linear(cfg.d_model, cfg.padded_vocab, **kw)
+        if not cfg.tie_embeddings:
+            self.lm_head = Linear(cfg.d_model, cfg.padded_vocab, **kw)
         self.groups = nn.ModuleList()
         shared = None
         for g in cfg.layer_plan:
@@ -124,6 +133,13 @@ class LM(nn.Module):
                     Block(cfg, g, **kw) for _ in range(g.count)))
         if shared is not None:
             self.shared_attn = shared
+        if cfg.mtp_depth:
+            # deepseek-v3's depth-1 multi-token prediction: one more block
+            # of the last group's kind over [norm(h_t) ; emb(token_t+1)]
+            self.mtp = nn.Module()
+            self.mtp.proj = Linear(2 * cfg.d_model, cfg.d_model, **kw)
+            self.mtp.block = Block(cfg, cfg.layer_plan[-1], **kw)
+            self.mtp.norm = RMSNorm(cfg.d_model, device=dev)
 
     @property
     def device(self) -> torch.device:
@@ -131,36 +147,42 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------ blocks --
     def _ffn(self, p: Block, g: LayerGroup, x, rstate, *, full: bool):
-        """The FFN half of a layer; returns (x, rwkv state)."""
+        """The FFN half of a layer; returns (x, rwkv state, MoE aux)."""
         if g.ffn == "none":
-            return x, rstate
+            return x, rstate, None
         h = rmsnorm(p.ln2.g, x, self.cfg.norm_eps)
         if g.ffn == "dense":
-            return x + p.ffn(h), rstate
+            return x + p.ffn(h), rstate, None
+        if g.ffn == "moe":
+            y, aux = moe_lib.moe_ffn(p.ffn, self.cfg, h)
+            return x + y, rstate, aux
         y, rstate = (rk.channel_mix_full if full else rk.channel_mix_decode)(
             p.ffn, self.cfg, h, rstate)
-        return x + y, rstate
+        return x + y, rstate, None
 
     def _block_full(self, p: Block, g: LayerGroup, x, *, kernels: bool):
         """One layer over the full sequence, its mixer through the kernels
         or (``kernels=False``) the training path.  Returns (x, cache
-        entry)."""
+        entry, MoE aux or None)."""
         cfg = self.cfg
         h = rmsnorm(p.ln1.g, x, cfg.norm_eps)
         rstate = None
         if g.mixer in ("attn", "shared_attn"):
             y, (k, v) = att.attn_full(p.mixer, cfg, h, kernels=kernels)
             cache = {"k": k, "v": v}
+        elif g.mixer == "mla":
+            y, (ckv, kpe) = att.mla_full(p.mixer, cfg, h)
+            cache = {"ckv": ckv, "kpe": kpe}
         elif g.mixer == "mamba2":
             y, st = mb.mamba2_full(p.mixer, cfg, h, kernels=kernels)
             cache = st._asdict()
         else:                                   # rwkv6, from the zero state
             st0 = rk.init_rwkv_state(cfg, x.shape[0], x.dtype, x.device)
             y, rstate = rk.rwkv6_full(p.mixer, cfg, h, st0, kernels=kernels)
-        x, rstate = self._ffn(p, g, x + y, rstate, full=True)
+        x, rstate, aux = self._ffn(p, g, x + y, rstate, full=True)
         if g.mixer == "rwkv6":
             cache = rstate._asdict()
-        return x, cache
+        return x, cache, aux
 
     def _block_decode(self, p: Block, g: LayerGroup, x, cache, li: int, pos):
         """One layer, one token; writes layer ``li``'s slice of the group's
@@ -171,6 +193,9 @@ class LM(nn.Module):
         if g.mixer in ("attn", "shared_attn"):
             y = att.attn_decode(p.mixer, cfg, h, cache["k"][li],
                                 cache["v"][li], pos)
+        elif g.mixer == "mla":
+            y = att.mla_decode(p.mixer, cfg, h, cache["ckv"][li],
+                               cache["kpe"][li], pos)
         elif g.mixer == "mamba2":
             y, st = mb.mamba2_decode(p.mixer, cfg, h, mb.MambaState(
                 cache["ssm"][li], cache["conv"][li]))
@@ -180,7 +205,7 @@ class LM(nn.Module):
             y, rstate = rk.rwkv6_decode(p.mixer, cfg, h, rk.RWKVState(
                 cache["wkv"][li], cache["shift_tm"][li],
                 cache["shift_cm"][li]))
-        x, rstate = self._ffn(p, g, x + y, rstate, full=False)
+        x, rstate, _ = self._ffn(p, g, x + y, rstate, full=False)
         if rstate is not None:
             for name, value in rstate._asdict().items():
                 cache[name][li].copy_(value)
@@ -193,7 +218,9 @@ class LM(nn.Module):
     # ----------------------------------------------------------- logits --
     def _logits(self, x):
         cfg = self.cfg
-        logits = self.lm_head(rmsnorm(self.final_norm.g, x, cfg.norm_eps))
+        x = rmsnorm(self.final_norm.g, x, cfg.norm_eps)
+        logits = (x @ self.embed.w.to(x.dtype).T if cfg.tie_embeddings
+                  else self.lm_head(x))
         if cfg.padded_vocab != cfg.vocab_size:
             logits[..., cfg.vocab_size:] = NEG_LOGIT
         return logits
@@ -201,21 +228,37 @@ class LM(nn.Module):
     # ------------------------------------------------------------ train --
     def train_logits(self, tokens):
         """Full causal forward for training: tokens (B,S) -> {"logits"
-        (B,S,V), "aux_loss"}.
+        (B,S,V), "aux_loss"[, "mtp_logits" (B,S,V)]}.
 
         No decode state is kept.  Attention and the recurrent mixers take
         their training paths (the reference's jnp attention and ``"xla"``
         chunked scans); no kernel runs.  zamba2's shared block is one set
         of parameters called by every shared group, so its gradient is
-        the sum over the calls, as the reference's.  ``aux_loss`` is 0:
-        neither ported family has MoE layers (the constructor refuses
-        MoE, MTP and encoders)."""
+        the sum over the calls, as the reference's.  ``aux_loss`` is the
+        sum of the MoE layers' load-balance losses (0 without MoE)."""
         x = self.embed(tokens)
+        aux_total = torch.zeros((), device=x.device)
         for gi, g in enumerate(self.cfg.layer_plan):
             for p in self._layers(gi, g):
-                x, _ = self._block_full(p, g, x, kernels=False)
-        return {"logits": self._logits(x),
-                "aux_loss": torch.zeros((), device=x.device)}
+                x, _, aux = self._block_full(p, g, x, kernels=False)
+                if aux is not None:
+                    aux_total = aux_total + aux
+        out = {"logits": self._logits(x), "aux_loss": aux_total}
+        if self.cfg.mtp_depth:
+            out["mtp_logits"] = self._mtp_logits(x, tokens)
+        return out
+
+    def _mtp_logits(self, h, tokens):
+        """deepseek-v3's multi-token prediction: the extra block predicts
+        token t+2 from [norm(h_t) ; emb(token_t+1)] (its MoE aux loss is
+        not counted, as in the reference)."""
+        cfg, mtp = self.cfg, self.mtp
+        emb_next = self.embed(torch.roll(tokens, -1, dims=1))
+        z = mtp.proj(torch.cat([rmsnorm(mtp.norm.g, h, cfg.norm_eps),
+                                emb_next], dim=-1))
+        z, _, _ = self._block_full(mtp.block, cfg.layer_plan[-1], z,
+                                   kernels=False)
+        return self._logits(z)
 
     # ---------------------------------------------------------- prefill --
     @torch.no_grad()
@@ -242,12 +285,12 @@ class LM(nn.Module):
         for gi, g in enumerate(cfg.layer_plan):
             entries = []
             for p in self._layers(gi, g):
-                x, cache = self._block_full(p, g, x, kernels=True)
+                x, cache, _ = self._block_full(p, g, x, kernels=True)
                 entries.append(cache)
             caches.append(_stack(entries))
         if max_len is not None and max_len > s:
             for c in caches:
-                for name in ("k", "v"):
+                for name in ("k", "v", "ckv", "kpe"):
                     if name in c:
                         t = c[name]
                         padded = t.new_zeros(t.shape[:2] + (max_len,)
@@ -276,6 +319,15 @@ class LM(nn.Module):
                                                 device=dev),
                                "v": torch.zeros(shape, dtype=dtype,
                                                 device=dev)})
+            elif g.mixer == "mla":
+                m = cfg.mla
+                caches.append({
+                    "ckv": torch.zeros((g.count, batch, max_len,
+                                        m.kv_lora_rank), dtype=dtype,
+                                       device=dev),
+                    "kpe": torch.zeros((g.count, batch, max_len,
+                                        m.qk_rope_head_dim), dtype=dtype,
+                                       device=dev)})
             else:
                 init = (mb.init_mamba_state if g.mixer == "mamba2"
                         else rk.init_rwkv_state)

@@ -7,17 +7,16 @@ and scale rules:
   evaluated NMT combination for that language pair (§III); direction is
   normalized, so both orders name the same registered model.  ``scale``
   shrinks widths and layers (``scale=1`` is the paper's size).
-* ``"rwkv6-3b"`` / ``"rwkv6_3b"`` / ``"zamba2-1.2b"`` / ``"qwen3-8b"``
-  — a big :class:`~repro_torch.models.model.LM` from
-  ``repro_torch.configs``;
+* ``"rwkv6-3b"`` / ``"rwkv6_3b"`` / ``"qwen3-moe-30b-a3b"`` / ... — a
+  big :class:`~repro_torch.models.model.LM` from ``repro_torch.configs``;
   underscores normalize to hyphens.  ``size="smoke"`` (default) builds
   the reduced CPU variant, ``size="full"`` the assigned configuration.
 
 Unlike the reference, :func:`resolve` returns the model with its weights
 already drawn (from ``seed``, on ``device``).  It builds the paper's
-three NMT models (BiLSTM de-en, GRU fr-en, Marian en-zh), the two
-recurrent LMs and qwen3-8b; the other seven LM names raise
-``NotImplementedError`` until their slices land.
+three NMT models (BiLSTM de-en, GRU fr-en, Marian en-zh) and nine of
+the ten LM names; ``whisper-large-v3`` raises ``NotImplementedError``
+until the encoder's slice lands.
 """
 
 from __future__ import annotations

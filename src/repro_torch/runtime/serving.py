@@ -16,7 +16,12 @@ Port of the LM half of ``repro/runtime/serving.py``.
   (§II-A), kept for characterization runs.
 
 Batches are padded to a power-of-two size (the reference's shape
-buckets, kept so a later CUDA-graph decode meets few shapes).  Plans with
+buckets, kept so a later CUDA-graph decode meets few shapes).  MLA plans
+(deepseek-v3) are position-masked like attention: their latent caches
+(``ckv``, ``kpe``) take ragged prefill and ride the same row copies.  In
+an MoE plan whose capacity drops assignments, the padding rows (and a
+slot table's free slots) share the decode step's routing group with the
+real rows and can move their outputs, as in the reference.  Plans with
 a recurrent mixer (mamba2, rwkv6) take no ragged prefill — their carried
 state would fold right-padding in — so only the batch is padded for them,
 and the batched executor runs one sub-batch per distinct prompt length.

@@ -1,8 +1,8 @@
 """Loss functions for the LM stack.
 
-Port of ``repro/training/losses.py`` for the families the port has:
-the MTP branch waits for the MTP configurations (the port's ``LM``
-refuses them), and ``aux_loss`` is the LM's (0 without MoE layers).
+Port of ``repro/training/losses.py``: the causal-LM cross entropy, the
+MoE load-balance term (``aux_loss``, 0 without MoE layers) and, for a
+model with multi-token prediction (deepseek-v3), the MTP cross entropy.
 """
 
 from __future__ import annotations
@@ -20,12 +20,28 @@ def _token_ce(logits, targets, mask=None):
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
-def lm_loss(model, batch, *, aux_weight: float = 0.001):
-    """Causal-LM cross entropy + the MoE load-balance aux term.
+def lm_loss(model, batch, *, aux_weight: float = 0.001,
+            mtp_weight: float = 0.3):
+    """Causal-LM cross entropy + the MoE load-balance aux term + the MTP
+    cross entropy where the model predicts token t+2.
 
     batch: {"tokens": (B,S), "targets": (B,S)[, "mask"]} tensors on the
     model's device.  Returns (loss, metrics dict)."""
     out = model.train_logits(batch["tokens"])
-    ce = _token_ce(out["logits"], batch["targets"], batch.get("mask"))
+    mask = batch.get("mask")
+    ce = _token_ce(out["logits"], batch["targets"], mask)
     loss = ce + aux_weight * out["aux_loss"]
-    return loss, {"ce": ce, "aux": out["aux_loss"], "loss": loss}
+    metrics = {"ce": ce, "aux": out["aux_loss"]}
+    if "mtp_logits" in out:
+        # MTP predicts token t+2: targets shifted one step more, the last
+        # two positions (whose t+2 wraps around) masked
+        mtp_targets = torch.roll(batch["targets"], -1, dims=1)
+        valid = torch.ones_like(mtp_targets, dtype=torch.float32)
+        valid[:, -2:] = 0.0
+        if mask is not None:
+            valid = valid * mask
+        mtp_ce = _token_ce(out["mtp_logits"], mtp_targets, valid)
+        loss = loss + mtp_weight * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    metrics["loss"] = loss
+    return loss, metrics

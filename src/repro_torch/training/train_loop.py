@@ -80,7 +80,7 @@ def make_train_step(model, *, lr_schedule: Optional[Callable] = None,
         if mask is not None:
             batch["mask"] = mask
         loss, metrics = lm_loss(model, batch)
-        return loss, metrics["ce"], metrics["aux"]
+        return loss, metrics
 
     def train_step(state: TrainState, batch):
         args = [None if batch.get(k) is None
@@ -88,17 +88,17 @@ def make_train_step(model, *, lr_schedule: Optional[Callable] = None,
                 for k in ("tokens", "targets", "mask")]
         with torch.enable_grad():
             if remat:
-                loss, ce, aux = torch.utils.checkpoint.checkpoint(
+                loss, metrics = torch.utils.checkpoint.checkpoint(
                     loss_fn, *args, use_reentrant=False)
             else:
-                loss, ce, aux = loss_fn(*args)
+                loss, metrics = loss_fn(*args)
             lr = (lr_schedule(state.opt.step) if lr_schedule is not None
                   else opt_cfg.lr)
             params, opt, gnorm = apply_gradients(
                 state.params, loss, state.opt, lr=lr, cfg=opt_cfg,
                 leaf_ndim=ndims)
-        metrics = {"ce": ce.detach(), "aux": aux.detach(),
-                   "loss": loss.detach(), "grad_norm": gnorm, "lr": lr}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(grad_norm=gnorm, lr=lr)
         return TrainState(params=params, opt=opt), metrics
 
     return train_step

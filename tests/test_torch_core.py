@@ -234,6 +234,8 @@ def test_importing_the_port_loads_no_jax_or_reference_modules():
         "import repro_torch.launch.serve\n"
         "import repro_torch.launch.continuous_serving\n"
         "import repro_torch.configs.qwen3_8b, repro_torch.runtime.serving\n"
+        "import repro_torch.models.layers.moe, repro_torch.models.costs\n"
+        "import repro_torch.configs.deepseek_v3_671b\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith"
         "('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

@@ -421,7 +421,9 @@ def test_scan_wrappers_refuse_misaligned_operands(dev):
         ssd.ssd_scan_cuda(x, dt, a_log, bad_b, c_in, chunk=8)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b", "qwen3-8b"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b", "qwen3-8b",
+                                  "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b",
+                                  "deepseek-v3-671b"])
 def test_smoke_lm_on_the_card_matches_the_cpu(dev, arch):
     from repro_torch.models.registry import resolve
     gpu = resolve(arch, device=dev, seed=2).model
@@ -440,6 +442,28 @@ def test_smoke_lm_on_the_card_matches_the_cpu(dev, arch):
                 seq.append(logits)
             outs.append(torch.stack(seq).cpu())
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+
+
+def test_moe_ffn_is_bitwise_repeatable_on_the_card(dev):
+    """The combine gathers each token's k expert outputs and sums them in
+    a fixed order (no atomics), and the dispatch scatter writes at most
+    one nonzero value a slot: the same inputs give the same bits, with
+    dropping (8 experts, top-2, capacity factor 1.25)."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.layers import moe
+    cfg = smoke_config("qwen3-moe-30b-a3b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=8, top_k=2, capacity_factor=1.25))
+    p = moe.MoE(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    for shape in ((4, 64, cfg.d_model), (8, 1, cfg.d_model)):
+        x = _randn(3, shape, dev, torch.float32)
+        assert moe.dropped_share(p, cfg, x) > 0
+        first, aux = moe.moe_ffn(p, cfg, x)
+        for _ in range(3):
+            again, aux2 = moe.moe_ffn(p, cfg, x)
+            assert torch.equal(first, again) and torch.equal(aux, aux2)
 
 
 def test_continuous_session_on_the_card(dev):

@@ -1,8 +1,9 @@
 """The port's big-LM serving path on the CPU against the JAX package.
 
 The smoke rwkv6-3b and zamba2-1.2b LMs (and, for the configuration,
-generation and engine cases, qwen3-8b; its own file is
-``tests/test_torch_qwen3.py``) are built by JAX
+generation and engine cases, the seven other ported names; qwen3-8b's
+own file is ``tests/test_torch_qwen3.py``, the MoE / MLA families' and
+the dense giants' ``tests/test_torch_moe_lm.py``) are built by JAX
 (``LM(cfg, mixer_impl="pallas")``, the kernel route, its Pallas kernels
 in interpret mode), carried across by ``lm_params_from_jax`` and held
 against the port: prefill logits and decode state, four decode-step
@@ -44,7 +45,9 @@ from repro_torch.runtime.serving import (
 )
 
 TOL = 1e-4
-ARCHS = ("rwkv6-3b", "zamba2-1.2b", "qwen3-8b")
+ARCHS = ("rwkv6-3b", "zamba2-1.2b", "qwen3-8b", "qwen3-32b", "deepseek-67b",
+         "chameleon-34b", "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b",
+         "deepseek-v3-671b")
 _MODELS = {}
 
 
