@@ -24,6 +24,13 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    length 0 in a batch, every query tile on ragged shapes (head dims 16,
    32, 64, 128, causal with S != T), a captured ``flash_decode`` replayed
    after ``lengths`` changed on the device, and bitwise repeatability;
+   then phase 15's shapes: whisper's encoder (B=4, S=T=1500 frames, 20
+   heads of 64, non-causal), its cross-attention in prefill (16 tokens
+   against 1500 frames, ragged lengths) and decode, and the sliding
+   ``window`` on both kernels (windows of 1, 64 and wider than T under
+   every query tile, a window past the prefix, qwen3-8b-swa's windowed
+   prefill at S = 4200 and linear-window decode at 4200 slots, a decode
+   whose splits lie wholly before the window start);
 4. builds the paper's Marian en-zh model at full width
    (``resolve("cnmt:en-zh", scale=1.0)``, random weights from a seed) and
    holds its encoder output and four decode-step logits against the same
@@ -38,7 +45,9 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    (float32 FLOP at 3 x TF32's 165 TFLOP/s), its plain version and, where
    one PyTorch call computes the same function, that call
    (``rwkv6_wkv`` also at B=1 S=37, the chunk of 1 a prime prompt gives
-   rwkv6-3b; the attention kernels also at qwen3-8b's phase-3 shapes),
+   rwkv6-3b; the attention kernels also at qwen3-8b's phase-3 shapes and
+   at phase 15's: whisper's encoder, cross prefill and cross decode,
+   qwen3-8b-swa's windowed prefill, linear-window and ring decode),
    and each scan kernel under every value tile its host
    chooses between; the tokens/s and peak memory of one batch-8
    translate; and Marian's decode step, eager and from a CUDA graph, with
@@ -115,6 +124,27 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    beside the weight-read bound, the device busy share of a step
    (profiler), decode tokens/s, an admission wave's prefill time and
    the phase's peak memory.
+15. (run after phase 14, before phases 11-12) whisper-large-v3 at full
+   width and depth (``resolve("whisper-large-v3", size="full")``, 32 + 32
+   layers, random weights from a seed): first a copy cut to 2 + 2 layers
+   at full width holds its prefill + four decode-step logits on the
+   kernels against the plain versions, and four decode steps against the
+   teacher-forced ``train_logits``, on 1500 frames with a ragged prefix
+   mask (each within ten times the effect of a 1e-7 perturbation of the
+   embeddings and the frames); then ``GenerationSession(max_len=448).
+   generate(frames=)`` on B=4 of 1500 frames (numpy, seeded) for prompts
+   of 4 and of 16 tokens, 32 new tokens each, checking both attention
+   kernels launched; it prints the encoder and prefill times, an eager
+   decode step beside its bound (decoder and head weights plus the cross
+   caches), launches per step, the device busy share and peak memory.
+   Then the long_500k variants: qwen3-8b-swa at full width cut to 4 of
+   36 layers prefills 4090 tokens into a 4096-slot state (a ring) and
+   decodes 10 tokens past position 4096, held against a linear cache of
+   4200 slots under the window on the same weights, and prefills 4200
+   tokens (past the window) on the kernels against the plain versions;
+   it prints the ring's bytes against a linear cache's at 524288
+   positions; zamba2-1.2b-swa at full depth prefills 4200 tokens, kernels
+   against plain (the rule above).
 
 It prints one JSON line of kernel numbers (each kernel's launches summed
 over the main paths that run it) and, last, the line
@@ -165,6 +195,12 @@ QW_LENS = (37, 256, 100, 5, 180, 64, 1, 129)   # a table step's pos + 1
 QW_RATE_HZ = 40.0               # phase 13's Poisson arrivals: twice what 8
                                 # slots serve at ~25 ms a step
 MARGIN = 1e-4                   # top-2 logit margin behind a compared token
+WH_H, WH_T = 20, 1500           # whisper-large-v3: 20 MHA heads of 64 over
+                                # 1500 frames (1500 mod 64 = 28 keys of tail)
+WH_LENS = (1500, 1213, 700, 1)  # ragged frame lengths of a batch of 4
+WH_B, WH_MAX_LEN, WH_NEW = 4, 448, 32   # phase 15's generation
+SWA_W = 4096                    # the long_500k variants' sliding window
+SWA_CUT = 4                     # qwen3-8b-swa's layers (of 36) in phase 15
 
 
 def log(msg: str) -> None:
@@ -302,7 +338,8 @@ def check_kernels(fa, da, gen):
                    da.flash_decode_plain(q[:, 0], kc, vc, lens), tol)
             cases += 2
     torch.cuda.synchronize()
-    return cases + check_gqa_cases(fa, da, gen) + check_tile_cases(fa, da, gen)
+    return (cases + check_gqa_cases(fa, da, gen)
+            + check_tile_cases(fa, da, gen) + check_window_cases(fa, da, gen))
 
 
 def check_gqa_cases(fa, da, gen):
@@ -395,6 +432,133 @@ def check_tile_cases(fa, da, gen):
     first = da.flash_decode_cuda(q, kc, vc, lens)
     if not torch.equal(first, da.flash_decode_cuda(q, kc, vc, lens)):
         raise AssertionError("flash_decode is not bitwise repeatable")
+    torch.cuda.synchronize()
+    return cases + 1
+
+
+def check_window_cases(fa, da, gen):
+    """Phase 15's shapes: whisper's encoder (non-causal, T = 1500 keys, not
+    a multiple of the key tile), its cross-attention in prefill (16 tokens
+    against 1500 frames, ragged lengths) and decode; then the sliding
+    window on both kernels: windows of 1, 64 and wider than T, a row whose
+    window lies past its prefix, the windowed prefill past 4096 and the
+    linear-window decode at 4200 slots (qwen3-8b-swa's shapes), and a
+    decode whose splits lie wholly before the window start."""
+    cases = 0
+    lens = torch.tensor(WH_LENS, dtype=torch.int32, device="cuda")
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        q, k, v = (randn(gen, (4, WH_T, WH_H, DH), dtype) for _ in range(3))
+        within(f"whisper encoder flash_attention {name} B=4 S=T={WH_T} "
+               f"H={WH_H} non-causal",
+               fa.flash_attention_cuda(q, k, v, causal=False),
+               fa.flash_attention_plain(q, k, v, causal=False), tol)
+        qx = randn(gen, (4, 16, WH_H, DH), dtype)
+        within(f"whisper cross prefill flash_attention {name} B=4 S=16 "
+               f"T={WH_T} lens={WH_LENS}",
+               fa.flash_attention_cuda(qx, k, v, lens, causal=False),
+               fa.flash_attention_plain(qx, k, v, lens, causal=False), tol)
+        q1 = randn(gen, (4, WH_H, DH), dtype)
+        within(f"whisper cross decode flash_decode {name} B=4 T={WH_T} "
+               f"lens={WH_LENS}", da.flash_decode_cuda(q1, k, v, lens),
+               da.flash_decode_plain(q1, k, v, lens), tol)
+        cases += 3
+        # the generate path's shapes: every frame valid, the prompts' causal
+        # prefill, and self decode against the max_len = 448 cache
+        full = torch.full((4,), WH_T, dtype=torch.int32, device="cuda")
+        within(f"whisper cross decode flash_decode {name} B=4 T={WH_T} "
+               f"lens={WH_T}", da.flash_decode_cuda(q1, k, v, full),
+               da.flash_decode_plain(q1, k, v, full), tol)
+        for s in (4, 16):
+            within(f"whisper cross prefill flash_attention {name} B=4 S={s} "
+                   f"T={WH_T} lens={WH_T}",
+                   fa.flash_attention_cuda(qx[:, :s], k, v, full,
+                                           causal=False),
+                   fa.flash_attention_plain(qx[:, :s], k, v, full,
+                                            causal=False), tol)
+            within(f"whisper self prefill flash_attention {name} B=4 "
+                   f"S=T={s} H={WH_H} causal",
+                   fa.flash_attention_cuda(qx[:, :s], k[:, :s], v[:, :s],
+                                           causal=True),
+                   fa.flash_attention_plain(qx[:, :s], k[:, :s], v[:, :s],
+                                            causal=True), tol)
+        kc, vc = k[:, :WH_MAX_LEN], v[:, :WH_MAX_LEN]
+        for length in (5, 47):
+            lt = torch.full((4,), length, dtype=torch.int32, device="cuda")
+            within(f"whisper self decode flash_decode {name} B=4 "
+                   f"T={WH_MAX_LEN} lens={length}",
+                   da.flash_decode_cuda(q1, kc, vc, lt),
+                   da.flash_decode_plain(q1, kc, vc, lt), tol)
+        cases += 7
+    for window in (1, 64, 5000):
+        for b, s, h, hkv, d, lt in ((2, 300, 8, 8, 64, None),
+                                    (1, 200, 32, 8, 128, None),
+                                    (2, 130, 4, 4, 64, (130, 90))):
+            q = randn(gen, (b, s, h, d))
+            k, v = (randn(gen, (b, s, hkv, d)) for _ in range(2))
+            lengths = None if lt is None else torch.tensor(
+                lt, dtype=torch.int32, device="cuda")
+            for bq in fa.BLOCK_Q:
+                within(f"flash_attention f32 window={window} block_q={bq} "
+                       f"B={b} S=T={s} H={h} Hkv={hkv} D={d} lens={lt}",
+                       fa.flash_attention_cuda(q, k, v, lengths, causal=True,
+                                               window=window, block_q=bq),
+                       fa.flash_attention_plain(q, k, v, lengths,
+                                                causal=True, window=window),
+                       F32_TOL)
+                cases += 1
+        q = randn(gen, (3, H, DH))
+        kc, vc = (randn(gen, (3, 512, H, DH)) for _ in range(2))
+        lt = torch.tensor((300, 512, 600), dtype=torch.int32, device="cuda")
+        within(f"flash_decode f32 window={window} B=3 T=512 "
+               f"lens=(300, 512, 600)",
+               da.flash_decode_cuda(q, kc, vc, lt, window=window),
+               da.flash_decode_plain(q, kc, vc, lt, window=window), F32_TOL)
+        cases += 1
+    # qwen3-8b-swa: the windowed prefill past the window, the linear-window
+    # decode at 4200 slots, the full ring
+    q = randn(gen, (1, 4200, QW_H, QW_D))
+    k, v = (randn(gen, (1, 4200, QW_HKV, QW_D)) for _ in range(2))
+    within(f"qwen3-8b-swa flash_attention f32 B=1 S=T=4200 H={QW_H} "
+           f"Hkv={QW_HKV} D={QW_D} window={SWA_W}",
+           fa.flash_attention_cuda(q, k, v, causal=True, window=SWA_W),
+           fa.flash_attention_plain(q, k, v, causal=True, window=SWA_W),
+           F32_TOL)
+    within(f"qwen3-8b-swa flash_attention f32 B=1 S=T=4090 H={QW_H} "
+           f"Hkv={QW_HKV} D={QW_D} window={SWA_W}",
+           fa.flash_attention_cuda(q[:, :4090], k[:, :4090], v[:, :4090],
+                                   causal=True, window=SWA_W),
+           fa.flash_attention_plain(q[:, :4090], k[:, :4090], v[:, :4090],
+                                    causal=True, window=SWA_W), F32_TOL)
+    q = randn(gen, (2, QW_H, QW_D))
+    kc, vc = (randn(gen, (2, 4200, QW_HKV, QW_D)) for _ in range(2))
+    for lt in ((4150, 4200), (4097, 5000), (4096, 1)):
+        lt_t = torch.tensor(lt, dtype=torch.int32, device="cuda")
+        within(f"qwen3-8b-swa flash_decode f32 B=2 T=4200 lens={lt} "
+               f"window={SWA_W}",
+               da.flash_decode_cuda(q, kc, vc, lt_t, window=SWA_W),
+               da.flash_decode_plain(q, kc, vc, lt_t, window=SWA_W), F32_TOL)
+    # phase 15's decode at B=1: the linear cache of 4200 slots under the
+    # window, and the ring of 4096 slots (lengths min(pos + 1, 4096))
+    for t, length, window in ((4200, 4100, SWA_W), (SWA_W, 4091, None),
+                              (SWA_W, SWA_W, None)):
+        lt_t = torch.tensor((length,), dtype=torch.int32, device="cuda")
+        within(f"qwen3-8b-swa flash_decode f32 B=1 T={t} len={length} "
+               f"window={window}",
+               da.flash_decode_cuda(q[:1], kc[:1, :t], vc[:1, :t], lt_t,
+                                    window=window),
+               da.flash_decode_plain(q[:1], kc[:1, :t], vc[:1, :t], lt_t,
+                                     window=window), F32_TOL)
+    cases += 8
+    # splits wholly before the window start: (m, l) = (-inf, 0), no NaN
+    q = randn(gen, (1, H, DH))
+    kc, vc = (randn(gen, (1, 2048, H, DH)) for _ in range(2))
+    lt = torch.tensor((2047,), dtype=torch.int32, device="cuda")
+    n_split, chunk = da.decode_splits(1, H, 2048)
+    within(f"flash_decode f32 B=1 T=2048 len=2047 window=64: "
+           f"{(2047 - 64) // chunk} of {n_split} splits before the window "
+           f"start", da.flash_decode_cuda(q, kc, vc, lt, window=64),
+           da.flash_decode_plain(q, kc, vc, lt, window=64), F32_TOL)
     torch.cuda.synchronize()
     return cases + 1
 
@@ -697,6 +861,122 @@ def gqa_decode_case(da, gen, b, h=QW_H, hkv=QW_HKV, model="qwen3-8b"):
     return row
 
 
+def whisper_encoder_case(fa, gen, b=WH_B):
+    """flash_attention over one whisper-large-v3 encoder layer: B=4 of
+    1500 frames, 20 heads of 64, non-causal, no lengths (the reference's
+    encoder attends to every frame).  The yardstick is SDPA."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = (randn(gen, (b, WH_T, WH_H, DH)) for _ in range(3))
+    qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
+    row = time_case(
+        lambda: fa.flash_attention_cuda(q, k, v, causal=False),
+        lambda: fa.flash_attention_plain(q, k, v, causal=False),
+        lambda: sdpa(qs, ks, vs),
+        4 * 4 * b * WH_T * WH_H * DH, 4 * b * WH_H * WH_T * WH_T * DH,
+        per_graph=5, plain_per_graph=1)
+    row["library_err"] = max_err(
+        fa.flash_attention_cuda(q, k, v, causal=False),
+        sdpa(qs, ks, vs).permute(0, 2, 1, 3))
+    row["shape"] = (f"whisper encoder B={b} S=T={WH_T} H={WH_H} dh={DH} "
+                    "non-causal f32")
+    return row
+
+
+def whisper_cross_case(fa, da, gen, decode: bool):
+    """whisper-large-v3's cross-attention of one decoder layer, B=4 over
+    1500 frames of ragged lengths ``WH_LENS``: prefill (16 tokens,
+    ``flash_attention``, non-causal) or decode (``flash_decode``).  Bytes
+    and FLOP count the valid frames only; the yardstick is SDPA with a
+    key mask."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, s = WH_B, 1 if decode else 16
+    k, v = (randn(gen, (b, WH_T, WH_H, DH)) for _ in range(2))
+    q = randn(gen, (b, s, WH_H, DH))
+    lens = torch.tensor(WH_LENS, dtype=torch.int32, device="cuda")
+    valid = sum(WH_LENS)
+    qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
+    keymask = (torch.arange(WH_T, device="cuda")[None, :]
+               < lens[:, None])[:, None, None, :]
+    if decode:
+        q = q[:, 0]
+        kernel = lambda: da.flash_decode_cuda(q, k, v, lens)
+        plain = lambda: da.flash_decode_plain(q, k, v, lens)
+        ref = lambda: sdpa(qs, ks, vs, attn_mask=keymask)[:, :, 0]
+    else:
+        kernel = lambda: fa.flash_attention_cuda(q, k, v, lens, causal=False)
+        plain = lambda: fa.flash_attention_plain(q, k, v, lens, causal=False)
+        ref = lambda: sdpa(qs, ks, vs, attn_mask=keymask).permute(0, 2, 1, 3)
+    row = time_case(kernel, plain,
+                    lambda: sdpa(qs, ks, vs, attn_mask=keymask),
+                    4 * (2 * valid * WH_H * DH + 2 * b * s * WH_H * DH + b),
+                    4 * s * valid * WH_H * DH)
+    row["library_err"] = max_err(kernel(), ref())
+    row["shape"] = (f"whisper cross {'decode' if decode else 'prefill'} "
+                    f"B={b} S={s} T={WH_T} H={WH_H} dh={DH} "
+                    f"lens={WH_LENS} f32")
+    return row
+
+
+def window_prefill_case(fa, gen, s=4200):
+    """flash_attention over one qwen3-8b-swa prefill layer past the window:
+    B=1, S=T=4200, 32 query heads over 8 KV heads of 128, causal, window
+    4096.  FLOP count the (query, key) pairs inside the window; the
+    yardstick is SDPA with the same boolean mask and enable_gqa."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q = randn(gen, (1, s, QW_H, QW_D))
+    k, v = (randn(gen, (1, s, QW_HKV, QW_D)) for _ in range(2))
+    qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
+    pos = torch.arange(s, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - SWA_W)
+    pairs = sum(min(i + 1, SWA_W) for i in range(s))
+    kernel = lambda: fa.flash_attention_cuda(q, k, v, causal=True,
+                                             window=SWA_W)
+    row = time_case(
+        kernel,
+        lambda: fa.flash_attention_plain(q, k, v, causal=True, window=SWA_W),
+        lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True),
+        4 * 2 * s * (QW_H + QW_HKV) * QW_D, 4 * pairs * QW_H * QW_D,
+        per_graph=5, plain_per_graph=1)
+    row["library_err"] = max_err(kernel(), sdpa(
+        qs, ks, vs, attn_mask=mask, enable_gqa=True).permute(0, 2, 1, 3))
+    row["shape"] = (f"qwen3-8b-swa B=1 S=T={s} H={QW_H} Hkv={QW_HKV} "
+                    f"dh={QW_D} causal window={SWA_W} f32")
+    return row
+
+
+def window_decode_case(da, gen, t, length, window):
+    """flash_decode over one qwen3-8b-swa decode layer at B=1: the linear
+    cache of ``t`` slots under the window (``window`` set) or the full
+    ring of 4096 slots (``window`` None, ``length`` = 4096).  Bytes count
+    the valid slots only; the yardstick is SDPA with a key mask."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q = randn(gen, (1, QW_H, QW_D))
+    kc, vc = (randn(gen, (1, t, QW_HKV, QW_D)) for _ in range(2))
+    lens = torch.tensor([length], dtype=torch.int32, device="cuda")
+    slot = torch.arange(t, device="cuda")[None, :]
+    keep = slot < min(length, t)
+    if window:
+        keep = keep & (slot >= length - window)
+    valid = int(keep.sum())
+    qs = q[:, :, None, :]
+    ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (kc, vc))
+    keymask = keep[:, None, None, :]
+    kernel = lambda: da.flash_decode_cuda(q, kc, vc, lens, window=window)
+    row = time_case(
+        kernel, lambda: da.flash_decode_plain(q, kc, vc, lens, window=window),
+        lambda: sdpa(qs, ks, vs, attn_mask=keymask, enable_gqa=True),
+        4 * (2 * valid * QW_HKV * QW_D + 2 * QW_H * QW_D + 1),
+        4 * valid * QW_H * QW_D)
+    row["library_err"] = max_err(kernel(), sdpa(
+        qs, ks, vs, attn_mask=keymask, enable_gqa=True)[:, :, 0])
+    kind = (f"linear T={t} len={length} window={window}" if window
+            else f"ring T={t} len={length}")
+    row["shape"] = (f"qwen3-8b-swa B=1 H={QW_H} Hkv={QW_HKV} dh={QW_D} "
+                    f"{kind} f32")
+    return row
+
+
 def wkv_case(wkv, gen, b, s):
     """rwkv6_wkv over one rwkv6-3b prefill layer: batch ``b`` of ``s``
     tokens from the zero state, at the chunk prefill picks (the largest
@@ -779,7 +1059,14 @@ def timings(gen):
                                                model))
                for model, h, hkv in GQA_SHAPES],
              *[("flash_decode", gqa_decode_case(da, gen, 8, h, hkv, model))
-               for model, h, hkv in GQA_SHAPES]]
+               for model, h, hkv in GQA_SHAPES],
+             ("flash_attention", whisper_encoder_case(fa, gen)),
+             ("flash_attention", whisper_cross_case(fa, da, gen, False)),
+             ("flash_decode", whisper_cross_case(fa, da, gen, True)),
+             ("flash_attention", window_prefill_case(fa, gen)),
+             ("flash_decode", window_decode_case(da, gen, 4200, 4150, SWA_W)),
+             ("flash_decode", window_decode_case(da, gen, SWA_W, SWA_W,
+                                                 None))]
     cases += scan_cases(gen)
     for name, r in cases:
         lib = ("library — (no single PyTorch call computes it)"
@@ -1610,6 +1897,360 @@ def mtp_training(ops, steps=8):
     empty_cache()
 
 
+# --------------------------------------------------------------- phase 15 --
+def noisy(x, rel: float, seed: int = 5):
+    """``x`` scaled by (1 + rel * N(0, 1)): a perturbation of float32 inputs
+    that are not embeddings (whisper's frames)."""
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    return x * (1 + rel * torch.randn(x.shape, generator=gen,
+                                      device=x.device))
+
+
+def whisper_logits(model, toks, frames, mask):
+    """Prefill logits (the encoder included) into phase 15's ``max_len =
+    448`` state, then the logits of four decode steps on fixed tokens."""
+    with torch.inference_mode():
+        logits, state = model.prefill(toks, frames=frames, frame_mask=mask,
+                                      max_len=WH_MAX_LEN)
+        out = [logits]
+        for tok in (5, 17, 42, 99):
+            logits, state = model.decode_step(state, torch.full(
+                (toks.shape[0], 1), tok, dtype=torch.int32,
+                device=toks.device))
+            out.append(logits)
+        return torch.stack(out)
+
+
+def whisper_floor(fn, model, frames, want):
+    """The effect on ``fn(frames)`` of a 1e-7 perturbation of both float32
+    inputs, the token embeddings and the frames: the copy's noise floor."""
+    hook = perturbed(model, 1e-7)
+    try:
+        return max_err(fn(noisy(frames, 1e-7)), want)
+    finally:
+        hook.remove()
+
+
+def check_whisper_copy(ops):
+    """whisper-large-v3 at full width cut to 2 encoder + 2 decoder layers
+    (seed 1), at the generate path's B=4 and ``max_len = 448``: prefill +
+    four decode-step logits on the kernels against the plain versions,
+    then four decode steps against the teacher-forced forward
+    (``train_logits``, plain ops), both on 1500 frames, two rows whole
+    and two under a prefix mask; each within ten times the effect of a
+    1e-7 perturbation of the embeddings and the frames."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("whisper-large-v3")
+    cut = dataclasses.replace(
+        cfg, layer_plan=(dataclasses.replace(cfg.layer_plan[0], count=2),),
+        encoder=dataclasses.replace(cfg.encoder, num_layers=2))
+    model, _ = build_cut(cut, seed=1)
+    rng = np.random.default_rng(31)
+    frames = torch.as_tensor(rng.standard_normal((WH_B, WH_T, cfg.d_model)),
+                             dtype=torch.float32, device="cuda")
+    mask = torch.ones((WH_B, WH_T), device="cuda")
+    mask[1, 1100:] = 0.0
+    mask[3, 700:] = 0.0
+    toks = torch.as_tensor(rng.integers(4, cfg.vocab_size, (WH_B, 16)),
+                           dtype=torch.int32, device="cuda")
+    what = "whisper-large-v3 (2+2 layers)"
+    got = whisper_logits(model, toks[:, :12], frames, mask)
+    with plain_kernels(ops):
+        want = whisper_logits(model, toks[:, :12], frames, mask)
+        floor = whisper_floor(
+            lambda fr: whisper_logits(model, toks[:, :12], fr, mask), model,
+            frames, want)
+    err = max_err(got, want)
+    log(f"  {what} B={WH_B} S=12 T={WH_T} max_len={WH_MAX_LEN}: prefill + "
+        f"4 decode-step logits, "
+        f"kernels vs plain max_abs_err={err:.3e}; the 1e-7 perturbation "
+        f"{floor:.3e} (max |ref| over the real vocabulary "
+        f"{float(want[..., :cfg.vocab_size].abs().max()):.3f})")
+    if not (err <= 10 * floor and torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: kernels vs plain {err} > 10 x {floor}")
+
+    def decoded(fr):
+        with torch.inference_mode():
+            _, state = model.prefill(toks[:, :12], frames=fr,
+                                     frame_mask=mask, max_len=WH_MAX_LEN)
+            return torch.stack([model.decode_step(
+                state, toks[:, t:t + 1])[0] for t in range(12, 16)])
+
+    with torch.no_grad():
+        full = model.train_logits(toks, frames=frames, frame_mask=mask)[
+            "logits"][:, 12:].transpose(0, 1)
+    got = decoded(frames)
+    err, floor = max_err(got, full), whisper_floor(decoded, model, frames,
+                                                   got)
+    log(f"  {what}: 4 decode steps vs the teacher-forced forward "
+        f"max_abs_err={err:.3e}; the 1e-7 perturbation {floor:.3e}")
+    if not err <= 10 * floor:
+        raise AssertionError(f"{what}: decode vs teacher-forced {err} > "
+                             f"10 x {floor}")
+    del model
+    empty_cache()
+
+
+def whisper_phase(ops):
+    """whisper-large-v3 at full width and depth (32 + 32 layers): checks on
+    a 2+2-layer copy, then ``GenerationSession(max_len=448).generate(
+    frames=)`` on B=4 of 1500 frames (numpy, seed 15) for prompts of 4 and
+    of 16 tokens, 32 new tokens each; encoder, prefill and decode-step
+    times beside their bounds, launches per step, peak memory."""
+    from repro_torch.runtime.serving import GenerationSession
+
+    check_whisper_copy(ops)
+    torch.cuda.reset_peak_memory_stats()
+    model, n_params = build_lm("whisper-large-v3")
+    cfg = model.cfg
+    n_enc = sum(p.numel() for p in model.encoder.parameters())
+    n_dec = n_params - n_enc - model.embed.w.numel()  # decode reads a row
+    log(f"  encoder {n_enc / 1e9:.3f}B parameters, decoder layers + head "
+        f"{n_dec / 1e9:.3f}B")
+    frames = torch.as_tensor(np.random.default_rng(15).standard_normal(
+        (WH_B, WH_T, cfg.d_model)), dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(16)
+    prompts = {s: rng.integers(4, cfg.vocab_size, (WH_B, s)).astype(np.int32)
+               for s in (4, 16)}
+    sess = GenerationSession(model, max_len=WH_MAX_LEN)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for s, toks in prompts.items():
+        lens, out = sess.generate_with_lengths(toks, max_new=WH_NEW,
+                                               frames=frames)
+        if not (out.shape == (WH_B, WH_NEW) and ((lens >= 0)
+                                                 & (lens <= WH_NEW)).all()
+                and (out < cfg.vocab_size).all() and (out >= 0).all()):
+            raise AssertionError(f"whisper: bad generation {lens} "
+                                 f"{out.shape}")
+        log(f"  generate B={WH_B} prompt {s} tokens, 1500 frames, max_new="
+            f"{WH_NEW}: lengths {lens.tolist()}, row 0 {out[0, :8].tolist()}"
+            "...")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    log(f"  main path wall {wall:.2f}s, kernel launches {launches}")
+    for name in ("flash_attention", "flash_decode"):
+        if launches[name] == 0:
+            raise AssertionError(f"whisper never launched {name}")
+    toks = torch.as_tensor(prompts[16], device="cuda")
+    with torch.inference_mode():
+        enc_ms = wall_ms(lambda: model.encode(frames))
+        pre_ms = wall_ms(lambda: model.prefill(toks, frames=frames,
+                                               max_len=WH_MAX_LEN))
+        logits, state = model.prefill(toks, frames=frames,
+                                      max_len=WH_MAX_LEN)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        ops.reset_launch_counts()
+        model.decode_step(state, tok)
+        per_step = ops.launch_counts()
+        for _ in range(3):
+            model.decode_step(state, tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            model.decode_step(state, tok)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 20 * 1e3
+        busy, kernels = profiled_busy_ms(
+            lambda: [model.decode_step(state, tok) for _ in range(5)])
+    cross = 2 * WH_B * cfg.num_layers * WH_T * cfg.num_kv_heads \
+        * cfg.head_dim * 4
+    bound_ms = (4 * n_dec + cross) / HBM_BYTES_S * 1e3
+    enc_flop = 2 * n_enc * WH_B * WH_T + cfg.encoder.num_layers * 4 * WH_B \
+        * WH_H * WH_T * WH_T * DH
+    log(f"  encoder B={WH_B} T={WH_T}: {enc_ms:.2f}ms = "
+        f"{enc_flop / enc_ms / 1e9:.1f} TFLOP/s of its {enc_flop / 1e12:.2f} "
+        f"TFLOP (weights GEMMs + attention); prefill of {toks.shape[1]} "
+        f"tokens with the encoder {pre_ms:.2f}ms")
+    log(f"  eager decode step B={WH_B} (pos ~{toks.shape[1] + 24}): "
+        f"{step_ms:.2f}ms against a bound of {bound_ms:.2f}ms (decoder and "
+        f"head weights {4 * n_dec / 1e9:.2f} GB + cross caches "
+        f"{cross / 1e9:.2f} GB at 3.35 TB/s); launches per step {per_step}; "
+        f"profiled: {kernels / 5:.0f} device kernels and {busy / 5:.2f}ms "
+        f"device time per step = device busy {100 * busy / 5 / step_ms:.1f}%"
+        f" of the step; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, sess, state
+    empty_cache()
+    return {"whisper-large-v3": launches}
+
+
+def float64_attention(q, k, v, window):
+    """Causal attention in float64 under an optional window."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, h // hkv, d).double()
+    scores = torch.einsum("bsgrd,btgd->bgrst", qg, k.double()) * d ** -0.5
+    pos = torch.arange(s, device=q.device)
+    keep = pos[None, :] <= pos[:, None]
+    if window:
+        keep = keep & (pos[None, :] > pos[:, None] - window)
+    w = torch.softmax(scores.masked_fill(~keep, -1e300), -1)
+    return torch.einsum("bgrst,btgd->bsgrd", w, v.double()).reshape(
+        b, s, h, d)
+
+
+def attention_vs_float64(model, toks):
+    """Each layer's own windowed prefill attention (``toks`` of 4200, the
+    window 4096) on the kernel and on the plain version, each against a
+    float64 reference: a kernel whose float32 sums lose more than the
+    plain version's, growing with the keys (F4), shows here.  Returns the
+    worst layer's (kernel, plain) errors."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import attention as att
+    from repro_torch.models.layers.basic import rmsnorm
+
+    cfg = model.cfg
+    worst = (0.0, 0.0)
+    with torch.inference_mode():
+        x = model.embed(toks)
+        pos = torch.arange(toks.shape[1], device="cuda")[None]
+        for p in model.groups[0]:
+            q, k, v = att._qkv(p.mixer, cfg, rmsnorm(p.ln1.g, x, cfg.norm_eps),
+                               pos)
+            ref = float64_attention(q, k, v, SWA_W)
+            errs = tuple(float((f(q, k, v, causal=True, window=SWA_W).double()
+                                - ref).abs().max())
+                         for f in (fa.flash_attention_cuda,
+                                   fa.flash_attention_plain))
+            worst = max(worst, errs)
+            del ref
+            x, _, _ = model._block_full(p, cfg.layer_plan[0], x, kernels=True,
+                                        window=SWA_W)
+    return worst
+
+
+def swa_phase(ops):
+    """The long_500k variants at full width: qwen3-8b-swa cut to
+    ``SWA_CUT`` of 36 layers, a 4090-token prefill into a 4096-slot state
+    (a ring) stepped 10 tokens past position 4096, held against a linear
+    cache of 4200 slots under the window and against the same ring on the
+    plain kernels, a windowed 4200-token prefill on the kernels against
+    the plain versions, and each layer's attention against float64;
+    then zamba2-1.2b-swa at full depth, one windowed 4200-token prefill,
+    kernels against plain.  Each within ten times the effect of a 1e-7
+    perturbation of the embeddings."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import resolve
+
+    paths = {}
+    full = get_config("qwen3-8b", shape="long_500k")
+    cfg = dataclasses.replace(full, layer_plan=(dataclasses.replace(
+        full.layer_plan[0], count=SWA_CUT),))
+    model, _ = build_cut(cfg)
+    rng = np.random.default_rng(17)
+    toks = torch.as_tensor(rng.integers(4, cfg.vocab_size, (1, 4200)),
+                           dtype=torch.int32, device="cuda")
+    s0 = 4090
+
+    def decoded(max_len):
+        with torch.inference_mode():
+            logits, state = model.prefill(toks[:, :s0], max_len=max_len)
+            out = [logits]
+            for t in range(s0, s0 + 10):             # past position 4096
+                out.append(model.decode_step(state, toks[:, t:t + 1])[0])
+            return torch.stack(out), state
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ring, state = decoded(SWA_W)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paths["qwen3-8b-swa"] = ops.launch_counts()
+    slots = state["caches"][0]["k"].shape[2]
+    if slots != SWA_W or int(state["pos"][0]) != s0 + 10:
+        raise AssertionError(f"not a ring: {slots} slots, pos "
+                             f"{int(state['pos'][0])}")
+    linear, lstate = decoded(4200)
+    if lstate["caches"][0]["k"].shape[2] != 4200:
+        raise AssertionError("the linear state is not 4200 slots")
+    floor, err = floor_and_err(lambda: decoded(SWA_W)[0], model, linear)
+    with plain_kernels(ops):
+        plain_err = max_err(ring, decoded(SWA_W)[0])
+    log(f"  qwen3-8b-swa ({SWA_CUT} layers) ring of {SWA_W} slots, prefill "
+        f"{s0} + 10 decode steps to position {s0 + 10} (wall {wall:.2f}s, "
+        f"launches {paths['qwen3-8b-swa']}): vs a linear cache of 4200 "
+        f"slots under the window max_abs_err={err:.3e}, vs the same ring "
+        f"on the plain kernels {plain_err:.3e}; the 1e-7 perturbation "
+        f"{floor:.3e}")
+    if not (err <= 10 * floor and plain_err <= 10 * floor
+            and torch.isfinite(ring).all()):
+        raise AssertionError(f"ring vs linear {err}, vs plain {plain_err}: "
+                             f"> 10 x {floor}")
+    with torch.inference_mode():
+        tok = toks[:, -1:].clone()
+        for _ in range(3):
+            model.decode_step(state, tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            model.decode_step(state, tok)
+        torch.cuda.synchronize()
+        ring_ms = (time.perf_counter() - t0) / 20 * 1e3
+    del state, lstate
+    prefill = lambda: model.prefill(toks, max_len=4200)[0]
+    with torch.inference_mode():
+        got = prefill()
+        pre_ms = wall_ms(prefill)
+    with plain_kernels(ops):
+        floor, err = floor_and_err(prefill, model, got)
+    log(f"  qwen3-8b-swa windowed prefill S=4200 > {SWA_W}: {pre_ms:.2f}ms; "
+        f"kernels vs plain max_abs_err={err:.3e}, the 1e-7 perturbation "
+        f"{floor:.3e}; a ring decode step (B=1, {SWA_CUT} layers) "
+        f"{ring_ms:.2f}ms eager")
+    if not (err <= 10 * floor and torch.isfinite(got).all()):
+        raise AssertionError(f"windowed prefill {err} > 10 x {floor}")
+    kern64, plain64 = attention_vs_float64(model, toks)
+    log(f"  qwen3-8b-swa attention of each of {SWA_CUT} layers at S=4200, "
+        f"window {SWA_W}, against float64 (the worst layer): kernel "
+        f"{kern64:.3e}, plain {plain64:.3e}")
+    if not kern64 <= 4 * plain64:
+        raise AssertionError(f"flash_attention {kern64} from float64, "
+                             f"> 4 x the plain version's {plain64}")
+    per_slot = 2 * full.num_layers * full.num_kv_heads * full.head_dim * 4
+    from repro_torch.models.model import LM
+    meta = LM(full, device="meta").init_decode_state(1, 524288)
+    ring_bytes = sum(t.numel() * 4 for c in meta["caches"]
+                     for t in c.values())
+    log(f"  qwen3-8b-swa at 524288 positions (36 layers, B=1, float32): the "
+        f"ring holds {ring_bytes / 1e9:.3f} GB ({SWA_W} slots); a linear "
+        f"cache would hold {per_slot * 524288 / 1e9:.1f} GB")
+    del model
+    empty_cache()
+
+    model = resolve("zamba2-1.2b", size="full", shape="long_500k",
+                    device="cuda", seed=0).model
+    toks = torch.as_tensor(rng.integers(4, model.cfg.vocab_size, (1, 4200)),
+                           dtype=torch.int32, device="cuda")
+    prefill = lambda: model.prefill(toks, max_len=4200)[0]
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = prefill()
+    paths["zamba2-1.2b-swa"] = ops.launch_counts()
+    with torch.inference_mode():
+        pre_ms = wall_ms(prefill)
+    with plain_kernels(ops):
+        floor, err = floor_and_err(prefill, model, got)
+    log(f"  zamba2-1.2b-swa windowed prefill B=1 S=4200 (window "
+        f"{model.cfg.sliding_window}, all 38 layer slots): {pre_ms:.2f}ms, "
+        f"launches {paths['zamba2-1.2b-swa']}; kernels vs plain "
+        f"max_abs_err={err:.3e}, the 1e-7 perturbation {floor:.3e}")
+    if not (err <= 10 * floor and torch.isfinite(got).all()):
+        raise AssertionError(f"zamba2-1.2b-swa prefill {err} > 10 x {floor}")
+    for name, needed in (("qwen3-8b-swa", ("flash_attention",
+                                           "flash_decode")),
+                         ("zamba2-1.2b-swa", ("flash_attention",
+                                              "ssd_scan"))):
+        for k in needed:
+            if paths[name][k] == 0:
+                raise AssertionError(f"{name} never launched {k}")
+    del model
+    empty_cache()
+    return paths
+
+
 # ---------------------------------------------------------- phases 9-10 --
 RAGGED = [128, 37, 64, 5, 100, 128, 1, 23]
 
@@ -2221,6 +2862,12 @@ def main() -> int:
         "deepseek-v3-671b at full width, cut in depth, through "
         "GenerationSession, CollaborativeEngine and continuous batching")
     paths.update(moe_phase(ops))
+
+    log("== phase 15: whisper-large-v3 at full width and depth through "
+        "GenerationSession(frames=); the long_500k variants (qwen3-8b-swa's "
+        "ring past position 4096, zamba2-1.2b-swa's windowed prefill)")
+    paths.update(whisper_phase(ops))
+    paths.update(swa_phase(ops))
 
     log("== phase 11: training the paper's three NMT models at full width")
     model, _ = nmt_training("marian", "en-zh", ops, 200, smi)

@@ -1,17 +1,19 @@
 """Architecture registry of the big-LM stack, with the smoke reductions.
 
 Port of ``repro/configs/__init__.py``.  ``get_config(name)`` returns the
-assigned configuration; ``smoke_config(name)`` the reduced same-family
-variant the CPU tests use, by the reference's exact rules (<=2 layers
-per group kind, d_model 256, vocab 512, narrower heads and states).
+assigned configuration; ``get_config(name, shape="long_500k")`` swaps in
+the documented long-decode variant where one exists (qwen3-8b and
+zamba2-1.2b: a 4096-token sliding window over a ring KV cache).
+``smoke_config(name)`` is the reduced same-family variant the CPU tests
+use, by the reference's exact rules (<=2 layers per group kind, d_model
+256, vocab 512, narrower heads and states, a sliding window capped at
+8, an encoder of 2 layers over 16 frames).
 
-The port carries nine of the ten assigned names: the two recurrent
-families (``rwkv6-3b``, ``zamba2-1.2b``), the dense GQA decoders
-(``qwen3-8b``, ``qwen3-32b``, ``deepseek-67b``, ``chameleon-34b``), the
-MoE decoders (``qwen3-moe-30b-a3b``, ``moonshot-v1-16b-a3b``) and
-``deepseek-v3-671b`` (MLA, MoE, MTP).  ``whisper-large-v3`` (the encoder
-and cross-attention) and the sliding-window long-decode variants (the
-ring cache) come in a later slice and raise ``NotImplementedError``.
+All ten assigned names: the two recurrent families (``rwkv6-3b``,
+``zamba2-1.2b``), whisper-large-v3 (encoder-decoder), the dense GQA
+decoders (``qwen3-8b``, ``qwen3-32b``, ``deepseek-67b``,
+``chameleon-34b``), the MoE decoders (``qwen3-moe-30b-a3b``,
+``moonshot-v1-16b-a3b``) and ``deepseek-v3-671b`` (MLA, MoE, MTP).
 """
 
 from __future__ import annotations
@@ -28,12 +30,14 @@ from repro_torch.configs import (
     qwen3_32b,
     qwen3_moe_30b_a3b,
     rwkv6_3b,
+    whisper_large_v3,
     zamba2_1p2b,
 )
-from repro_torch.models.config import MLAConfig, ModelConfig
+from repro_torch.models.config import EncoderConfig, MLAConfig, ModelConfig
 
 _MODULES = {
     "rwkv6-3b": rwkv6_3b,
+    "whisper-large-v3": whisper_large_v3,
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
     "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
     "zamba2-1.2b": zamba2_1p2b,
@@ -45,10 +49,7 @@ _MODULES = {
 }
 
 # every architecture the reference registry assigns, in its order
-ARCH_NAMES = ("rwkv6-3b", "whisper-large-v3", "moonshot-v1-16b-a3b",
-              "qwen3-moe-30b-a3b", "zamba2-1.2b", "qwen3-32b",
-              "deepseek-v3-671b", "deepseek-67b", "qwen3-8b", "chameleon-34b")
-PORTED = tuple(_MODULES)
+ARCH_NAMES = tuple(_MODULES)
 
 # The four assigned input shapes: name -> (seq_len, global_batch, kind)
 INPUT_SHAPES: Dict[str, Tuple[int, int, str]] = {
@@ -60,26 +61,19 @@ INPUT_SHAPES: Dict[str, Tuple[int, int, str]] = {
 
 
 def _module(name: str):
-    if name in _MODULES:
-        return _MODULES[name]
-    if name in ARCH_NAMES:
-        raise NotImplementedError(
-            f"{name!r} is not ported yet: the encoder and cross-attention "
-            "come in a later slice of the port (ported: "
-            f"{', '.join(PORTED)})")
-    raise KeyError(f"unknown architecture {name!r}; have {ARCH_NAMES}")
+    if name not in _MODULES:
+        raise KeyError(f"unknown architecture {name!r}; have {ARCH_NAMES}")
+    return _MODULES[name]
 
 
 def get_config(name: str, shape: Optional[str] = None) -> ModelConfig:
-    """The assigned configuration.  ``shape="long_500k"`` asks for the
-    sliding-window long-decode variant, which needs the ring cache of a
-    later slice."""
+    """The assigned configuration, or with ``shape="long_500k"`` its
+    sliding-window long-decode variant where the architecture has one."""
     mod = _module(name)
+    cfg = mod.CONFIG
     if shape == "long_500k" and hasattr(mod, "long_decode_variant"):
-        raise NotImplementedError(
-            "the long_500k sliding-window variant needs the ring KV cache, "
-            "not ported yet")
-    return mod.CONFIG.validate()
+        cfg = mod.long_decode_variant()
+    return cfg.validate()
 
 
 def smoke_config(name: str) -> ModelConfig:
@@ -125,4 +119,6 @@ def smoke_config(name: str) -> ModelConfig:
     if cfg.rwkv:
         kw["rwkv"] = dataclasses.replace(cfg.rwkv, head_dim=32,
                                          decay_lora=16)
+    if cfg.encoder:
+        kw["encoder"] = EncoderConfig(num_layers=2, max_frames=16)
     return dataclasses.replace(cfg, **kw).validate()

@@ -3,9 +3,9 @@
 36L, d_model=4096, 32 heads GQA kv=8 (head_dim 128), d_ff=12288,
 vocab 151936.  Port of ``repro/configs/qwen3_8b.py``.
 
-``long_decode_variant`` adds a 4096 sliding window (the ring KV cache);
-the port has no ring cache yet, so ``get_config(..., shape="long_500k")``
-raises ``NotImplementedError``.
+``long_decode_variant`` adds a 4096 sliding window (the ring KV cache),
+which makes the 500k decode shape allocatable:
+``get_config("qwen3-8b", shape="long_500k")``.
 """
 
 import dataclasses

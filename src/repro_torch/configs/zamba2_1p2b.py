@@ -5,9 +5,14 @@ intervals [arXiv:2411.15242].
 mamba2 = 32 mamba2 layers + 6 calls of the single shared transformer
 block (weights stored once).  d_model=2048, ssm_state=64, attention 32
 heads (kv=32, head_dim 64), shared-MLP d_ff=8192, vocab 32000.  Port of
-``repro/configs/zamba2_1p2b.py``; its sliding-window long-decode variant
-comes with the ring cache, not in this slice.
+``repro/configs/zamba2_1p2b.py``.
+
+The mamba2 state is O(1); for the 500k decode shape the shared attention
+runs with a 4096-token sliding window (the ring cache) — see
+``long_decode_variant``.
 """
+
+import dataclasses
 
 from repro_torch.models.config import LayerGroup, ModelConfig, SSMConfig
 
@@ -32,3 +37,9 @@ CONFIG = ModelConfig(
     supports_long_decode=True,
     citation="arXiv:2411.15242 (Zamba2)",
 )
+
+
+def long_decode_variant() -> ModelConfig:
+    """500k decode: the shared attention gets a 4096-token sliding window."""
+    return dataclasses.replace(CONFIG, sliding_window=4096,
+                               name=CONFIG.name + "-swa")

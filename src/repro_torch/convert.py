@@ -137,19 +137,21 @@ def lm_params_from_jax(tree, cfg) -> Dict[str, torch.Tensor]:
     stacked along a leading ``count`` axis (``jax.vmap`` over the layer
     inits); it is cut into one entry per layer, ``groups.<g>.<layer>.*``.
     ``shared_attn``, ``embed``, ``lm_head`` (absent with tied embeddings),
-    ``final_norm`` and deepseek-v3's ``mtp`` (``proj``, ``norm`` and one
-    unstacked ``block``) carry across as they are; qwen3's qk-norm scales
-    (``mixer.q_norm.g`` / ``mixer.k_norm.g``), the MoE leaves
+    ``final_norm``, whisper's ``encoder.final_norm`` and deepseek-v3's
+    ``mtp`` (``proj``, ``norm`` and one unstacked ``block``) carry across
+    as they are; whisper's encoder layers are stacked like a group and
+    become ``encoder.layers.<layer>.*``.  qwen3's qk-norm scales
+    (``mixer.q_norm.g`` / ``mixer.k_norm.g``), the cross-attention leaves
+    (``mixer.xq`` .. ``mixer.xo``, ``ln_x``), the MoE leaves
     (``ffn.router``, ``ffn.experts_*``, ``ffn.shared.*``) and the eight MLA
     leaves are per-layer leaves like any other.  Every tensor is used as
     given (float32), never redrawn.  Load the result with
     ``model.load_state_dict(...)``.
     """
     unknown = set(tree) - {"embed", "final_norm", "lm_head", "groups",
-                           "shared_attn", "mtp"}
+                           "shared_attn", "mtp", "encoder"}
     if unknown:
-        raise NotImplementedError(
-            f"parameters {sorted(unknown)} belong to layers not ported yet")
+        raise ValueError(f"unknown parameters {sorted(unknown)}")
     if len(tree["groups"]) != len(cfg.layer_plan):
         raise ValueError(f"{len(tree['groups'])} groups in the tree, "
                          f"{len(cfg.layer_plan)} in the config")
@@ -157,16 +159,23 @@ def lm_params_from_jax(tree, cfg) -> Dict[str, torch.Tensor]:
     for key in ("embed", "final_norm", "lm_head", "shared_attn", "mtp"):
         if key in tree:
             _flatten(key, tree[key], flat)
-    for gi, (g, gtree) in enumerate(zip(cfg.layer_plan, tree["groups"])):
+    stacks = [(f"groups.{gi}", g.count, gtree)
+              for gi, (g, gtree) in enumerate(zip(cfg.layer_plan,
+                                                  tree["groups"]))]
+    if "encoder" in tree:
+        _flatten("encoder.final_norm", tree["encoder"]["final_norm"], flat)
+        stacks.append(("encoder.layers", cfg.encoder.num_layers,
+                       tree["encoder"]["layers"]))
+    for prefix, count, stree in stacks:
         group: Dict[str, np.ndarray] = {}
-        _flatten("", gtree, group)
+        _flatten("", stree, group)
         for name, stacked in group.items():
-            if stacked.shape[0] != g.count:
-                raise ValueError(f"group {gi} leaf {name} stacks "
+            if stacked.shape[0] != count:
+                raise ValueError(f"{prefix} leaf {name} stacks "
                                  f"{stacked.shape[0]} layers, expected "
-                                 f"{g.count}")
-            for li in range(g.count):
-                flat[f"groups.{gi}.{li}.{name}"] = stacked[li]
+                                 f"{count}")
+            for li in range(count):
+                flat[f"{prefix}.{li}.{name}"] = stacked[li]
     return {name: _t(a) for name, a in flat.items()}
 
 
@@ -220,10 +229,14 @@ def _nmt_leaf(name: str) -> Leaf:
 
 def _lm_leaf(name: str) -> Leaf:
     """The LM's names are the reference's paths; ``groups.<g>.<layer>.*``
-    is layer ``layer`` of group ``g``'s stacked leaf."""
+    is layer ``layer`` of group ``g``'s stacked leaf, and
+    ``encoder.layers.<layer>.*`` layer ``layer`` of the encoder's."""
     parts = name.split(".")
     if parts[0] == "groups":
         return Leaf(("groups", int(parts[1])) + tuple(parts[3:]),
+                    layer=int(parts[2]))
+    if parts[:2] == ["encoder", "layers"]:
+        return Leaf(("encoder", "layers") + tuple(parts[3:]),
                     layer=int(parts[2]))
     return Leaf(tuple(parts))
 

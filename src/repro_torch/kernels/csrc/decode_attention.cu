@@ -11,6 +11,15 @@
 // no valid slot and averages over every slot, as the TPU kernel does;
 // callers clamp lengths to >= 1.
 //
+// One bound more than the TPU kernel: a sliding `window` (0 = none) also
+// masks the slots below lengths[b] - window, which with lengths = pos + 1
+// is the reference LM's linear-cache window mask `idx > pos - window`
+// (src/repro/models/layers/attention.py, attn_decode).  The window start is
+// computed here, from the lengths on the device: the split plan stays a
+// function of the shape alone.  A split wholly before the window start is
+// empty like a split past the prefix.  A row whose window lies wholly past
+// the cache has no valid slot and averages over every slot.
+//
 // Layout: q (B, H, D), caches (B, S, Hkv, D), all addressed through element
 // strides with the last dimension contiguous and rows 16-byte aligned.  The
 // Marian decoder keeps its caches as (B, T, H*D) with the heads folded in;
@@ -32,8 +41,9 @@
 //     (n_split, chunk) from B * Hkv and S alone (about two waves on 132
 //     SMs, >= 32 slots a split), never from `lengths`, which live on the
 //     device: the plan costs the host no sync and a captured CUDA graph
-//     stays right when lengths change.  A split wholly past lengths[b]
-//     writes an empty partial (l = 0) and exits.
+//     stays right when lengths change.  A split wholly past lengths[b], or
+//     wholly before the window start, writes an empty partial (m = -inf,
+//     l = 0) and exits.
 //   * Inside a block, warps take slots.  The lanes of a row split D into
 //     16-byte loads (a float32 row of 64 is 16 lanes x float4, a bf16 row 8
 //     lanes), so a warp reads 32 / lanes-per-row slots at once, four such
@@ -131,7 +141,7 @@ __global__ void __launch_bounds__(kThreads)
                               int64_t q_sb, int64_t q_sh, int64_t k_sb,
                               int64_t k_ss, int64_t k_sh, int64_t v_sb,
                               int64_t v_ss, int64_t v_sh, int64_t o_sb,
-                              int64_t o_sh, float scale) {
+                              int64_t o_sh, float scale, int window) {
   constexpr int EPL = Vec<T>::N;  // elements per lane (16 bytes)
   constexpr int LPR = D / EPL;    // lanes per cache row
   constexpr int SPW = 32 / LPR;   // slots a warp reads per step
@@ -149,10 +159,15 @@ __global__ void __launch_bounds__(kThreads)
   // let the combine kernel launch now; it waits for this grid to finish
   asm volatile("griddepcontrol.launch_dependents;\n" ::);
   const int len = lengths[b];
-  // With len >= 1 the slots at or past len carry zero weight and are not
-  // visited; with len <= 0 every slot is masked and all S are visited.
-  const int n_slots = len > 0 ? min(len, S) : S;
-  const int lo = split * chunk, hi = min(lo + chunk, n_slots);
+  // Valid slots are [w_lo, min(len, S)), w_lo = len - window with a window.
+  // With one valid slot or more the others carry zero weight and are not
+  // visited; with none (len <= 0, or the window past the cache) every slot
+  // is masked and all S are visited.
+  const int w_lo = window > 0 ? max(0, len - window) : 0;
+  const bool masked = len <= 0 || w_lo >= min(len, S);
+  const int n_slots = masked ? S : min(len, S);
+  const int lo = max(split * chunk, masked ? 0 : w_lo);
+  const int hi = min(split * chunk + chunk, n_slots);
   const int h0 = g * rep + hgrp * RB;       // first query head of the block
   const int nh = min(RB, rep - hgrp * RB);  // heads this block serves
 
@@ -210,8 +225,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int o = LPR / 2; o > 0; o >>= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, o);
-        // past the split: no weight at all; len <= 0: masked
-        s[u] = !ok[u] ? -INFINITY : (len > 0 ? dot * scale : kMasked);
+        // past the split: no weight at all; no valid slot: masked
+        s[u] = !ok[u] ? -INFINITY : (masked ? kMasked : dot * scale);
         mx = fmaxf(mx, s[u]);
       }
       const float alpha = expf(m[r] - mx);
@@ -346,6 +361,7 @@ struct Args {
   int B, S, Hkv, rep, n_split, chunk;
   int64_t q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh;
   float scale;
+  int window;
 };
 
 template <typename T, int D, int RB>
@@ -357,7 +373,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       static_cast<const T*>(a.v), a.lengths, static_cast<T*>(a.out),
       a.part_acc, a.part_ml, a.S, a.Hkv, a.rep, n_groups, a.n_split, a.chunk,
       a.q_sb, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb, a.v_ss, a.v_sh, a.o_sb,
-      a.o_sh, a.scale);
+      a.o_sh, a.scale, a.window);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.n_split == 1) return e;
   // programmatic dependent launch: the combine grid is scheduled while the
@@ -406,22 +422,24 @@ cudaError_t dispatch_d(int D, const Args& a, cudaStream_t stream) {
 
 // n_split and chunk come from the wrapper's plan (n_split * chunk >= S);
 // with n_split > 1, part_acc holds B*H*n_split*D floats and part_ml
-// B*H*n_split*2.  Head dims 16, 32, 64 and 128 are compiled.  dtype: 0 =
+// B*H*n_split*2.  `window` > 0 masks the slots below lengths[b] - window
+// (0: no window).  Head dims 16, 32, 64 and 128 are compiled.  dtype: 0 =
 // float32, 1 = bfloat16.  Returns the cudaError_t of the launches.
 extern "C" int repro_flash_decode(
     const void* q, const void* k, const void* v, const void* lengths,
     void* out, void* part_acc, void* part_ml, int B, int S, int H, int Hkv,
     int D, int n_split, int chunk, int64_t q_sb, int64_t q_sh, int64_t k_sb,
     int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
-    int64_t o_sb, int64_t o_sh, float scale, int dtype, void* stream) {
+    int64_t o_sb, int64_t o_sh, float scale, int window, int dtype,
+    void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || n_split <= 0 ||
-      chunk <= 0 || (int64_t)n_split * chunk < S ||
+      chunk <= 0 || (int64_t)n_split * chunk < S || window < 0 ||
       (n_split > 1 && (part_acc == nullptr || part_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, static_cast<const int*>(lengths), out,
                static_cast<float*>(part_acc), static_cast<float*>(part_ml),
                B, S, Hkv, H / Hkv, n_split, chunk, q_sb, q_sh, k_sb, k_ss,
-               k_sh, v_sb, v_ss, v_sh, o_sb, o_sh, scale};
+               k_sh, v_sb, v_ss, v_sh, o_sb, o_sh, scale, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch_d<float>(D, a, st);
   if (dtype == 1) return (int)dispatch_d<__nv_bfloat16>(D, a, st);

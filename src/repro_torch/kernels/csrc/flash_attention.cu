@@ -13,6 +13,12 @@
 // callers clamp lengths to >= 1.  Ragged S and T need no padding: the kernel
 // masks the tails itself.
 //
+// One bound more than the TPU kernel: a sliding `window` (0 = none, causal
+// only) also masks keys at or below q_pos - window, the mask the reference
+// LM's windowed attention applies (src/repro/models/layers/attention.py,
+// blocked_sdpa), so the port's windowed prefill runs here too.  Key tiles
+// wholly below every row's window are not visited.
+//
 // Layout: q (B, S, H, D), k/v (B, T, Hkv, D), out (B, S, H, D), addressed
 // through element strides with the last dimension contiguous and every
 // row 16-byte aligned.  GQA: a block serves one kv head; its query rows are
@@ -47,6 +53,9 @@
 //     step reads its k index t as key 2t and t+4 as key 2t+1 and loads V's
 //     rows in the same order, which sums the same products.  The same
 //     relabelling of the head dim lets Q and K fragments load as float2.
+//     A tile's P.V products sum in fresh accumulators that are added to O
+//     in float32: the tensor core's own addition into a running O would
+//     lose accuracy with every tile (an error growing with the keys).
 //   * K/V tiles are double-buffered in shared memory and filled with 16-byte
 //     cp.async.cg (zero-filled past T) while the previous tile computes.
 //     Rows are padded (K: D + 8, V: D + 4 floats; bf16: D + 8) so fragment
@@ -67,7 +76,8 @@
 // from shared memory) and TMA with mbarriers in place of cp.async, warp
 // specialisation (a producer warp), splitting each K/V tile into TF32
 // hi/lo once per block instead of once per warp (float32 at S = 2048 runs
-// at ~4.3x its bound, 181 registers, 2 blocks per SM), and splitting K
+// at ~3.5x its bound), registers at D = 128 in float32 (the 64-row tile
+// spills ~900 bytes beside the fresh P.V accumulators), and splitting K
 // across blocks for very long keys at small B * H.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -158,7 +168,7 @@ __global__ void __launch_bounds__(kThreads)
                            int64_t k_sb, int64_t k_ss, int64_t k_sh,
                            int64_t v_sb, int64_t v_ss, int64_t v_sh,
                            int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                           float scale, int causal) {
+                           float scale, int causal, int window) {
   using G = Tile<T, D>;
   constexpr int BK = G::BK, KST = G::KST, VST = G::VST, DT = G::DT;
   constexpr int KW = kWarps * 16 / BQ;  // key groups per row group
@@ -240,17 +250,22 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[c][e] = 0.f;
 
-  // Keys [0, kv_end) are visited.  With len >= 1 every row has key 0 valid,
-  // so keys past the prefix (and, causal, past the block's last position)
-  // get weight exactly 0 and are skipped; with len <= 0 all T are visited.
+  // Keys [kv_begin, kv_end) are visited.  When every row of the block has a
+  // valid key, keys past the prefix (and, causal, past the block's last
+  // position, or below its first position's window) get weight exactly 0
+  // and are skipped.  A row with no valid key (len <= 0, or a window wholly
+  // past the prefix) averages over every key, so then all T are visited.
+  const int win = causal ? window : 0;   // the window bounds causal rows only
   const int kv_valid = len > 0 ? min(len, T_len) : 0;
-  int kv_end = T_len;
-  if (len > 0) {
-    kv_end = kv_valid;
-    if (causal) {
-      const int last_pos = (min(row0 + BQ, rows) - 1) / rep;
-      kv_end = min(kv_end, last_pos + 1);
-    }
+  const int block_first_pos = row0 / rep;
+  const int block_last_pos = (min(row0 + BQ, rows) - 1) / rep;
+  // the last row's window starts past every valid key: some row is empty
+  const bool all_rows_live =
+      len > 0 && (win <= 0 || block_last_pos - win + 1 < kv_valid);
+  int kv_begin = 0, kv_end = T_len;
+  if (all_rows_live) {
+    kv_end = causal ? min(kv_valid, block_last_pos + 1) : kv_valid;
+    if (win > 0) kv_begin = max(0, block_first_pos - win + 1);
   }
   const bool warp_live = wrow0 < rows;
   const int warp_first_pos = min(wrow0, rows - 1) / rep;
@@ -271,10 +286,11 @@ __global__ void __launch_bounds__(kThreads)
     }
   };
 
+  const int it0 = kv_begin / BK;
   const int n_tiles = (kv_end + BK - 1) / BK;
-  if (n_tiles > 0) load_tile(0, 0);
+  if (it0 < n_tiles) load_tile(it0 & 1, it0 * BK);
   cp_async_commit();
-  for (int it = 0; it < n_tiles; ++it) {
+  for (int it = it0; it < n_tiles; ++it) {
     const int t0 = it * BK;
     if (it + 1 < n_tiles) {
       load_tile((it + 1) & 1, t0 + BK);
@@ -285,13 +301,16 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();  // tile `it` visible to every warp
 
-    // this warp's keys of the tile: [k0, k0 + BKW).  With len >= 1, keys
-    // past the prefix, or (causal) past every row of the warp, get weight
-    // exactly 0, so a warp whose keys all lie there skips the tile
+    // this warp's keys of the tile: [k0, k0 + BKW).  When every row has a
+    // valid key, keys past the prefix, (causal) past every row of the warp
+    // or below every row's window get weight exactly 0, so a warp whose
+    // keys all lie there skips the tile
     const int k0 = t0 + kg * BKW;
-    const bool skip = !warp_live ||
-                      (len > 0 && (k0 >= kv_valid ||
-                                   (causal && k0 > warp_last_pos)));
+    const bool skip =
+        !warp_live ||
+        (all_rows_live &&
+         (k0 >= kv_valid || (causal && k0 > warp_last_pos) ||
+          (win > 0 && k0 + BKW - 1 <= warp_first_pos - win)));
     if (!skip) {
       const T* ks = stage[it & 1][0] + kg * BKW * KST;
       const T* vs = stage[it & 1][1] + kg * BKW * VST;
@@ -333,8 +352,9 @@ __global__ void __launch_bounds__(kThreads)
       }
 
       // scale to base 2, mask where the keys straddle a boundary
-      const bool edge = len <= 0 || k0 + BKW > kv_valid ||
-                        (causal && k0 + BKW - 1 > warp_first_pos);
+      const bool edge = !all_rows_live || k0 + BKW > kv_valid ||
+                        (causal && k0 + BKW - 1 > warp_first_pos) ||
+                        (win > 0 && k0 <= warp_last_pos - win);
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -344,7 +364,8 @@ __global__ void __launch_bounds__(kThreads)
             const int key = k0 + n * 8 + 2 * tq + (e & 1);
             if (key >= T_len)
               s = -INFINITY;  // past the keys: no weight at all
-            else if (key >= len || (causal && key > qpos[e >> 1]))
+            else if (key >= len || (causal && key > qpos[e >> 1]) ||
+                     (win > 0 && key <= qpos[e >> 1] - win))
               s = kMasked;
           }
           sc[n][e] = s;
@@ -379,7 +400,18 @@ __global__ void __launch_bounds__(kThreads)
 
       // O += P V
       if constexpr (G::kF32) {
+        // The tile's product is summed in fresh accumulators and added to
+        // O with one float32 add per element.  Fed the running O as its C
+        // operand, the tensor core would round 3 * NT products into a sum
+        // that grows with every tile: an error that grows with the keys
+        // (1e-4 at 4200 keys of a qk-normed model, where a float32 einsum
+        // keeps 6e-6).
         const float* vf = reinterpret_cast<const float*>(vs);
+        float acc[DT][4];
+#pragma unroll
+        for (int c = 0; c < DT; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           // A column t <-> key 8j + 2t, t + 4 <-> key 8j + 2t + 1
@@ -393,9 +425,13 @@ __global__ void __launch_bounds__(kThreads)
             uint32_t bh[2], bl[2];
             split_tf32(v0[c * 8], bh[0], bl[0]);
             split_tf32(v0[VST + c * 8], bh[1], bl[1]);
-            mma_3xtf32(o[c], ah, al, bh, bl);
+            mma_3xtf32(acc[c], ah, al, bh, bl);
           }
         }
+#pragma unroll
+        for (int c = 0; c < DT; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[c][e] += acc[c][e];
       } else {
 #pragma unroll
         for (int j = 0; j < NT / 2; ++j) {
@@ -516,14 +552,14 @@ template <typename T, int D, int BQ>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* lengths, void* out, int B, int S, int T_len,
                    int Hkv, int rep, const int64_t* st, float scale,
-                   int causal, cudaStream_t stream) {
+                   int causal, int window, cudaStream_t stream) {
   const dim3 grid((S * rep + BQ - 1) / BQ, B * Hkv);
   flash_attention_kernel<T, D, BQ><<<grid, kThreads, Tile<T, D>::kSmem,
                                      stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(out), S, T_len, Hkv,
       rep, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], scale, causal);
+      st[9], st[10], st[11], scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -531,17 +567,18 @@ template <typename T, int D>
 cudaError_t dispatch_bq(int BQ, const void* q, const void* k, const void* v,
                         const int* lengths, void* out, int B, int S,
                         int T_len, int Hkv, int rep, const int64_t* st,
-                        float scale, int causal, cudaStream_t stream) {
+                        float scale, int causal, int window,
+                        cudaStream_t stream) {
   switch (BQ) {
     case 16:
       return launch<T, D, 16>(q, k, v, lengths, out, B, S, T_len, Hkv, rep,
-                              st, scale, causal, stream);
+                              st, scale, causal, window, stream);
     case 32:
       return launch<T, D, 32>(q, k, v, lengths, out, B, S, T_len, Hkv, rep,
-                              st, scale, causal, stream);
+                              st, scale, causal, window, stream);
     case 64:
       return launch<T, D, 64>(q, k, v, lengths, out, B, S, T_len, Hkv, rep,
-                              st, scale, causal, stream);
+                              st, scale, causal, window, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -551,20 +588,21 @@ template <typename T>
 cudaError_t dispatch_d(int D, int BQ, const void* q, const void* k,
                        const void* v, const int* lengths, void* out, int B,
                        int S, int T_len, int Hkv, int rep, const int64_t* st,
-                       float scale, int causal, cudaStream_t stream) {
+                       float scale, int causal, int window,
+                       cudaStream_t stream) {
   switch (D) {
     case 16:
       return dispatch_bq<T, 16>(BQ, q, k, v, lengths, out, B, S, T_len, Hkv,
-                                rep, st, scale, causal, stream);
+                                rep, st, scale, causal, window, stream);
     case 32:
       return dispatch_bq<T, 32>(BQ, q, k, v, lengths, out, B, S, T_len, Hkv,
-                                rep, st, scale, causal, stream);
+                                rep, st, scale, causal, window, stream);
     case 64:
       return dispatch_bq<T, 64>(BQ, q, k, v, lengths, out, B, S, T_len, Hkv,
-                                rep, st, scale, causal, stream);
+                                rep, st, scale, causal, window, stream);
     case 128:
       return dispatch_bq<T, 128>(BQ, q, k, v, lengths, out, B, S, T_len, Hkv,
-                                 rep, st, scale, causal, stream);
+                                 rep, st, scale, causal, window, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -573,22 +611,25 @@ cudaError_t dispatch_d(int D, int BQ, const void* q, const void* k,
 }  // namespace
 
 // Strides are in elements, ordered q (batch, seq, head), k (...), v (...),
-// out (...).  `lengths` may be null (every key valid).  block_q is the query
-// rows per block (16, 32 or 64; chosen by the Python wrapper).  dtype: 0 =
-// float32, 1 = bfloat16.  Head dims 16, 32, 64 and 128 are compiled.
+// out (...).  `lengths` may be null (every key valid).  `window` > 0 masks
+// keys at or below q_pos - window when causal (0: no window).  block_q is
+// the query rows per block (16, 32 or 64; chosen by the Python wrapper).
+// dtype: 0 = float32, 1 = bfloat16.  Head dims 16, 32, 64 and 128 are
+// compiled.
 // Returns the cudaError_t of the launch.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, const void* lengths,
     void* out, int B, int S, int T_len, int H, int Hkv, int D, int block_q,
     int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
     int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,
-    int64_t o_ss, int64_t o_sh, float scale, int causal, int dtype,
-    void* stream) {
+    int64_t o_ss, int64_t o_sh, float scale, int causal, int window,
+    int dtype, void* stream) {
   // first call, whatever its shape: every instantiation's limit, outside
   // any graph capture that later replays a launch of another shape
   static const cudaError_t smem_ready = raise_all();
   if (smem_ready != cudaSuccess) return (int)smem_ready;
-  if (B <= 0 || S <= 0 || T_len <= 0 || Hkv <= 0 || H % Hkv != 0)
+  if (B <= 0 || S <= 0 || T_len <= 0 || Hkv <= 0 || H % Hkv != 0 ||
+      window < 0)
     return (int)cudaErrorInvalidValue;
   const int rep = H / Hkv;
   const int64_t st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
@@ -598,10 +639,11 @@ extern "C" int repro_flash_attention(
   cudaError_t e;
   if (dtype == 0)
     e = dispatch_d<float>(D, block_q, q, k, v, lens, out, B, S, T_len, Hkv,
-                          rep, st, scale, causal, s);
+                          rep, st, scale, causal, window, s);
   else if (dtype == 1)
     e = dispatch_d<__nv_bfloat16>(D, block_q, q, k, v, lens, out, B, S,
-                                  T_len, Hkv, rep, st, scale, causal, s);
+                                  T_len, Hkv, rep, st, scale, causal, window,
+                                  s);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

@@ -12,8 +12,12 @@ Semantics, shared by the kernel and :func:`flash_decode_plain`: one query
 token per sequence, q (B,H,D), against caches (B,S,Hkv,D) over the valid
 prefix ``slot < lengths[b]``; softmax in float32; the output is
 ``acc / max(l, 1e-30)`` in q's dtype (float32 or bfloat16).  Masked
-scores are -1e30, so a row with length <= 0 averages over every slot, as
-the TPU kernel does; callers clamp lengths to >= 1.
+scores are -1e30, so a row with no valid slot (length <= 0) averages
+over every slot, as the TPU kernel does; callers clamp lengths to >= 1.
+``window`` (None or 0 means none) also masks the slots below ``lengths -
+window``: with ``lengths = pos + 1`` the reference LM's linear-cache
+window ``idx > pos - window``, which the TPU kernel does not take (the
+reference computes windowed decode in jnp; the port's LM runs it here).
 
 The caches may be strided views: the Marian decoder passes its folded
 (B,T,H*D) buffers as ``view(B,T,H,D)``, and the kernel reads them through
@@ -34,6 +38,7 @@ from repro_torch.kernels.flash_attention import (
     SMS,
     _check_operands,
     _lengths_i32,
+    _window,
 )
 
 NEG_INF = -1e30
@@ -72,23 +77,29 @@ def combine_splits_plain(m, l, acc):
     return (acc * w[..., None]).sum(-2) / total.clamp_min(1e-30)[..., None]
 
 
-def flash_decode_plain(q, k_cache, v_cache, lengths, *, scale=None):
+def flash_decode_plain(q, k_cache, v_cache, lengths, *, scale=None,
+                       window: int | None = None):
     """Plain PyTorch version of the kernel (materialized scores)."""
+    window = _window(window, True)
     b, h, d = q.shape
     t, hkv = k_cache.shape[1], k_cache.shape[2]
     rep = h // hkv
     scale = scale if scale is not None else d ** -0.5
     qg = q.reshape(b, hkv, rep, d).float()
     scores = torch.einsum("bgrd,btgd->bgrt", qg, k_cache.float()) * scale
-    valid = (torch.arange(t, device=q.device)[None, :]
-             < lengths.to(q.device)[:, None])
+    lens = lengths.to(q.device)[:, None]
+    slot = torch.arange(t, device=q.device)[None, :]
+    valid = slot < lens
+    if window:
+        valid = valid & (slot >= lens - window)
     scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrt,btgd->bgrd", w, v_cache.float())
     return out.reshape(b, h, d).to(q.dtype)
 
 
-def flash_decode_cuda(q, k_cache, v_cache, lengths, *, scale=None):
+def flash_decode_cuda(q, k_cache, v_cache, lengths, *, scale=None,
+                      window: int | None = None):
     """Launch ``csrc/decode_attention.cu`` on PyTorch's current stream.
 
     Takes CUDA tensors only and raises on anything the kernel does not
@@ -111,6 +122,7 @@ def flash_decode_cuda(q, k_cache, v_cache, lengths, *, scale=None):
         raise ValueError(f"{h} query heads are not a multiple of {hkv}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not compiled; have {HEAD_DIMS}")
+    window = _window(window, True)
     lens = _lengths_i32(lengths, b, q.device)
     scale = scale if scale is not None else d ** -0.5
     n_split, chunk = decode_splits(b, hkv, s)
@@ -130,7 +142,7 @@ def flash_decode_cuda(q, k_cache, v_cache, lengths, *, scale=None):
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lens.data_ptr(), out.data_ptr(), *parts, b, s, h, hkv, d, n_split,
         chunk, *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3],
-        *out.stride()[:2], ctypes.c_float(scale), _DTYPES[q.dtype],
+        *out.stride()[:2], ctypes.c_float(scale), window, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_decode")
     return out

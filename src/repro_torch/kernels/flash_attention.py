@@ -15,6 +15,10 @@ Semantics, shared by the kernel and :func:`flash_attention_plain`:
   (``repro_torch.kernels.ref.attention_ref`` instead aligns queries to the
   last S keys; the two agree when S == T, the only causal case Marian
   has).
+* ``window`` (causal only; None or 0 means none) adds ``k_pos > q_pos -
+  window``: the sliding window of the reference LM's ``blocked_sdpa``,
+  which the TPU kernel does not take (the reference computes windowed
+  attention in jnp; the port's LM runs it here).
 * Masked scores are -1e30, so a row with no valid key averages over all
   T keys, as the TPU kernel does.  Callers clamp lengths to >= 1.
 * Ragged S and T need no padding: the kernel masks its tails, so the JAX
@@ -46,9 +50,22 @@ def pick_block_q(rows: int, bh: int) -> int:
     return 16
 
 
+def _window(window, causal: bool) -> int:
+    """The kernels' window argument: 0 for none; a window needs causal."""
+    if not window:
+        return 0
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if not causal:
+        raise ValueError("a sliding window bounds causal attention only")
+    return int(window)
+
+
 def flash_attention_plain(q, k, v, lengths=None, *, causal: bool = True,
-                          scale: float | None = None):
+                          scale: float | None = None,
+                          window: int | None = None):
     """Plain PyTorch version of the kernel (materialized scores)."""
+    window = _window(window, causal)
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     rep = h // hkv
@@ -64,6 +81,8 @@ def flash_attention_plain(q, k, v, lengths=None, *, causal: bool = True,
     if causal:
         q_pos = torch.arange(s, device=q.device)
         mask = mask & (k_pos[None, :] <= q_pos[:, None])            # (B,1,1,S,T)
+        if window:
+            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
     scores = scores.masked_fill(~mask, NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrst,btgd->bsgrd", w, v.float())
@@ -97,7 +116,8 @@ def _lengths_i32(lengths, b, device):
 
 def flash_attention_cuda(q, k, v, lengths=None, *, causal: bool = True,
                          scale: float | None = None,
-                         block_q: int | None = None):
+                         block_q: int | None = None,
+                         window: int | None = None):
     """Launch ``csrc/flash_attention.cu`` on PyTorch's current stream.
 
     Takes CUDA tensors only and raises on anything the kernel does not
@@ -124,6 +144,7 @@ def flash_attention_cuda(q, k, v, lengths=None, *, causal: bool = True,
         block_q = pick_block_q(s * (h // hkv), b * hkv)
     elif block_q not in BLOCK_Q:
         raise ValueError(f"block_q {block_q} not in {BLOCK_Q}")
+    window = _window(window, causal)
     lens = _lengths_i32(lengths, b, q.device)
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -133,7 +154,7 @@ def flash_attention_cuda(q, k, v, lengths=None, *, causal: bool = True,
         None if lens is None else lens.data_ptr(), out.data_ptr(),
         b, s, t, h, hkv, d, block_q,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        ctypes.c_float(scale), int(causal), _DTYPES[q.dtype],
+        ctypes.c_float(scale), int(causal), window, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention")
     return out

@@ -59,25 +59,29 @@ def _refuse_autograd(name: str, *tensors) -> None:
 
 
 def flash_attention(q, k, v, lengths=None, *, causal: bool = True,
-                    scale: float | None = None):
-    """q (B,S,H,D); k/v (B,T,Hkv,D); lengths (B,) or None -> (B,S,H,D)."""
+                    scale: float | None = None, window: int | None = None):
+    """q (B,S,H,D); k/v (B,T,Hkv,D); lengths (B,) or None -> (B,S,H,D).
+    ``window`` (causal only) masks keys at or below q_pos - window."""
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, lengths, causal=causal,
-                                         scale=scale)
+                                         scale=scale, window=window)
     _refuse_autograd("flash_attention", q, k, v)
     out = _fa.flash_attention_cuda(q, k, v, lengths, causal=causal,
-                                   scale=scale)
+                                   scale=scale, window=window)
     flash_attention.launches += 1
     return out
 
 
-def flash_decode(q, k_cache, v_cache, lengths, *, scale=None):
-    """q (B,H,D); caches (B,S,Hkv,D); lengths (B,) -> (B,H,D)."""
+def flash_decode(q, k_cache, v_cache, lengths, *, scale=None,
+                 window: int | None = None):
+    """q (B,H,D); caches (B,S,Hkv,D); lengths (B,) -> (B,H,D).
+    ``window`` masks the slots below lengths - window."""
     if q.device.type == "cpu":
         return _da.flash_decode_plain(q, k_cache, v_cache, lengths,
-                                      scale=scale)
+                                      scale=scale, window=window)
     _refuse_autograd("flash_decode", q, k_cache, v_cache)
-    out = _da.flash_decode_cuda(q, k_cache, v_cache, lengths, scale=scale)
+    out = _da.flash_decode_cuda(q, k_cache, v_cache, lengths, scale=scale,
+                                window=window)
     flash_decode.launches += 1
     return out
 

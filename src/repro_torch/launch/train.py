@@ -3,11 +3,12 @@
     python -m repro_torch.launch.train --arch zamba2-1.2b --smoke \\
         --device cpu --steps 20
 
-Port of ``repro/launch/train.py`` for the nine architectures the port
-has (``--smoke`` for the reduced same-family configuration);
-whisper-large-v3 waits for the encoder.  On the card it refuses a
-full-width configuration whose float32 parameters, gradients and two
-AdamW moments (16 bytes a parameter) exceed the card's memory:
+Port of ``repro/launch/train.py`` for the nine decoder-only
+architectures (``--smoke`` for the reduced same-family configuration).
+whisper-large-v3 is refused: its loss needs frames, and the reference's
+launcher (like this one) feeds a token stream only.  On the card it
+refuses a full-width configuration whose float32 parameters, gradients
+and two AdamW moments (16 bytes a parameter) exceed the card's memory:
 qwen3-8b's take ≈131 GB, and every larger model's more.  The loss is
 ``lm_loss``'s: cross entropy, the MoE load-balance term and, for
 deepseek-v3-671b, the MTP cross entropy.  Weights
@@ -26,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import PORTED, get_config
+from repro_torch.configs import get_config
 from repro_torch.data.pipeline import lm_batches
 from repro_torch.device import resolve_device
 from repro_torch.models.model import LM
@@ -72,10 +73,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     arch = args.arch.replace("_", "-")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"LM training for {arch!r} waits for its model family in the "
-            f"port (ROADMAP A.5); trainable now: {', '.join(PORTED)}")
+    if get_config(arch).is_encoder_decoder:
+        raise ValueError(
+            f"{arch!r} is an encoder-decoder: its loss needs frames, and "
+            "this launcher, like the reference's repro.launch.train, feeds "
+            "a token stream only (train it through training.lm_loss with "
+            "batch['frames'])")
     dev = resolve_device(args.device)
     if not args.smoke and dev.type == "cuda":
         check_fits(arch, torch.cuda.get_device_properties(dev).total_memory)

@@ -10,9 +10,8 @@ Mixer kinds : "attn", "mla", "mamba2", "rwkv6", "shared_attn".
 FFN kinds   : "dense" (SwiGLU), "moe" (top-k routed + shared experts),
               "rwkv_cm" (RWKV channel mix), "none".
 
-The port's :class:`repro_torch.models.model.LM` builds every group kind
-but cross-attention; ``EncoderConfig`` is carried as plain data so every
-configuration loads, and the LM raises ``NotImplementedError`` on it.
+The port's :class:`repro_torch.models.model.LM` builds every group kind,
+cross-attention behind an ``EncoderConfig``'s encoder included.
 """
 
 from __future__ import annotations

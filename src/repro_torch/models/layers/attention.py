@@ -1,6 +1,7 @@
-"""Attention mixers of the big-LM stack: grouped-query attention and
-DeepSeek's multi-head latent attention (MLA), each full-sequence and
-one-token decode against a preallocated cache.
+"""Attention mixers of the big-LM stack: grouped-query attention (with a
+sliding window, a ring cache and cross-attention) and DeepSeek's
+multi-head latent attention (MLA), each full-sequence and one-token
+decode against a preallocated cache.
 
 Port of the GQA and MLA parts of ``repro/models/layers/attention.py``.
 GQA, qk-norm included: with ``cfg.qk_norm`` (qwen3) q and k take an RMS norm over the
@@ -21,6 +22,24 @@ capacity writes nothing and attends to every slot, as the reference's
 one-hot write and mask do (a free slot of a continuous slot table keeps
 stepping past ``max_len``).
 
+Sliding windows (the long-decode variants) go through the same two
+kernels, which take a ``window`` bound: prefill masks keys at or below
+``q_pos - window``, a linear cache the slots below ``pos + 1 - window``.
+A ring cache (``ring=True``, capacity == window) holds the last
+``S_max`` tokens: the write slot is ``pos % S_max`` (never dropped) and
+``flash_decode`` reads ``lengths = min(pos + 1, S_max)``, which is the
+reference's ring mask ``idx <= pos or pos >= S_max``.
+
+Cross-attention (whisper's decoder): ``xq``/``xk``/``xv``/``xo`` project
+the decoder's queries and the encoder's keys and values, with no RoPE
+and no qk-norm.  The reference masks frames with any ``(B, T)`` mask;
+the kernels take key-prefix lengths, so :func:`mask_lengths` turns a
+prefix mask into lengths and raises ``ValueError`` on any other mask.
+Prefill runs ``flash_attention(causal=False, lengths=)`` (S tokens
+against T frames), decode ``flash_decode(lengths=)``.  A row with no
+valid frame averages over all T frames in both, as the reference's
+finite mask value gives.
+
 MLA (:class:`MLA`, :func:`mla_full`, :func:`mla_decode`) has no kernel,
 in the reference or here: its q/k head dim (``nope + rope``, 192 at
 deepseek-v3's width) differs from its v head dim (128), which the
@@ -31,8 +50,6 @@ through ``k_up``, scores against the cached latent, the weighted latent
 expanded through ``v_up``).  The cache is the compressed latent ``(c_kv,
 k_pe)``; a decode write at ``pos >= S_max`` is dropped, as GQA's.
 
-Sliding windows (the ring cache) and cross-attention are not ported yet
-and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -56,18 +73,14 @@ from repro_torch.models.layers.basic import (
 NEG_INF = -0.7 * torch.finfo(torch.float32).max   # the reference's mask value
 
 
-def check_supported(cfg: ModelConfig, cross: bool = False) -> None:
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            "sliding-window attention (the ring cache) is not ported yet")
-    if cross:
-        raise NotImplementedError("cross-attention is not ported yet")
-
-
 class GQA(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device, generator):
+    """Leaves ``q``, ``k``, ``v``, ``o`` (and ``q_norm``/``k_norm`` with
+    qk-norm); with ``cross`` also the cross-attention leaves ``xq``,
+    ``xk``, ``xv``, ``xo``: the reference's ``gqa_params(cross=)``."""
+
+    def __init__(self, cfg: ModelConfig, *, cross: bool = False, device,
+                 generator):
         super().__init__()
-        check_supported(cfg)
         d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
             cfg.head_dim
         mk = lambda a, b: Linear(a, b, device=device, generator=generator)
@@ -76,6 +89,9 @@ class GQA(nn.Module):
         if cfg.qk_norm:
             self.q_norm = RMSNorm(dh, device=device)
             self.k_norm = RMSNorm(dh, device=device)
+        if cross:
+            self.xq, self.xk = mk(d, h * dh), mk(d, hkv * dh)
+            self.xv, self.xo = mk(d, hkv * dh), mk(h * dh, d)
 
 
 def _qkv(p: GQA, cfg: ModelConfig, x, positions):
@@ -92,19 +108,66 @@ def _qkv(p: GQA, cfg: ModelConfig, x, positions):
 
 
 def attn_full(p: GQA, cfg: ModelConfig, x, *, window: Optional[int] = None,
-              kernels: bool = True):
-    """Causal self-attention over a full sequence: through the kernel
+              causal: bool = True, kernels: bool = True):
+    """Self-attention over a full sequence at positions 0..S-1 (RoPE on
+    q and k): causal, with an optional sliding ``window``, or
+    bidirectional (``causal=False``, the encoder), through the kernel
     (prefill) or, with ``kernels=False``, the differentiable training
     path.  Returns (y (B,S,D), (k, v)) with k/v (B,S,Hkv,Dh), k after
     RoPE."""
-    if window is not None:
-        raise NotImplementedError("sliding-window attention is not ported")
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     q, k, v = _qkv(p, cfg, x, positions)
     attend = ops.flash_attention if kernels else flash_attention_plain
-    y = attend(q, k, v, causal=True)
+    y = attend(q, k, v, causal=causal, window=window)
     return p.o(y.reshape(b, s, -1)), (k, v)
+
+
+def mask_lengths(mask, *, check: bool = True):
+    """The key-prefix lengths (B,) int32 of a (B, T) frame mask (nonzero =
+    valid).  The kernels take prefix lengths only, so with ``check`` a
+    mask that is not a prefix (a valid frame after an invalid one) raises
+    ``ValueError`` (one read of the device)."""
+    valid = mask > 0
+    lengths = valid.sum(-1, dtype=torch.int32)
+    if check:
+        prefix = (torch.arange(mask.shape[-1], device=mask.device)[None, :]
+                  < lengths[:, None])
+        if not torch.equal(valid, prefix):
+            raise ValueError(
+                "the attention kernels take key-prefix lengths: a frame "
+                "mask must be ones then zeros in every row")
+    return lengths
+
+
+def encode_cross_kv(p: GQA, cfg: ModelConfig, enc_out):
+    """The cross-attention keys and values (B,T,Hkv,Dh) of the encoder's
+    output (no RoPE)."""
+    b, t, _ = enc_out.shape
+    hkv, dh = cfg.num_kv_heads, cfg.head_dim
+    return p.xk(enc_out).view(b, t, hkv, dh), p.xv(enc_out).view(b, t, hkv,
+                                                                 dh)
+
+
+def cross_attn(p: GQA, cfg: ModelConfig, x, enc_k, enc_v, enc_lengths, *,
+               kernels: bool = True):
+    """Decoder -> encoder attention over a full sequence: x (B,S,D) against
+    enc_k/v (B,T,Hkv,Dh), frames ``< enc_lengths`` (B,) valid, not
+    causal.  Returns (B,S,D)."""
+    b, s, _ = x.shape
+    q = p.xq(x).view(b, s, cfg.num_heads, cfg.head_dim)
+    attend = ops.flash_attention if kernels else flash_attention_plain
+    y = attend(q, enc_k, enc_v, enc_lengths, causal=False)
+    return p.xo(y.reshape(b, s, -1))
+
+
+def cross_decode(p: GQA, cfg: ModelConfig, x, enc_k, enc_v, enc_lengths):
+    """Cross-attention of one token per sequence: x (B,1,D) against the
+    state's enc_k/v (B,T,Hkv,Dh).  Returns (B,1,D)."""
+    b = x.shape[0]
+    q = p.xq(x).view(b, cfg.num_heads, cfg.head_dim)
+    y = ops.flash_decode(q, enc_k, enc_v, enc_lengths)
+    return p.xo(y.reshape(b, 1, -1))
 
 
 def _write_slot(cache, new, pos) -> None:
@@ -119,19 +182,36 @@ def _write_slot(cache, new, pos) -> None:
     cache[rows, idx] = torch.where(fits, new, cache[rows, idx])
 
 
-def attn_decode(p: GQA, cfg: ModelConfig, x, cache_k, cache_v, pos):
+def attn_decode(p: GQA, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
+                window: Optional[int] = None, ring: bool = False):
     """One token per sequence against the cache.  x (B,1,D); cache_k/v
-    (B,S_max,Hkv,Dh), written in place at slot ``pos`` (B,), the absolute
-    position that also drives RoPE.  A row with ``pos >= S_max`` leaves
-    its cache as it was (the reference's one-hot write is all zeros
-    there): its write index is clamped to the last slot and that slot
-    written back unchanged, so only the B written rows are read."""
-    b = x.shape[0]
+    (B,S_max,Hkv,Dh), written in place; ``pos`` (B,) is the absolute
+    position that also drives RoPE.  Two cache disciplines, as the
+    reference's:
+
+    * linear (``ring=False``): slot == position, ``lengths = pos + 1``
+      and an optional sliding ``window`` (slots at or below ``pos -
+      window`` masked).  A row with ``pos >= S_max`` leaves its cache as
+      it was (the reference's one-hot write is all zeros there): its
+      write index is clamped to the last slot and that slot written back
+      unchanged, so only the B written rows are read;
+    * ring (``ring=True``): the cache holds the last ``S_max`` tokens, the
+      write slot is ``pos % S_max`` and ``lengths = min(pos + 1,
+      S_max)``: every slot is valid once ``pos >= S_max``."""
+    b, s_max = x.shape[0], cache_k.shape[1]
     q, k, v = _qkv(p, cfg, x, pos[:, None])
-    _write_slot(cache_k, k[:, 0], pos)
-    _write_slot(cache_v, v[:, 0], pos)
-    y = ops.flash_decode(q[:, 0], cache_k, cache_v,
-                         (pos + 1).to(torch.int32))
+    if ring:
+        rows = torch.arange(b, device=x.device)
+        slot = pos.long() % s_max
+        cache_k[rows, slot] = k[:, 0]
+        cache_v[rows, slot] = v[:, 0]
+        lengths = torch.clamp(pos + 1, max=s_max).to(torch.int32)
+        window = None
+    else:
+        _write_slot(cache_k, k[:, 0], pos)
+        _write_slot(cache_v, v[:, 0], pos)
+        lengths = (pos + 1).to(torch.int32)
+    y = ops.flash_decode(q[:, 0], cache_k, cache_v, lengths, window=window)
     return p.o(y.reshape(b, 1, -1))
 
 

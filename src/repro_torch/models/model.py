@@ -1,14 +1,16 @@
 """The composable LM: layer groups assembled into prefill and decode paths.
 
-Port of ``repro/models/model.py`` for the groups the port carries:
-``rwkv6/rwkv_cm`` (rwkv6-3b), ``mamba2/none`` and ``shared_attn/dense``
-(zamba2-1.2b), ``attn/dense`` with or without qk-norm (qwen3-8b,
-qwen3-32b, deepseek-67b, chameleon-34b), ``attn/moe``
+Port of ``repro/models/model.py`` for every group kind: ``rwkv6/rwkv_cm``
+(rwkv6-3b), ``mamba2/none`` and ``shared_attn/dense`` (zamba2-1.2b),
+``attn/dense`` with or without qk-norm (qwen3-8b, qwen3-32b,
+deepseek-67b, chameleon-34b), ``attn/dense`` with cross-attention behind
+a bidirectional encoder (whisper-large-v3), ``attn/moe``
 (qwen3-moe-30b-a3b, and moonshot-v1-16b-a3b after its dense first
 layer) and ``mla/dense`` + ``mla/moe`` (deepseek-v3-671b), with
 deepseek-v3's multi-token-prediction block (``mtp``) and tied
-embeddings.  Sliding-window, cross-attention and encoder configurations
-raise ``NotImplementedError``.
+embeddings.  A configuration's ``sliding_window`` (the long-decode
+variants of qwen3-8b and zamba2-1.2b) bounds every attention and
+shared-attention group.
 
 Structure follows the reference's parameter tree, so the converter maps
 it name for name: ``groups[gi][li]`` is layer ``li`` of group ``gi`` (one
@@ -34,10 +36,24 @@ Entry points:
   ``flash_attention``.
 * ``decode_step(state, tokens)`` — one token per sequence; updates the
   state's caches and ``pos`` in place and returns ``(logits, state)``.
+* ``encode(frames, frame_mask)`` — whisper's encoder over precomputed
+  frame embeddings (B, T, D): bidirectional self-attention through
+  ``flash_attention(causal=False)``.  As the reference's, it applies RoPE
+  over frame positions 0..T-1 and attends to every frame, padded ones
+  included; only cross-attention reads the mask.  ``train_logits`` and
+  ``prefill`` take ``frames=`` / ``frame_mask=`` for an encoder-decoder
+  configuration.
 
 The decode state mirrors the reference's: ``{"caches": [one dict per
 group, every tensor with a leading count axis], "pos": (B,) int32}``; an
-MLA group caches the compressed latent ``{"ckv", "kpe"}``.  MoE layers
+MLA group caches the compressed latent ``{"ckv", "kpe"}``, a
+cross-attention group also its frames' ``{"xk", "xv"}`` (at T frames
+after prefill, ``max_frames`` in a fresh state), and an encoder-decoder
+state carries ``"enc_mask"`` (B, T) float32.  An attention cache is
+allocated at ``min(max_len, window)`` slots; an attention group decodes
+as a ring cache when its cache is exactly window-sized (a state from
+``init_decode_state``, or a prefill whose ``max_len`` is the window) and
+as a linear cache with the window mask otherwise.  MoE layers
 dispatch within one group per batch row in prefill and training and one
 group for the whole batch in decode (the reference's rule), so with a
 capacity factor that drops assignments a row's output depends on the
@@ -67,6 +83,8 @@ from repro_torch.models.layers.basic import (
 
 NEG_LOGIT = -1e30        # logit of a vocab padding column
 _RECURRENT = ("mamba2", "rwkv6")
+_ATTENTION = ("attn", "shared_attn")
+_ENCODER_GROUP = LayerGroup(mixer="attn", ffn="dense", count=1)
 
 
 class Block(nn.Module):
@@ -79,8 +97,7 @@ class Block(nn.Module):
         d = cfg.d_model
         self.ln1 = RMSNorm(d, device=device)
         if g.mixer in ("attn", "shared_attn"):
-            att.check_supported(cfg, cross=g.cross_attn)
-            self.mixer = att.GQA(cfg, **kw)
+            self.mixer = att.GQA(cfg, cross=g.cross_attn, **kw)
         elif g.mixer == "mamba2":
             self.mixer = mb.Mamba2Mixer(cfg, **kw)
         elif g.mixer == "rwkv6":
@@ -89,6 +106,8 @@ class Block(nn.Module):
             self.mixer = att.MLA(cfg, **kw)
         else:
             raise ValueError(g.mixer)
+        if g.cross_attn:
+            self.ln_x = RMSNorm(d, device=device)
         if g.ffn != "none":
             self.ln2 = RMSNorm(d, device=device)
         if g.ffn == "dense":
@@ -109,8 +128,6 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
         super().__init__()
         self.cfg = cfg.validate()
-        if cfg.is_encoder_decoder or cfg.encoder is not None:
-            raise NotImplementedError("encoder-decoder LMs are not ported yet")
         dev = resolve_device(device)
         gen = (None if dev.type == "meta"
                else torch.Generator(device=dev).manual_seed(seed))
@@ -133,6 +150,14 @@ class LM(nn.Module):
                     Block(cfg, g, **kw) for _ in range(g.count)))
         if shared is not None:
             self.shared_attn = shared
+        if cfg.is_encoder_decoder:
+            # whisper's bidirectional encoder: its layers stack along one
+            # leaf per name in the reference (``encoder.layers``)
+            self.encoder = nn.Module()
+            self.encoder.layers = nn.ModuleList(
+                Block(cfg, _ENCODER_GROUP, **kw)
+                for _ in range(cfg.encoder.num_layers))
+            self.encoder.final_norm = RMSNorm(cfg.d_model, device=dev)
         if cfg.mtp_depth:
             # deepseek-v3's depth-1 multi-token prediction: one more block
             # of the last group's kind over [norm(h_t) ; emb(token_t+1)]
@@ -160,16 +185,29 @@ class LM(nn.Module):
             p.ffn, self.cfg, h, rstate)
         return x + y, rstate, None
 
-    def _block_full(self, p: Block, g: LayerGroup, x, *, kernels: bool):
+    def _block_full(self, p: Block, g: LayerGroup, x, *, kernels: bool,
+                    window: Optional[int] = None, causal: bool = True,
+                    enc=None):
         """One layer over the full sequence, its mixer through the kernels
-        or (``kernels=False``) the training path.  Returns (x, cache
-        entry, MoE aux or None)."""
+        or (``kernels=False``) the training path; ``window`` bounds an
+        attention mixer, ``enc`` = (encoder output, frame lengths) feeds a
+        cross-attention group.  Returns (x, cache entry, MoE aux or
+        None)."""
         cfg = self.cfg
         h = rmsnorm(p.ln1.g, x, cfg.norm_eps)
         rstate = None
-        if g.mixer in ("attn", "shared_attn"):
-            y, (k, v) = att.attn_full(p.mixer, cfg, h, kernels=kernels)
+        if g.mixer in _ATTENTION:
+            y, (k, v) = att.attn_full(p.mixer, cfg, h, window=window,
+                                      causal=causal, kernels=kernels)
             cache = {"k": k, "v": v}
+            if g.cross_attn:
+                enc_out, enc_len = enc
+                xk, xv = att.encode_cross_kv(p.mixer, cfg, enc_out)
+                x = x + y
+                y = att.cross_attn(p.mixer, cfg,
+                                   rmsnorm(p.ln_x.g, x, cfg.norm_eps),
+                                   xk, xv, enc_len, kernels=kernels)
+                cache.update(xk=xk, xv=xv)
         elif g.mixer == "mla":
             y, (ckv, kpe) = att.mla_full(p.mixer, cfg, h)
             cache = {"ckv": ckv, "kpe": kpe}
@@ -184,15 +222,26 @@ class LM(nn.Module):
             cache = rstate._asdict()
         return x, cache, aux
 
-    def _block_decode(self, p: Block, g: LayerGroup, x, cache, li: int, pos):
+    def _block_decode(self, p: Block, g: LayerGroup, x, cache, li: int, pos,
+                      enc_len):
         """One layer, one token; writes layer ``li``'s slice of the group's
         cache in place."""
         cfg = self.cfg
         h = rmsnorm(p.ln1.g, x, cfg.norm_eps)
         rstate = None
-        if g.mixer in ("attn", "shared_attn"):
+        if g.mixer in _ATTENTION:
+            w = cfg.sliding_window
+            # a window-sized cache is a ring (the long-decode state)
+            ring = bool(w) and cache["k"].shape[2] == w
             y = att.attn_decode(p.mixer, cfg, h, cache["k"][li],
-                                cache["v"][li], pos)
+                                cache["v"][li], pos,
+                                window=None if ring else w, ring=ring)
+            if g.cross_attn:
+                x = x + y
+                y = att.cross_decode(p.mixer, cfg,
+                                     rmsnorm(p.ln_x.g, x, cfg.norm_eps),
+                                     cache["xk"][li], cache["xv"][li],
+                                     enc_len)
         elif g.mixer == "mla":
             y = att.mla_decode(p.mixer, cfg, h, cache["ckv"][li],
                                cache["kpe"][li], pos)
@@ -225,10 +274,65 @@ class LM(nn.Module):
             logits[..., cfg.vocab_size:] = NEG_LOGIT
         return logits
 
+    # ---------------------------------------------------------- encoder --
+    def encode(self, frames, frame_mask=None, *, kernels: bool = True):
+        """The bidirectional encoder over frame embeddings (B,T,D).
+        Returns (encoder output (B,T,D), frame mask (B,T), ones if None).
+
+        As the reference's: RoPE over frame positions 0..T-1, and every
+        frame attended to, the padded ones included (the mask is for
+        cross-attention only)."""
+        b, t, _ = frames.shape
+        if frame_mask is None:
+            frame_mask = torch.ones((b, t), dtype=torch.float32,
+                                    device=frames.device)
+        x = frames
+        for p in self.encoder.layers:
+            x, _, _ = self._block_full(p, _ENCODER_GROUP, x, kernels=kernels,
+                                       causal=False)
+        return rmsnorm(self.encoder.final_norm.g, x, self.cfg.norm_eps), \
+            frame_mask
+
+    def _encode_for(self, frames, frame_mask, *, kernels: bool):
+        """((encoder output, frame lengths), frame mask) of an
+        encoder-decoder configuration's frames; (None, None) for a
+        decoder-only one."""
+        if not self.cfg.is_encoder_decoder:
+            return None, None
+        if frames is None:
+            raise ValueError(f"{self.cfg.name} is an encoder-decoder: give "
+                             "frames=")
+        frames = torch.as_tensor(frames, device=self.device)
+        if frame_mask is not None:
+            frame_mask = torch.as_tensor(frame_mask, device=self.device)
+        enc_out, mask = self.encode(frames, frame_mask, kernels=kernels)
+        return (enc_out, att.mask_lengths(mask)), mask
+
+    def _run_full(self, x, *, kernels: bool, window=None, enc=None,
+                  with_cache: bool):
+        """Every group over the full sequence; returns (x, caches or None,
+        MoE aux total)."""
+        w = window if window is not None else self.cfg.sliding_window
+        caches: List[Dict[str, torch.Tensor]] = []
+        aux_total = torch.zeros((), device=x.device)
+        for gi, g in enumerate(self.cfg.layer_plan):
+            entries = []
+            for p in self._layers(gi, g):
+                x, cache, aux = self._block_full(p, g, x, kernels=kernels,
+                                                 window=w, enc=enc)
+                if with_cache:
+                    entries.append(cache)
+                if aux is not None:
+                    aux_total = aux_total + aux
+            if with_cache:
+                caches.append(_stack(entries))
+        return x, (caches if with_cache else None), aux_total
+
     # ------------------------------------------------------------ train --
-    def train_logits(self, tokens):
+    def train_logits(self, tokens, *, frames=None, frame_mask=None):
         """Full causal forward for training: tokens (B,S) -> {"logits"
-        (B,S,V), "aux_loss"[, "mtp_logits" (B,S,V)]}.
+        (B,S,V), "aux_loss"[, "mtp_logits" (B,S,V)]}; an encoder-decoder
+        configuration also takes ``frames`` (B,T,D) and ``frame_mask``.
 
         No decode state is kept.  Attention and the recurrent mixers take
         their training paths (the reference's jnp attention and ``"xla"``
@@ -236,13 +340,9 @@ class LM(nn.Module):
         of parameters called by every shared group, so its gradient is
         the sum over the calls, as the reference's.  ``aux_loss`` is the
         sum of the MoE layers' load-balance losses (0 without MoE)."""
-        x = self.embed(tokens)
-        aux_total = torch.zeros((), device=x.device)
-        for gi, g in enumerate(self.cfg.layer_plan):
-            for p in self._layers(gi, g):
-                x, _, aux = self._block_full(p, g, x, kernels=False)
-                if aux is not None:
-                    aux_total = aux_total + aux
+        enc, _ = self._encode_for(frames, frame_mask, kernels=False)
+        x, _, aux_total = self._run_full(self.embed(tokens), kernels=False,
+                                         enc=enc, with_cache=False)
         out = {"logits": self._logits(x), "aux_loss": aux_total}
         if self.cfg.mtp_depth:
             out["mtp_logits"] = self._mtp_logits(x, tokens)
@@ -262,14 +362,18 @@ class LM(nn.Module):
 
     # ---------------------------------------------------------- prefill --
     @torch.no_grad()
-    def prefill(self, tokens, *, max_len: Optional[int] = None,
+    def prefill(self, tokens, *, frames=None, frame_mask=None,
+                window: Optional[int] = None, max_len: Optional[int] = None,
                 lengths=None):
         """tokens (B,S) -> (last logits (B,V), decode state).
 
         ``max_len`` pads the KV caches to the decode capacity (slot ==
-        position).  ``lengths`` (B,) marks true prompt lengths in a
-        right-padded batch; exact only for position-masked mixers, so a
-        plan with a recurrent mixer refuses ragged lengths.
+        position); the cross caches stay at the T frames given.
+        ``lengths`` (B,) marks true prompt lengths in a right-padded batch;
+        exact only for position-masked mixers, so a plan with a recurrent
+        mixer refuses ragged lengths.  ``frames`` / ``frame_mask`` feed an
+        encoder-decoder's encoder (the mask must be a key prefix in each
+        row); ``window`` overrides the configuration's sliding window.
         """
         cfg = self.cfg
         b, s = tokens.shape
@@ -280,14 +384,10 @@ class LM(nn.Module):
                     bool((lengths != s).any()):
                 raise ValueError("ragged prompt lengths need position-masked "
                                  "mixers; recurrent states fold pad steps in")
-        x = self.embed(tokens)
-        caches: List[Dict[str, torch.Tensor]] = []
-        for gi, g in enumerate(cfg.layer_plan):
-            entries = []
-            for p in self._layers(gi, g):
-                x, cache, _ = self._block_full(p, g, x, kernels=True)
-                entries.append(cache)
-            caches.append(_stack(entries))
+        enc, enc_mask = self._encode_for(frames, frame_mask, kernels=True)
+        x, caches, _ = self._run_full(self.embed(tokens), kernels=True,
+                                      window=window, enc=enc,
+                                      with_cache=True)
         if max_len is not None and max_len > s:
             for c in caches:
                 for name in ("k", "v", "ckv", "kpe"):
@@ -303,22 +403,33 @@ class LM(nn.Module):
         else:
             pos0 = lengths.clone()
             last = x[torch.arange(b, device=self.device), pos0.long() - 1, :]
-        return self._logits(last), {"caches": caches, "pos": pos0}
+        state = {"caches": caches, "pos": pos0}
+        if enc_mask is not None:
+            state["enc_mask"] = enc_mask.float()
+        return self._logits(last), state
 
     # ------------------------------------------------------ decode state --
     def init_decode_state(self, batch: int, max_len: int,
-                          dtype=torch.float32) -> Dict:
-        """Fresh (empty) decode state with capacity ``max_len``."""
+                          dtype=torch.float32, *, ring: bool = True) -> Dict:
+        """Fresh (empty) decode state with capacity ``max_len``; an
+        attention cache under a sliding window holds ``min(max_len,
+        window)`` slots (a ring when that is the window).  ``ring=False``
+        keeps ``max_len`` slots, the shapes ``prefill(max_len=)`` returns:
+        past the window such a cache decodes linear under the window."""
         cfg, dev = self.cfg, self.device
         caches: List[Dict[str, torch.Tensor]] = []
+        zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
         for g in cfg.layer_plan:
-            if g.mixer in ("attn", "shared_attn"):
-                shape = (g.count, batch, max_len, cfg.num_kv_heads,
-                         cfg.head_dim)
-                caches.append({"k": torch.zeros(shape, dtype=dtype,
-                                                device=dev),
-                               "v": torch.zeros(shape, dtype=dtype,
-                                                device=dev)})
+            if g.mixer in _ATTENTION:
+                w = cfg.sliding_window
+                s_alloc = min(max_len, w) if w and ring else max_len
+                kv = (g.count, batch, s_alloc, cfg.num_kv_heads, cfg.head_dim)
+                c = {"k": zeros(*kv), "v": zeros(*kv)}
+                if g.cross_attn:
+                    xkv = (g.count, batch, cfg.encoder.max_frames,
+                           cfg.num_kv_heads, cfg.head_dim)
+                    c.update(xk=zeros(*xkv), xv=zeros(*xkv))
+                caches.append(c)
             elif g.mixer == "mla":
                 m = cfg.mla
                 caches.append({
@@ -334,20 +445,29 @@ class LM(nn.Module):
                 st = init(cfg, batch, dtype, dev)._asdict()
                 caches.append({k: v[None].repeat((g.count,) + (1,) * v.dim())
                                for k, v in st.items()})
-        return {"caches": caches,
-                "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+        state = {"caches": caches,
+                 "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+        if cfg.is_encoder_decoder:
+            state["enc_mask"] = torch.ones((batch, cfg.encoder.max_frames),
+                                           dtype=torch.float32, device=dev)
+        return state
 
     # ----------------------------------------------------------- decode --
     @torch.no_grad()
     def decode_step(self, state: Dict, tokens):
         """ONE new token per sequence.  tokens (B,1) -> (logits (B,V),
-        state), the state's caches and ``pos`` updated in place."""
+        state), the state's caches and ``pos`` updated in place.  The
+        frame lengths of cross-attention come from the state's
+        ``enc_mask`` (a prefix, as prefill checked)."""
         pos = state["pos"]
+        enc_mask = state.get("enc_mask")
+        enc_len = (None if enc_mask is None
+                   else att.mask_lengths(enc_mask, check=False))
         x = self.embed(tokens)
         for gi, g in enumerate(self.cfg.layer_plan):
             cache = state["caches"][gi]
             for li, p in enumerate(self._layers(gi, g)):
-                x = self._block_decode(p, g, x, cache, li, pos)
+                x = self._block_decode(p, g, x, cache, li, pos, enc_len)
         logits = self._logits(x[:, 0, :])
         pos.add_(1)
         return logits, state

@@ -7,16 +7,17 @@ and scale rules:
   evaluated NMT combination for that language pair (§III); direction is
   normalized, so both orders name the same registered model.  ``scale``
   shrinks widths and layers (``scale=1`` is the paper's size).
-* ``"rwkv6-3b"`` / ``"rwkv6_3b"`` / ``"qwen3-moe-30b-a3b"`` / ... — a
+* ``"rwkv6-3b"`` / ``"rwkv6_3b"`` / ``"whisper-large-v3"`` / ... — a
   big :class:`~repro_torch.models.model.LM` from ``repro_torch.configs``;
   underscores normalize to hyphens.  ``size="smoke"`` (default) builds
-  the reduced CPU variant, ``size="full"`` the assigned configuration.
+  the reduced CPU variant, ``size="full"`` the assigned configuration
+  (``shape="long_500k"`` its sliding-window long-decode variant, where
+  the architecture has one).
 
 Unlike the reference, :func:`resolve` returns the model with its weights
 already drawn (from ``seed``, on ``device``).  It builds the paper's
-three NMT models (BiLSTM de-en, GRU fr-en, Marian en-zh) and nine of
-the ten LM names; ``whisper-large-v3`` raises ``NotImplementedError``
-until the encoder's slice lands.
+three NMT models (BiLSTM de-en, GRU fr-en, Marian en-zh) and all ten LM
+names.
 """
 
 from __future__ import annotations
@@ -89,19 +90,21 @@ def nmt_config(dataset: str, *, scale: float = 1.0, vocab: int = 8000,
 
 def available() -> Tuple[str, ...]:
     """Canonical names this registry resolves."""
-    from repro_torch.configs import PORTED
-    return tuple(f"cnmt:{p}" for p in PAPER_MODELS) + PORTED
+    from repro_torch.configs import ARCH_NAMES
+    return tuple(f"cnmt:{p}" for p in PAPER_MODELS) + ARCH_NAMES
 
 
 def resolve(name: str, *, size: str = "smoke",
             # NMT knobs (ignored for LM names)
             scale: float = 1.0, vocab: int = 8000, max_decode_len: int = 256,
+            # LM knob (ignored for NMT names)
+            shape: Optional[str] = None,
             device=None, seed: int = 0) -> ResolvedModel:
     """Resolve a model name to an instantiated model on ``device``
     (``cuda`` unless the caller asks for ``"cpu"``), its weights drawn
     from a ``torch.Generator`` seeded with ``seed``.  For LM names
     ``size`` picks ``smoke_config`` ("smoke") or ``get_config``
-    ("full")."""
+    ("full"; ``shape`` selects a documented variant)."""
     from repro_torch.configs import ARCH_NAMES, get_config, smoke_config
     from repro_torch.models.model import LM
 
@@ -119,7 +122,8 @@ def resolve(name: str, *, size: str = "smoke",
                              model=model, cfg=cfg, pair=pair)
     arch = key.replace("_", "-")
     if arch in ARCH_NAMES:
-        cfg = smoke_config(arch) if size == "smoke" else get_config(arch)
+        cfg = (smoke_config(arch) if size == "smoke"
+               else get_config(arch, shape))
         return ResolvedModel(name=arch, family="lm",
                              model=LM(cfg, device=device, seed=seed), cfg=cfg)
     raise KeyError(

@@ -269,16 +269,19 @@ class GenerationSession:
 
     # ------------------------------------------------------------ public --
     def generate(self, tokens: np.ndarray, *, max_new: int = 16,
+                 frames: Optional[np.ndarray] = None,
                  lengths: Optional[Sequence[int]] = None) -> np.ndarray:
         """tokens (B,S) -> generated (B, <=max_new) int32, PAD after each
         row's EOS; trailing all-PAD columns trimmed (width >= 1 kept)."""
         lens, out = self.generate_with_lengths(tokens, max_new=max_new,
+                                               frames=frames,
                                                lengths=lengths)
         width = int(min(max(int(lens.max()) + 1, 1), out.shape[1]))
         return out[:, :width]
 
     def generate_with_lengths(
             self, tokens: np.ndarray, *, max_new: int = 16,
+            frames: Optional[np.ndarray] = None,
             lengths: Optional[Sequence[int]] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """tokens (B,S) -> (lengths (B,), tokens (B,max_new)) numpy int32.
@@ -286,7 +289,9 @@ class GenerationSession:
         ``lengths`` out counts each row's pre-EOS tokens (the paper's M);
         the token block keeps the EOS and is PAD-masked after it.
         ``lengths`` in marks true prompt lengths in a right-padded batch
-        (position-masked plans only).
+        (position-masked plans only).  ``frames`` (B,T,D) feed an
+        encoder-decoder's encoder; as in the reference, the batch is then
+        not padded to a shape bucket and prefill takes no ``lengths``.
         """
         tokens = np.asarray(tokens, np.int32)
         b, s = tokens.shape
@@ -300,13 +305,18 @@ class GenerationSession:
                 raise ValueError(
                     "ragged prompt lengths need position-masked mixers "
                     f"(plan has {[g.mixer for g in self.model.cfg.layer_plan]})")
-        tokens, lens_in = self._bucket_pad(tokens, lens_in, max_new)
         dev = self.model.device
+        if frames is None:
+            tokens, lens_in = self._bucket_pad(tokens, lens_in, max_new)
+        else:
+            lens_in = None
+            frames = torch.as_tensor(frames, dtype=torch.float32,
+                                     device=dev)
         with torch.inference_mode():
             logits, state = self.model.prefill(
                 torch.as_tensor(tokens, device=dev), max_len=self.max_len,
                 lengths=None if lens_in is None
-                else torch.as_tensor(lens_in, device=dev))
+                else torch.as_tensor(lens_in, device=dev), frames=frames)
             tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
             if self.host_loop:
                 lens_out, out = self._host_decode(state, tok0, max_new)
@@ -358,13 +368,13 @@ class GenerationSession:
         return torch.stack(lives, dim=1).sum(dim=1, dtype=torch.int32), out
 
 
-
-def greedy_margins(model, prompt: np.ndarray, tokens: np.ndarray
-                   ) -> np.ndarray:
+def greedy_margins(model, prompt: np.ndarray, tokens: np.ndarray, *,
+                   frames: Optional[np.ndarray] = None) -> np.ndarray:
     """The top-2 logit margin behind each of ``tokens``, a greedy
     continuation of ``prompt`` (1-D): entry i is the margin of the logits
     that chose token i (prefill for i = 0, then one B=1 decode step per
-    token, teacher-forced on ``tokens``).
+    token, teacher-forced on ``tokens``).  ``frames`` (T, D) feed an
+    encoder-decoder's encoder.
 
     Generations from different batch shapes may round differently in the
     last bits (a GEMM's kernel, a split plan and a query tile all depend
@@ -377,7 +387,9 @@ def greedy_margins(model, prompt: np.ndarray, tokens: np.ndarray
         logits, state = model.prefill(
             torch.as_tensor(np.asarray(prompt, np.int32)[None, :],
                             device=dev),
-            max_len=len(prompt) + max(len(toks), 1))
+            max_len=len(prompt) + max(len(toks), 1),
+            frames=None if frames is None else torch.as_tensor(
+                frames, dtype=torch.float32, device=dev)[None])
         for i, t in enumerate(toks):
             top2 = torch.topk(logits[0].float(), 2).values
             out.append(top2[0] - top2[1])
@@ -419,10 +431,13 @@ class ContinuousGenerationSession:
     call (batch padded to a power of two, width to ``_next_pow2(w, 8)``
     capped at ``max_len - max_new``); recurrent plans (mamba2, rwkv6)
     admit one exact-width wave per distinct prompt length.  The resident
-    state starts as ``model.init_decode_state(max_slots, max_len)``,
-    whose tensors have the shapes every admission prefill produces (the
-    reference seeds it with a one-token dummy prefill, which leaves a
-    mamba2 conv buffer of the wrong shape).
+    state starts as ``model.init_decode_state(max_slots, max_len,
+    ring=False)``, whose tensors have the shapes every admission prefill
+    produces (the reference seeds it with a one-token dummy prefill, which
+    leaves a mamba2 conv buffer of the wrong shape).  Under a sliding
+    window that is a ring when ``max_len`` equals the window and a linear
+    cache of ``max_len`` slots, decoded under the window, when it is
+    longer: the reference's dummy prefill gives the same.
     """
 
     def __init__(self, model, *, max_slots: int = 8, max_len: int = 64,
@@ -442,8 +457,8 @@ class ContinuousGenerationSession:
         """Empty the slot table and zero the counters."""
         dev = self.model.device
         with torch.inference_mode():
-            self._state = self.model.init_decode_state(self.max_slots,
-                                                       self.max_len)
+            self._state = self.model.init_decode_state(
+                self.max_slots, self.max_len, ring=False)
             self._tok = torch.full((self.max_slots,), PAD_ID,
                                    dtype=torch.int32, device=dev)
             self._done = torch.ones((self.max_slots,), dtype=torch.bool,

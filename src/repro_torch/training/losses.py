@@ -25,9 +25,11 @@ def lm_loss(model, batch, *, aux_weight: float = 0.001,
     """Causal-LM cross entropy + the MoE load-balance aux term + the MTP
     cross entropy where the model predicts token t+2.
 
-    batch: {"tokens": (B,S), "targets": (B,S)[, "mask"]} tensors on the
-    model's device.  Returns (loss, metrics dict)."""
-    out = model.train_logits(batch["tokens"])
+    batch: {"tokens": (B,S), "targets": (B,S)[, "mask", "frames"]}
+    tensors on the model's device; an encoder-decoder's ``frames`` (B,T,D)
+    go to its encoder.  Returns (loss, metrics dict)."""
+    kw = {"frames": batch["frames"]} if "frames" in batch else {}
+    out = model.train_logits(batch["tokens"], **kw)
     mask = batch.get("mask")
     ce = _token_ce(out["logits"], batch["targets"], mask)
     loss = ce + aux_weight * out["aux_loss"]

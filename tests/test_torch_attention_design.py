@@ -6,7 +6,8 @@ their designs rest on against the plain versions:
 * ``flash_decode``'s split plan (``decode_splits``) and its split-and-
   combine: partial (m, l, acc) states over the planned slot ranges,
   merged by ``combine_splits_plain`` (the plain twin of the kernel's
-  combine pass), give ``flash_decode_plain`` within 1e-6;
+  combine pass), give ``flash_decode_plain`` within 1e-6, with a sliding
+  window too (splits wholly before the window start are empty);
 * ``flash_attention``'s float32 products as 3 x TF32: each operand split
   into hi (rounded to TF32, nearest with ties away from zero, as
   ``cvt.rna.tf32.f32``) and lo = x - hi (truncated to TF32, as the
@@ -46,10 +47,13 @@ def test_decode_splits_cover_every_slot_once(b, hkv, s):
     assert da.decode_splits(hkv, b, s) == (n_split, chunk)
 
 
-def _partials(q, k_cache, v_cache, lengths, scale):
+def _partials(q, k_cache, v_cache, lengths, scale, window=0):
     """Per-split (m, l, acc) over the planned slot ranges, in plain torch,
-    as the split kernel forms them; an empty split carries m = -inf,
-    l = 0 and an accumulator of NaN (unwritten scratch)."""
+    as the split kernel forms them: slots [w_lo, min(len, S)) with w_lo =
+    len - window under a window, every slot masked when that range is
+    empty.  An empty split (past the prefix or wholly before the window
+    start) carries m = -inf, l = 0 and an accumulator of NaN (unwritten
+    scratch)."""
     b, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     rep = h // hkv
@@ -59,15 +63,18 @@ def _partials(q, k_cache, v_cache, lengths, scale):
     acc = torch.full((b, h, n_split, d), float("nan"))
     for bi in range(b):
         length = int(lengths[bi])
-        n_slots = min(length, s) if length > 0 else s
+        w_lo = max(0, length - window) if window else 0
+        masked = length <= 0 or w_lo >= min(length, s)
+        n_slots = s if masked else min(length, s)
         for i in range(n_split):
-            lo, hi = i * chunk, min((i + 1) * chunk, n_slots)
+            lo = max(i * chunk, 0 if masked else w_lo)
+            hi = min((i + 1) * chunk, n_slots)
             if lo >= hi:
                 continue
             kk = k_cache[bi, lo:hi].float().repeat_interleave(rep, dim=1)
             vv = v_cache[bi, lo:hi].float().repeat_interleave(rep, dim=1)
             sc = torch.einsum("hd,thd->ht", q[bi].float(), kk) * scale
-            if length <= 0:
+            if masked:
                 sc = torch.full_like(sc, da.NEG_INF)
             mx = sc.amax(-1)
             p = torch.exp(sc - mx[:, None])
@@ -104,6 +111,31 @@ def test_split_and_combine_gives_the_plain_version(dtype, b, t, h, hkv, d,
             got.to(dtype).float(),
             da.flash_decode_plain(q, kc, vc, lengths).float(),
             rtol=2 ** -8, atol=2 ** -8)
+
+
+@pytest.mark.parametrize("b,t,h,hkv,d,lens,window", [
+    (1, 2048, 8, 8, 64, (2047,), 64),        # 31 splits before the start
+    (2, 256, 32, 8, 64, (200, 17), 1),       # one slot each
+    (3, 256, 8, 8, 32, (0, 100, 256), 300),  # a window wider than the cache
+    (2, 512, 8, 8, 64, (600, 513), 16),      # past the cache: no valid slot
+                                             # in row 0, 15 in row 1
+    (1, 4200, 8, 8, 64, (4150,), 4096),      # qwen3-8b-swa's linear check
+])
+def test_split_and_combine_with_a_window_gives_the_plain_version(
+        b, t, h, hkv, d, lens, window):
+    rng = np.random.default_rng(2)
+    q, kc, vc = (torch.as_tensor(rng.standard_normal(shape, np.float32))
+                 for shape in ((b, h, d), (b, t, hkv, d), (b, t, hkv, d)))
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    m, l, acc = _partials(q, kc, vc, lengths, d ** -0.5, window)
+    n_split, chunk = da.decode_splits(b, hkv, t)
+    # some split lies wholly before the window start: it carries nothing
+    if window < max(lens) - chunk:
+        assert bool((l == 0).any())
+    got = da.combine_splits_plain(m, l, acc)
+    want = da.flash_decode_plain(q, kc, vc, lengths, window=window)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
 # -------------------------------------------------------------- 3 x TF32 --

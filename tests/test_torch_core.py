@@ -236,6 +236,11 @@ def test_importing_the_port_loads_no_jax_or_reference_modules():
         "import repro_torch.configs.qwen3_8b, repro_torch.runtime.serving\n"
         "import repro_torch.models.layers.moe, repro_torch.models.costs\n"
         "import repro_torch.configs.deepseek_v3_671b\n"
+        "import repro_torch.configs.whisper_large_v3\n"
+        "import repro_torch.configs.zamba2_1p2b, repro_torch.models.model\n"
+        "import repro_torch.models.layers.attention\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.decode_attention\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith"
         "('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

@@ -643,3 +643,97 @@ def test_marian_teacher_kernel_path_matches_training_path(dev):
                                                               device=dev)})
     grads = torch.autograd.grad(loss, list(model.parameters()))
     assert all(torch.isfinite(g).all() for g in grads)
+
+
+# ------------------------------------------ windows, whisper's shapes --
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,hkv,d,causal,lens,window", [
+    (2, 1500, 1500, 20, 20, 64, False, None, 0),   # whisper's encoder
+    (4, 16, 1500, 20, 20, 64, False, (1500, 700, 1, 0), 0),  # cross
+    (1, 200, 200, 8, 2, 128, True, None, 1),
+    (2, 300, 300, 4, 4, 64, True, None, 64),
+    (2, 130, 130, 4, 4, 64, True, (130, 90), 7),   # a window past the
+                                                   # prefix: empty rows
+    (1, 100, 100, 4, 4, 32, True, None, 500),      # wider than T
+])
+def test_flash_attention_window_and_long_keys_match_plain(
+        dev, dtype, b, s, t, h, hkv, d, causal, lens, window):
+    q = _randn(4, (b, s, h, d), dev, dtype)
+    k = _randn(5, (b, t, hkv, d), dev, dtype)
+    v = _randn(6, (b, t, hkv, d), dev, dtype)
+    lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                     device=dev)
+    for bq in fa.BLOCK_Q:
+        got = fa.flash_attention_cuda(q, k, v, lengths, causal=causal,
+                                      window=window, block_q=bq)
+        want = fa.flash_attention_plain(q, k, v, lengths, causal=causal,
+                                        window=window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=_tol(dtype), atol=_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,hkv,d,lens,window", [
+    (4, 1500, 20, 20, 64, (1500, 700, 1, 0), 0),    # whisper's cross decode
+    (1, 4200, 32, 8, 128, (4150,), 4096),           # linear window
+    (2, 2048, 8, 8, 64, (2047, 2048), 64),          # splits before the start
+    (2, 512, 8, 8, 64, (600, 513), 16),             # past the cache
+    (3, 256, 8, 2, 64, (1, 100, 256), 1),
+])
+def test_flash_decode_window_matches_plain(dev, dtype, b, t, h, hkv, d, lens,
+                                           window):
+    q = _randn(7, (b, h, d), dev, dtype)
+    kc = _randn(8, (b, t, hkv, d), dev, dtype)
+    vc = _randn(9, (b, t, hkv, d), dev, dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = da.flash_decode_cuda(q, kc, vc, lengths, window=window)
+    want = da.flash_decode_plain(q, kc, vc, lengths, window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "qwen3-8b-swa",
+                                  "zamba2-1.2b-swa"])
+def test_smoke_whisper_and_swa_on_the_card_match_the_cpu(dev, arch):
+    """Smoke whisper (frames with a ragged prefix mask) and the smoke
+    long-decode variants (window 8: a 12-token prefill into a ring of 8,
+    past the window, then decode) on the card against the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import LM
+    base = arch.removesuffix("-swa")
+    cfg = smoke_config(base)
+    if arch.endswith("-swa"):
+        cfg = dataclasses.replace(cfg, sliding_window=8)
+    gpu = LM(cfg, device=dev, seed=2)
+    cpu = LM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(1)
+    toks = rng.integers(4, 512, (2, 12)).astype(np.int32)
+    kw = {}
+    if cfg.is_encoder_decoder:
+        mask = np.ones((2, 16), np.float32)
+        mask[1, 9:] = 0.0
+        kw = dict(frames=rng.standard_normal((2, 16, cfg.d_model)).astype(
+            np.float32), frame_mask=mask)
+    outs = []
+    with torch.inference_mode():
+        for model, d in ((gpu, dev), (cpu, torch.device("cpu"))):
+            logits, state = model.prefill(
+                torch.as_tensor(toks[:, :6], device=d), max_len=8,
+                **{k: torch.as_tensor(v, device=d) for k, v in kw.items()})
+            seq = [logits]
+            for tok in (5, 17, 42, 99, 7, 3):          # past position 8
+                logits, state = model.decode_step(state, torch.full(
+                    (2, 1), tok, dtype=torch.int32, device=d))
+                seq.append(logits)
+            seq.append(model.prefill(torch.as_tensor(toks, device=d),
+                                     max_len=16, **{
+                                         k: torch.as_tensor(v, device=d)
+                                         for k, v in kw.items()})[0])
+            outs.append(torch.stack(seq).cpu())
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)

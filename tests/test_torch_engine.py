@@ -230,24 +230,33 @@ def test_real_marian_tier_serves_the_same_translations():
                  "torch": make_executors(tm)}
     served = {}
     tops.reset_launch_counts()
+    rng = np.random.default_rng(3)
+    solo_reqs = [rng.integers(4, 3 * V, int(rng.integers(2, 9)))
+                 for _ in range(6)]
+    block = [rng.integers(4, V, L) for L in (3, 7, 5, 8)]
     for pkg, (solo, batched) in executors.items():
         lat, lenr, _, _, engine, _ = PKGS[pkg]
-        log = []
-        edge = lat.DeviceProfile("marian",
-                                 lat.LinearLatencyModel(1e-4, 1e-3, 1e-2), 0.0)
-        far = lat.DeviceProfile("far", lat.LinearLatencyModel(0.0, 0.0, 1e3))
-        eng = engine.CollaborativeEngine(
-            tiers=[engine.Tier(edge, executor=_recording(solo, log),
-                               batch_size=4,
-                               batched_executor=_recording(batched, log)),
-                   engine.Tier(far, rtt_fn=lambda t: 0.01)],
-            n2m=lenr.LinearN2M(0.7, 1.2), seed=0)
-        rng = np.random.default_rng(3)
-        res = [eng.submit(rng.integers(4, 3 * V, int(rng.integers(2, 9))),
-                          now_s=0.5 * i) for i in range(6)]
-        res += eng.submit_batch([rng.integers(4, V, L) for L in (3, 7, 5, 8)],
-                                now_s=10.0)
+        # the first pass compiles every JAX shape; the second is held.
+        # Arrivals 1000 s of virtual time apart (the RTT is constant) and
+        # no compile inside the held pass keep every queue empty, so the
+        # measured times cannot move a decision
+        for log in ([], []):
+            edge = lat.DeviceProfile(
+                "marian", lat.LinearLatencyModel(1e-4, 1e-3, 1e-2), 0.0)
+            far = lat.DeviceProfile("far",
+                                    lat.LinearLatencyModel(0.0, 0.0, 1e3))
+            eng = engine.CollaborativeEngine(
+                tiers=[engine.Tier(edge, executor=_recording(solo, log),
+                                   batch_size=4,
+                                   batched_executor=_recording(batched,
+                                                               log)),
+                       engine.Tier(far, rtt_fn=lambda t: 0.01)],
+                n2m=lenr.LinearN2M(0.7, 1.2), seed=0)
+            res = [eng.submit(t, now_s=1000.0 * i)
+                   for i, t in enumerate(solo_reqs)]
+            res += eng.submit_batch(block, now_s=10000.0)
         assert {r.device for r in res} == {0}
+        assert [r.wait_s for r in res] == [0.0] * len(res)
         served[pkg] = ([r.m_out for r in res], log)
     (jm_out, jlog), (tm_out, tlog) = served["jax"], served["torch"]
     assert tm_out == jm_out
@@ -266,9 +275,13 @@ def test_real_marian_tier_serves_the_same_translations():
 def test_real_gru_split_legs_serve_the_same_translations():
     """Both engines on the split regime, each with real tiny GRU legs on
     the edge (encode + decode) and the cloud (decode), on the same
-    converted weights.  Arrivals 1 s apart keep every queue empty, so the
-    measured leg times cannot move a decision: plans, devices and the
-    decoded translations are held equal."""
+    converted weights.  Plans, devices and the decoded translations are
+    held equal, which needs every queue empty: both engines book each
+    leg's measured wall time, and a JAX leg meeting a new source length
+    compiles first (a few tenths of a second alone, more on a loaded
+    host).  So every leg shape is run once before the engines start, and
+    arrivals are 1000 s of virtual time apart (the RTTs are constant);
+    every request must then find its queue empty (``wait_s == 0``)."""
     cfg = dict(vocab_src=V, vocab_tgt=V, embed=32, hidden=32, layers=1,
                max_decode_len=16)
     jm = JGRU(JRNNConfig(**cfg))
@@ -292,10 +305,13 @@ def test_real_gru_split_legs_serve_the_same_translations():
     assert min_margin("gru", jm, params, src, mask, 16) > 1e-4
     served = {}
     for pkg, (enc, dec) in legs.items():
+        for t in reqs:                   # compile every leg shape first
+            dec(enc(t))
         log = []
         eng = _split_engine(pkg, PKGS[pkg][1].LinearN2M(1.0, 0.0),
                             enc=enc, dec=_recording(dec, log))
-        res = [eng.submit(t, now_s=1.0 * i) for i, t in enumerate(reqs)]
+        res = [eng.submit(t, now_s=1000.0 * i) for i, t in enumerate(reqs)]
+        assert [r.wait_s for r in res] == [0.0] * len(reqs)
         served[pkg] = ([(r.device, _plan(r.plan), r.m_out, r.shed)
                         for r in res], log, eng.stats()["split"])
     (jrec, jlog, jsplit), (trec, tlog, tsplit) = served["jax"], served["torch"]

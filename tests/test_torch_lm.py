@@ -83,7 +83,7 @@ def _cache_leaves(jcache):
 
 
 # ---------------------------------------------------------------- configs --
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("whisper-large-v3",))
 def test_configs_match_the_reference(arch):
     for mine, ref in ((get_config(arch), j_get_config(arch)),
                       (smoke_config(arch), j_smoke_config(arch))):
@@ -91,12 +91,14 @@ def test_configs_match_the_reference(arch):
         assert mine.padded_vocab == ref.padded_vocab
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_NAMES if a not in ARCHS])
-def test_unported_architectures_raise_not_implemented(arch):
-    with pytest.raises(NotImplementedError):
-        get_config(arch)
-    with pytest.raises(NotImplementedError):
-        resolve(arch, device="cpu")
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_every_assigned_architecture_resolves(arch):
+    """All ten names build (on the meta device: shapes only), at the
+    assigned width and at smoke size."""
+    for size in ("smoke", "full"):
+        r = resolve(arch, size=size, device="meta")
+        assert (r.name, r.family) == (arch, "lm")
+        assert sum(p.numel() for p in r.model.parameters()) > 0
 
 
 # ------------------------------------------------------------- the model --

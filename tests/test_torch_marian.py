@@ -239,9 +239,10 @@ def test_registry_scale_rules_match_jax(scale):
 
 
 @pytest.mark.parametrize("name", ["whisper_large_v3", "whisper-large-v3"])
-def test_registry_later_slices_raise_not_implemented(name):
-    with pytest.raises(NotImplementedError):
-        t_resolve(name, device="cpu")
+def test_registry_resolves_whisper(name):
+    r = t_resolve(name, device="meta")
+    assert (r.name, r.family) == ("whisper-large-v3", "lm")
+    assert r.cfg.is_encoder_decoder and r.cfg.encoder.num_layers == 2
 
 
 def test_registry_unknown_name_raises_key_error():

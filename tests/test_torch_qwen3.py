@@ -72,8 +72,8 @@ def test_config_and_long_decode_variant_match_the_reference():
         dataclasses.asdict(j_get_config(ARCH))
     assert dataclasses.asdict(qwen3_8b.long_decode_variant()) == \
         dataclasses.asdict(j_qwen3_8b.long_decode_variant())
-    with pytest.raises(NotImplementedError, match="ring"):
-        get_config(ARCH, shape="long_500k")
+    assert get_config(ARCH, shape="long_500k") == \
+        qwen3_8b.long_decode_variant().validate()
     cfg = get_config(ARCH)
     assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.qk_norm) == \
         (32, 8, 128, True)
@@ -90,8 +90,9 @@ def test_registry_resolves_qwen3_8b():
         assert isinstance(r.model, LM) and r.model.device.type == "cpu"
     assert ARCH in available()
     for name in ("whisper-large-v3", "whisper_large_v3"):
-        with pytest.raises(NotImplementedError):
-            resolve(name, device="cpu")
+        assert resolve(name, device="meta").name == "whisper-large-v3"
+    full = resolve(ARCH, size="full", shape="long_500k", device="meta")
+    assert full.cfg.sliding_window == 4096
 
 
 # ---------------------------------------------------------------- layers --
