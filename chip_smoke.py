@@ -145,6 +145,22 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    it prints the ring's bytes against a linear cache's at 524288
    positions; zamba2-1.2b-swa at full depth prefills 4200 tokens, kernels
    against plain (the rule above).
+16. (run after phase 15, before phases 11-12) ``flash_decode(
+   return_stats=True)`` against its plain twin at qwen3-8b's decode
+   shapes (output, softmax max m and normaliser l within 2e-5, l
+   relative; ragged, length 0, past the cache, one split and four, from
+   a CUDA graph; the output bitwise as without stats), and 2 and 4 cache
+   slices merged by ``merge_decode_stats`` against the whole cache; then
+   qwen3-8b at full width through ``make_sharded_session`` on a 1x1 NCCL
+   mesh (``tp``, so every attention layer decodes through
+   ``attn_decode_seq_sharded``: the stats kernel and two all_reduces),
+   a ragged B=8 ``generate_with_lengths`` and 12 prompts through a
+   continuous slot table of 8, 16 new tokens each, held against the
+   unsharded sessions on the same weights (tokens equal up to the first
+   behind a top-2 margin under 1e-4), checking that both attention
+   kernels launched; it prints the rank's parameter bytes and the eager
+   B=8 decode step, sharded beside unsharded, in turns.  Phase 6 also
+   times the stats call at qwen3-8b's step.
 
 It prints one JSON line of kernel numbers (each kernel's launches summed
 over the main paths that run it) and, last, the line
@@ -861,6 +877,26 @@ def gqa_decode_case(da, gen, b, h=QW_H, hkv=QW_HKV, model="qwen3-8b"):
     return row
 
 
+def gqa_decode_stats_case(da, gen, b=8):
+    """``flash_decode(return_stats=True)`` at qwen3-8b's slot-table step,
+    the sequence-sharded decode's call (phase 16): the output and each
+    row's (m, l) in float32; no single PyTorch call returns the softmax
+    state."""
+    q = randn(gen, (b, QW_H, QW_D))
+    kc, vc = (randn(gen, (b, QW_T, QW_HKV, QW_D)) for _ in range(2))
+    lens = torch.tensor(QW_LENS[:b], dtype=torch.int32, device="cuda")
+    valid = sum(QW_LENS[:b])
+    row = time_case(
+        lambda: da.flash_decode_cuda(q, kc, vc, lens, return_stats=True),
+        lambda: da.flash_decode_plain(q, kc, vc, lens, return_stats=True),
+        None, 4 * (2 * valid * QW_HKV * QW_D + 2 * b * QW_H * QW_D + b
+                   + 2 * b * QW_H),
+        4 * valid * QW_H * QW_D)
+    row["shape"] = (f"qwen3-8b return_stats B={b} H={QW_H} Hkv={QW_HKV} "
+                    f"dh={QW_D} T={QW_T} lens={QW_LENS[:b]} f32")
+    return row
+
+
 def whisper_encoder_case(fa, gen, b=WH_B):
     """flash_attention over one whisper-large-v3 encoder layer: B=4 of
     1500 frames, 20 heads of 64, non-causal, no lengths (the reference's
@@ -1060,6 +1096,7 @@ def timings(gen):
                for model, h, hkv in GQA_SHAPES],
              *[("flash_decode", gqa_decode_case(da, gen, 8, h, hkv, model))
                for model, h, hkv in GQA_SHAPES],
+             ("flash_decode", gqa_decode_stats_case(da, gen)),
              ("flash_attention", whisper_encoder_case(fa, gen)),
              ("flash_attention", whisper_cross_case(fa, da, gen, False)),
              ("flash_decode", whisper_cross_case(fa, da, gen, True)),
@@ -2251,6 +2288,197 @@ def swa_phase(ops):
     return paths
 
 
+# --------------------------------------------------------------- phase 16 --
+SH_NEW, SH_SLOTS = 16, 8        # phase 16's generation and slot table
+
+
+def check_stats_cases(da, gen):
+    """``flash_decode(return_stats=True)`` against its plain twin at
+    qwen3-8b's decode shapes (B=8, 32 over 8 heads of 128, 256 slots: 4
+    splits, the combine pass's stats; 32 slots: one split, the main
+    kernel's): ragged lengths, length 0, lengths past the cache, a
+    captured call replayed after the lengths changed; the output bitwise
+    as without stats; then n = 2 and 4 slices of the cache merged
+    (``merge_decode_stats``) against the whole cache's ``flash_decode``.
+    Float32 within 2e-5 (l relative: it sums up to 256 terms)."""
+    b = 8
+    q = randn(gen, (b, QW_H, QW_D))
+    kc, vc = (randn(gen, (b, QW_T, QW_HKV, QW_D)) for _ in range(2))
+
+    def held(what, got, lengths, t=QW_T):
+        want = da.flash_decode_plain(q, kc[:, :t], vc[:, :t], lengths,
+                                     return_stats=True)
+        errs = (max_err(got[0], want[0]), max_err(got[1], want[1]),
+                float(((got[2] - want[2]).abs() / want[2]).max()))
+        log(f"  {what}: out {errs[0]:.3e}, m {errs[1]:.3e}, l (relative) "
+            f"{errs[2]:.3e}")
+        if not (max(errs) <= F32_TOL and all(torch.isfinite(x).all()
+                                             for x in got)):
+            raise AssertionError(f"{what}: {errs} > {F32_TOL}")
+
+    cases = [QW_LENS, (0,) + QW_LENS[1:], (256, 300, 1, 0, 129, 5, 2, 255)]
+    for lens in cases:
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got = da.flash_decode_cuda(q, kc, vc, lengths, return_stats=True)
+        if not torch.equal(got[0], da.flash_decode_cuda(q, kc, vc, lengths)):
+            raise AssertionError("return_stats changed the output")
+        held(f"stats T={QW_T} lens={lens}", got, lengths)
+    short = torch.tensor((0, 32, 7, 40, 1, 31, 16, 2), dtype=torch.int32,
+                         device="cuda")
+    if da.decode_splits(b, QW_HKV, 32)[0] != 1:
+        raise AssertionError("the T=32 case should take one split")
+    held(f"stats T=32 (one split) lens={short.tolist()}",
+         da.flash_decode_cuda(q, kc[:, :32].contiguous(),
+                              vc[:, :32].contiguous(), short,
+                              return_stats=True), short, 32)
+    lengths = torch.tensor(QW_LENS, dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.flash_decode_cuda(q, kc, vc, lengths, return_stats=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = da.flash_decode_cuda(q, kc, vc, lengths, return_stats=True)
+    for lens in cases[1:]:
+        lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        held(f"stats from a CUDA graph, lens={lens}", got, lengths)
+    lengths.copy_(torch.tensor(cases[1], dtype=torch.int32))
+    whole = da.flash_decode_cuda(q, kc, vc, lengths)
+    for n in (2, 4):
+        s = QW_T // n
+        parts = [da.flash_decode_cuda(
+            q, kc[:, i * s:(i + 1) * s], vc[:, i * s:(i + 1) * s],
+            (lengths - i * s).clamp(min=0), return_stats=True)
+            for i in range(n)]
+        within(f"{n} slices merged vs the whole cache",
+               da.merge_decode_stats(*zip(*parts)), whole, F32_TOL)
+    return len(cases) + 1 + (len(cases) - 1) + 2
+
+
+def first_low_margin(model, prompt, tokens) -> int:
+    """The index of the first of ``tokens`` (a greedy continuation of
+    ``prompt``) behind a top-2 logit margin under 1e-4, else len."""
+    from repro_torch.runtime.serving import greedy_margins
+
+    low = np.flatnonzero(greedy_margins(model, prompt, tokens) < MARGIN)
+    return int(low[0]) if low.size else len(tokens)
+
+
+def held_rows(what, model, prompts, want, got):
+    """Each row of ``got`` ((m, tokens) pairs) equals ``want``'s, or
+    differs only at or after a token behind a top-2 margin under 1e-4
+    (margins computed only for rows that differ)."""
+    differ = 0
+    for i, (p, (m_w, t_w), (m_g, t_g)) in enumerate(zip(prompts, want,
+                                                        got)):
+        t_w, t_g = np.asarray(t_w), np.asarray(t_g)
+        if m_w == m_g and np.array_equal(t_w, t_g):
+            continue
+        differ += 1
+        n = min(len(t_w), len(t_g))
+        first = int(np.flatnonzero(t_w[:n] != t_g[:n])[0]) if (
+            t_w[:n] != t_g[:n]).any() else n
+        if first < first_low_margin(model, p, t_w[:first + 1]):
+            raise AssertionError(f"{what}: row {i} differs at token {first} "
+                                 f"above the margin: {t_g.tolist()} != "
+                                 f"{t_w.tolist()}")
+    log(f"  {what}: {len(prompts) - differ} of {len(prompts)} rows "
+        f"equal, {differ} differ behind a top-2 margin under {MARGIN:g}")
+
+
+def step_ms(lm, toks, steps=10):
+    """Eager ms of one B=8 decode step of ``lm`` (an LM or a ShardedLM),
+    after a prefill of ``toks``."""
+    with torch.inference_mode():
+        logits, state = lm.prefill(toks, max_len=QW_T)
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        for _ in range(2):
+            lm.decode_step(state, tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            lm.decode_step(state, tok)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def sharded_phase(ops):
+    """qwen3-8b at full width through ``make_sharded_session`` on a 1x1
+    NCCL mesh (``tp``: the caches' slots over the size-1 ``model`` axis, so
+    every attention layer decodes through ``attn_decode_seq_sharded``: the
+    stats kernel and two all_reduces), ``GenerationSession`` and a
+    continuous slot table, held against the unsharded sessions on the
+    same weights behind the margin; per-rank parameter bytes and the eager
+    decode step, sharded beside unsharded, in turns."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.serving import (ContinuousGenerationSession,
+                                             GenerationSession)
+    from repro_torch.runtime.sharded import make_sharded_session
+
+    model, n_params = build_lm("qwen3-8b")
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(16)
+    toks = rng.integers(4, vocab, (8, 64)).astype(np.int32)
+    lens = np.concatenate([[64], rng.integers(5, 65, 7)]).astype(np.int32)
+    prompts = [rng.integers(4, vocab, int(n)).astype(np.int32)
+               for n in rng.integers(5, 61, 12)]
+    rows = [t[:n] for t, n in zip(toks, lens)]
+    ref = GenerationSession(model, max_len=QW_T).generate_with_lengths(
+        toks, max_new=SH_NEW, lengths=lens)
+    cont_ref = ContinuousGenerationSession(
+        model, max_slots=SH_SLOTS, max_len=QW_T).serve(prompts,
+                                                       max_new=SH_NEW)
+    block = torch.as_tensor(toks, device="cuda")
+    plain_ms = [step_ms(model, block)]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=60))
+        try:
+            sess = make_sharded_session(
+                model, make_host_mesh((1, 1), ("data", "model"), "cuda"),
+                max_len=QW_T, batch_size=SH_SLOTS, layout="tp")
+            lm = sess.model
+            log(f"  {sess.layout} layout on a 1x1 NCCL mesh: "
+                f"{lm.local_bytes()} parameter bytes on the rank "
+                f"({4 * n_params} for the whole model)")
+            ops.reset_launch_counts()
+            got = sess.generate_with_lengths(toks, max_new=SH_NEW,
+                                             lengths=lens)
+            cont = ContinuousGenerationSession(
+                lm, max_slots=SH_SLOTS, max_len=QW_T).serve(prompts,
+                                                            max_new=SH_NEW)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            log(f"  kernel launches, sharded generate + slot table: "
+                f"{launches}")
+            for name in ("flash_attention", "flash_decode"):
+                if launches[name] == 0:
+                    raise AssertionError(f"the sharded path never launched "
+                                         f"{name}")
+            sharded_ms = [step_ms(lm, block), step_ms(lm, block)]
+            plain_ms.append(step_ms(model, block))
+        finally:
+            dist.destroy_process_group()
+    held_rows("sharded GenerationSession vs unsharded", model, rows,
+              list(zip(*ref)), list(zip(*got)))
+    held_rows("sharded slot table vs unsharded", model, prompts, cont_ref,
+              cont)
+    log(f"  eager B=8 decode step at 64-73 positions: unsharded "
+        f"{plain_ms[0]:.2f} / {plain_ms[1]:.2f} ms, sharded 1x1 "
+        f"{sharded_ms[0]:.2f} / {sharded_ms[1]:.2f} ms (in turns)")
+    del model, sess, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"qwen3-8b sharded": launches}
+
+
 # ---------------------------------------------------------- phases 9-10 --
 RAGGED = [128, 37, 64, 5, 100, 128, 1, 23]
 
@@ -2868,6 +3096,12 @@ def main() -> int:
         "ring past position 4096, zamba2-1.2b-swa's windowed prefill)")
     paths.update(whisper_phase(ops))
     paths.update(swa_phase(ops))
+
+    log("== phase 16: flash_decode's softmax state against its plain twin; "
+        "qwen3-8b at full width through make_sharded_session on a 1x1 NCCL "
+        "mesh (sequence-sharded decode)")
+    log(f"  {check_stats_cases(da, gen)} stats cases within tolerance")
+    paths.update(sharded_phase(ops))
 
     log("== phase 11: training the paper's three NMT models at full width")
     model, _ = nmt_training("marian", "en-zh", ops, 200, smi)

@@ -33,7 +33,7 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     "repro_flash_attention": [_P] * 5 + [_I] * 7 + [_I64] * 12
                              + [_F, _I, _I, _I, _P],
-    "repro_flash_decode": [_P] * 7 + [_I] * 7 + [_I64] * 10
+    "repro_flash_decode": [_P] * 9 + [_I] * 7 + [_I64] * 10
                           + [_F, _I, _I, _P],
     "repro_rwkv6_wkv": [_P] * 8 + [_I] * 6 + [_I64] * 15 + [_P],
     "repro_ssd_scan": [_P] * 8 + [_I] * 7 + [_I64] * 15 + [_P],

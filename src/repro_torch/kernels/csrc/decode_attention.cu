@@ -61,6 +61,13 @@
 //     bitwise-equal outputs.  An empty split carries l = 0 and is left
 //     out; a split of masked slots only (length <= 0) carries m = -1e30
 //     and its slot count, so length <= 0 still averages over every slot.
+//   * Softmax state out.  Given `stats_m` / `stats_l` (B * H float32 each),
+//     the kernel also writes each (b, h) row's score maximum m and
+//     normaliser l = sum exp(s - m), from the combine with splits and from
+//     the block's own merge with one.  A caller that splits the cache
+//     across ranks (sequence-sharded decode) merges the ranks' outputs
+//     with them: weights l * exp(m - max m).  A row with no valid slot
+//     carries m = -1e30, so its weight is 0 beside any live row.
 //
 // What it still leaves for later: fusing the combine into its consumer (the
 // output projection) or into the last block of each head (a self-resetting
@@ -136,7 +143,9 @@ __global__ void __launch_bounds__(kThreads)
                               const T* __restrict__ v,
                               const int* __restrict__ lengths,
                               T* __restrict__ out, float* __restrict__ part_acc,
-                              float* __restrict__ part_ml, int S, int Hkv,
+                              float* __restrict__ part_ml,
+                              float* __restrict__ stats_m,
+                              float* __restrict__ stats_l, int S, int Hkv,
                               int rep, int n_groups, int n_split, int chunk,
                               int64_t q_sb, int64_t q_sh, int64_t k_sb,
                               int64_t k_ss, int64_t k_sh, int64_t v_sb,
@@ -282,6 +291,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < EPL; ++e) a[e] *= inv;
       Vec<T>::store(out + b * o_sb + (int64_t)(h0 + r) * o_sh + part * EPL, a);
+      if (stats_m != nullptr && part == 0) {
+        stats_m[(int64_t)b * H + h0 + r] = mr;
+        stats_l[(int64_t)b * H + h0 + r] = lr;
+      }
     } else {
       const int64_t idx = ((int64_t)b * H + h0 + r) * n_split + split;
       Vec<float>::store(part_acc + idx * D + part * EPL, a);
@@ -300,8 +313,10 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_decode_combine_kernel(const float* __restrict__ part_acc,
                                 const float* __restrict__ part_ml,
-                                T* __restrict__ out, int B, int H, int D,
-                                int n_split, int64_t o_sb, int64_t o_sh) {
+                                T* __restrict__ out, float* __restrict__ stats_m,
+                                float* __restrict__ stats_l, int B, int H,
+                                int D, int n_split, int64_t o_sb,
+                                int64_t o_sh) {
   // launched early (programmatic dependent launch): wait until the split
   // kernel has finished and its writes are visible
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -341,6 +356,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   T* o = out + (int64_t)(row / H) * o_sb + (int64_t)(row % H) * o_sh;
+  if (stats_m != nullptr && lane == 0) stats_m[row] = mx, stats_l[row] = l;
   const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
@@ -357,7 +373,7 @@ struct Args {
   const void *q, *k, *v;
   const int* lengths;
   void* out;
-  float *part_acc, *part_ml;
+  float *part_acc, *part_ml, *stats_m, *stats_l;
   int B, S, Hkv, rep, n_split, chunk;
   int64_t q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh;
   float scale;
@@ -371,7 +387,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   flash_decode_split_kernel<T, D, RB><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.lengths, static_cast<T*>(a.out),
-      a.part_acc, a.part_ml, a.S, a.Hkv, a.rep, n_groups, a.n_split, a.chunk,
+      a.part_acc, a.part_ml, a.stats_m, a.stats_l, a.S, a.Hkv, a.rep, n_groups, a.n_split, a.chunk,
       a.q_sb, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb, a.v_ss, a.v_sh, a.o_sb,
       a.o_sh, a.scale, a.window);
   cudaError_t e = cudaGetLastError();
@@ -390,7 +406,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, flash_decode_combine_kernel<T>,
                             (const float*)a.part_acc, (const float*)a.part_ml,
-                            static_cast<T*>(a.out), a.B, a.Hkv * a.rep, D,
+                            static_cast<T*>(a.out), a.stats_m, a.stats_l, a.B,
+                            a.Hkv * a.rep, D,
                             a.n_split, a.o_sb, a.o_sh);
 }
 
@@ -423,21 +440,26 @@ cudaError_t dispatch_d(int D, const Args& a, cudaStream_t stream) {
 // n_split and chunk come from the wrapper's plan (n_split * chunk >= S);
 // with n_split > 1, part_acc holds B*H*n_split*D floats and part_ml
 // B*H*n_split*2.  `window` > 0 masks the slots below lengths[b] - window
-// (0: no window).  Head dims 16, 32, 64 and 128 are compiled.  dtype: 0 =
+// (0: no window).  `stats_m` and `stats_l` (B * H float32 each, both or
+// neither) receive each row's softmax max and normaliser; null: not
+// written.  Head dims 16, 32, 64 and 128 are compiled.  dtype: 0 =
 // float32, 1 = bfloat16.  Returns the cudaError_t of the launches.
 extern "C" int repro_flash_decode(
     const void* q, const void* k, const void* v, const void* lengths,
-    void* out, void* part_acc, void* part_ml, int B, int S, int H, int Hkv,
+    void* out, void* part_acc, void* part_ml, void* stats_m, void* stats_l,
+    int B, int S, int H, int Hkv,
     int D, int n_split, int chunk, int64_t q_sb, int64_t q_sh, int64_t k_sb,
     int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
     int64_t o_sb, int64_t o_sh, float scale, int window, int dtype,
     void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || n_split <= 0 ||
       chunk <= 0 || (int64_t)n_split * chunk < S || window < 0 ||
-      (n_split > 1 && (part_acc == nullptr || part_ml == nullptr)))
+      (n_split > 1 && (part_acc == nullptr || part_ml == nullptr)) ||
+      ((stats_m == nullptr) != (stats_l == nullptr)))
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, static_cast<const int*>(lengths), out,
                static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+               static_cast<float*>(stats_m), static_cast<float*>(stats_l),
                B, S, Hkv, H / Hkv, n_split, chunk, q_sb, q_sh, k_sb, k_ss,
                k_sh, v_sb, v_ss, v_sh, o_sb, o_sh, scale, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -22,6 +22,15 @@ reference computes windowed decode in jnp; the port's LM runs it here).
 The caches may be strided views: the Marian decoder passes its folded
 (B,T,H*D) buffers as ``view(B,T,H,D)``, and the kernel reads them through
 their strides, with no per-step transpose or copy.
+
+``return_stats=True`` also returns each (b, h) row's softmax state in
+float32: the score maximum ``m`` and the normaliser ``l = sum exp(s -
+m)`` over the slots the softmax ran over (a row with no valid slot: m =
+-1e30 and l its slot count).  Outputs over disjoint slices of one cache
+merge into the whole cache's output with :func:`merge_decode_stats`,
+which is what the sequence-sharded decode computes with collectives
+(``models/layers/attention.attn_decode_seq_sharded``; the reference's
+``pmax`` / ``psum`` merge).
 """
 
 from __future__ import annotations
@@ -77,9 +86,24 @@ def combine_splits_plain(m, l, acc):
     return (acc * w[..., None]).sum(-2) / total.clamp_min(1e-30)[..., None]
 
 
+def merge_decode_stats(outs, ms, ls):
+    """The output over a whole cache from ``flash_decode(return_stats=
+    True)`` over disjoint slices of it: ``outs`` (B,H,D), ``ms`` and
+    ``ls`` (B,H) float32, one each per slice.  ``m_g = max m``, ``w =
+    exp(m - m_g)``, ``l_g = sum l w``, ``o = sum o l w / max(l_g,
+    1e-30)`` in float32, in outs' dtype.  A slice whose rows have no
+    valid slot (m = -1e30) weighs 0 beside a live slice."""
+    m = torch.stack(list(ms))
+    lw = torch.stack(list(ls)) * torch.exp(m - m.amax(0))
+    acc = (torch.stack(list(outs)).float() * lw[..., None]).sum(0)
+    return (acc / lw.sum(0).clamp_min(1e-30)[..., None]).to(outs[0].dtype)
+
+
 def flash_decode_plain(q, k_cache, v_cache, lengths, *, scale=None,
-                       window: int | None = None):
-    """Plain PyTorch version of the kernel (materialized scores)."""
+                       window: int | None = None,
+                       return_stats: bool = False):
+    """Plain PyTorch version of the kernel (materialized scores); with
+    ``return_stats`` also (m, l) (B,H) float32."""
     window = _window(window, True)
     b, h, d = q.shape
     t, hkv = k_cache.shape[1], k_cache.shape[2]
@@ -95,12 +119,19 @@ def flash_decode_plain(q, k_cache, v_cache, lengths, *, scale=None,
     scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrt,btgd->bgrd", w, v_cache.float())
-    return out.reshape(b, h, d).to(q.dtype)
+    out = out.reshape(b, h, d).to(q.dtype)
+    if not return_stats:
+        return out
+    m = scores.amax(-1)
+    l = torch.exp(scores - m[..., None]).sum(-1)
+    return out, m.reshape(b, h), l.reshape(b, h)
 
 
 def flash_decode_cuda(q, k_cache, v_cache, lengths, *, scale=None,
-                      window: int | None = None):
-    """Launch ``csrc/decode_attention.cu`` on PyTorch's current stream.
+                      window: int | None = None,
+                      return_stats: bool = False):
+    """Launch ``csrc/decode_attention.cu`` on PyTorch's current stream;
+    with ``return_stats`` also (m, l) (B,H) float32.
 
     Takes CUDA tensors only and raises on anything the kernel does not
     take; builds the kernel library at first use.
@@ -127,22 +158,29 @@ def flash_decode_cuda(q, k_cache, v_cache, lengths, *, scale=None,
     scale = scale if scale is not None else d ** -0.5
     n_split, chunk = decode_splits(b, hkv, s)
     # one allocation: the output first, then (with splits) the partial
-    # accumulators (B*H*n_split*D) and (m, l) pairs, all float32
+    # accumulators (B*H*n_split*D) and (m, l) pairs, then (with stats) m
+    # and l, all float32
     n_out = b * h * d * q.element_size() // 4
     n_part = b * h * n_split * d if n_split > 1 else 0
     n_ml = 2 * b * h * n_split if n_split > 1 else 0
-    buf = torch.empty(n_out + n_part + n_ml, dtype=torch.float32,
+    n_st = 2 * b * h if return_stats else 0
+    buf = torch.empty(n_out + n_part + n_ml + n_st, dtype=torch.float32,
                       device=q.device)
     out = buf[:n_out].view(q.dtype).view(b, h, d)
     base = buf.data_ptr()
     parts = ((base + 4 * n_out, base + 4 * (n_out + n_part)) if n_split > 1
              else (None, None))
+    stats = buf[n_out + n_part + n_ml:].view(2, b, h) if return_stats \
+        else None
+    stat_ptrs = ((stats[0].data_ptr(), stats[1].data_ptr()) if return_stats
+                 else (None, None))
     lib = _build.load_library()
     rc = lib.repro_flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), *parts, b, s, h, hkv, d, n_split,
+        lens.data_ptr(), out.data_ptr(), *parts, *stat_ptrs, b, s, h, hkv, d,
+        n_split,
         chunk, *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3],
         *out.stride()[:2], ctypes.c_float(scale), window, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_decode")
-    return out
+    return (out, stats[0], stats[1]) if return_stats else out

@@ -73,15 +73,17 @@ def flash_attention(q, k, v, lengths=None, *, causal: bool = True,
 
 
 def flash_decode(q, k_cache, v_cache, lengths, *, scale=None,
-                 window: int | None = None):
+                 window: int | None = None, return_stats: bool = False):
     """q (B,H,D); caches (B,S,Hkv,D); lengths (B,) -> (B,H,D).
-    ``window`` masks the slots below lengths - window."""
+    ``window`` masks the slots below lengths - window; ``return_stats``
+    also returns each row's softmax max and normaliser (B,H) float32."""
     if q.device.type == "cpu":
         return _da.flash_decode_plain(q, k_cache, v_cache, lengths,
-                                      scale=scale, window=window)
+                                      scale=scale, window=window,
+                                      return_stats=return_stats)
     _refuse_autograd("flash_decode", q, k_cache, v_cache)
     out = _da.flash_decode_cuda(q, k_cache, v_cache, lengths, scale=scale,
-                                window=window)
+                                window=window, return_stats=return_stats)
     flash_decode.launches += 1
     return out
 

@@ -30,6 +30,11 @@ A ring cache (``ring=True``, capacity == window) holds the last
 ``flash_decode`` reads ``lengths = min(pos + 1, S_max)``, which is the
 reference's ring mask ``idx <= pos or pos >= S_max``.
 
+Sequence-sharded decode (:func:`attn_decode_seq_sharded`, the sharded
+runtime's path for a linear cache split over ranks): each rank runs
+``flash_decode`` on its own slots with the softmax state out, and the
+ranks merge their states with two collectives.
+
 Cross-attention (whisper's decoder): ``xq``/``xk``/``xv``/``xo`` project
 the decoder's queries and the encoder's keys and values, with no RoPE
 and no qk-norm.  The reference masks frames with any ``(B, T)`` mask;
@@ -57,6 +62,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.kernels import ops
@@ -172,13 +178,13 @@ def cross_decode(p: GQA, cfg: ModelConfig, x, enc_k, enc_v, enc_lengths):
 
 def _write_slot(cache, new, pos) -> None:
     """Write ``new`` (B, ...) into ``cache`` (B, S_max, ...) at slot
-    ``pos`` (B,), dropping the write of a row with ``pos >= S_max``: the
-    index is clamped to the last slot and that slot written back as it
-    was, so only the B written rows are read."""
+    ``pos`` (B,), dropping the write of a row with ``pos`` outside [0,
+    S_max): the index is clamped into the cache and that slot written
+    back as it was, so only the B written rows are read."""
     b, s_max = cache.shape[:2]
     rows = torch.arange(b, device=cache.device)
-    idx = pos.long().clamp(max=s_max - 1)
-    fits = (pos < s_max).view((b,) + (1,) * (new.dim() - 1))
+    idx = pos.long().clamp(0, s_max - 1)
+    fits = ((pos >= 0) & (pos < s_max)).view((b,) + (1,) * (new.dim() - 1))
     cache[rows, idx] = torch.where(fits, new, cache[rows, idx])
 
 
@@ -212,6 +218,45 @@ def attn_decode(p: GQA, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
         _write_slot(cache_v, v[:, 0], pos)
         lengths = (pos + 1).to(torch.int32)
     y = ops.flash_decode(q[:, 0], cache_k, cache_v, lengths, window=window)
+    return p.o(y.reshape(b, 1, -1))
+
+
+def attn_decode_seq_sharded(p: GQA, cfg: ModelConfig, x, cache_k, cache_v,
+                            pos, *, group, window: Optional[int] = None):
+    """:func:`attn_decode` over a linear cache split along its sequence
+    axis over the ranks of ``group``: this rank holds slots ``[base, base
+    + s_loc)``, ``base = rank * s_loc``, as cache_k/v (B,s_loc,Hkv,Dh).
+
+    Each rank writes the new K/V only where ``pos`` falls in its range
+    (``_write_slot`` at ``pos - base``), runs ``flash_decode`` on its own
+    slots with local lengths ``max(pos + 1 - base, 0)`` and the softmax
+    state out, and the ranks merge: ``all_reduce`` MAX of m, then one SUM
+    of (o l w, l w), ``w = exp(m - max m)``; the output is ``sum o l w /
+    max(sum l w, 1e-30)`` (:func:`~repro_torch.kernels.decode_attention.
+    merge_decode_stats` is the same merge as a plain function).  Every
+    rank ends with the same output.  A rank whose slots all lie past
+    ``pos`` has local length 0, averages over its slots and carries m =
+    -1e30, so its weight is 0: slot 0 is always valid.  The local lengths
+    are not cut at ``s_loc``: the kernel reads at most its slots anyway,
+    and a ``window`` (slots below ``lengths - window`` masked) stays
+    right only on the uncut length.  The reference's shard_map body
+    (``attn_decode_seq_sharded``) attends with jnp ops and no window."""
+    b, s_loc = x.shape[0], cache_k.shape[1]
+    q, k, v = _qkv(p, cfg, x, pos[:, None])
+    local = pos - dist.get_rank(group) * s_loc
+    _write_slot(cache_k, k[:, 0], local)
+    _write_slot(cache_v, v[:, 0], local)
+    lengths = (local + 1).clamp(min=0).to(torch.int32)
+    y, m, l = ops.flash_decode(q[:, 0], cache_k, cache_v, lengths,
+                               window=window, return_stats=True)
+    m_g = m.clone()
+    dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
+    lw = l * torch.exp(m - m_g)
+    merged = torch.cat([(y.float() * lw[..., None]).reshape(b, -1), lw], 1)
+    dist.all_reduce(merged, op=dist.ReduceOp.SUM, group=group)
+    n = y[0].numel()
+    acc, l_g = merged[:, :n].reshape(y.shape), merged[:, n:]
+    y = (acc / l_g.clamp_min(1e-30)[..., None]).to(y.dtype)
     return p.o(y.reshape(b, 1, -1))
 
 

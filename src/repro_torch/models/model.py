@@ -58,10 +58,22 @@ dispatch within one group per batch row in prefill and training and one
 group for the whole batch in decode (the reference's rule), so with a
 capacity factor that drops assignments a row's output depends on the
 other rows of its batch.
+
+Sharded serving (:mod:`repro_torch.runtime.sharded`) keeps only this
+rank's block of each parameter in the module and installs ``unshard``,
+a context that makes the given modules' weights whole while they run:
+every layer, the embedding and the head run inside ``_whole``.  A
+decode step with a sequence shard installed
+(:func:`repro_torch.sharding.ctx.decode_seq_shard`) runs each attention
+group without cross-attention through
+:func:`~repro_torch.models.layers.attention.attn_decode_seq_sharded` on
+this rank's slots of its linear cache (the runtime gathers a ring before
+the step).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional
 
 import torch
@@ -80,6 +92,7 @@ from repro_torch.models.layers.basic import (
     SwiGLU,
     rmsnorm,
 )
+from repro_torch.sharding import ctx as shard_ctx
 
 NEG_LOGIT = -1e30        # logit of a vocab padding column
 _RECURRENT = ("mamba2", "rwkv6")
@@ -128,6 +141,7 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
         super().__init__()
         self.cfg = cfg.validate()
+        self.unshard = None      # the sharded runtime's per-module gather
         dev = resolve_device(device)
         gen = (None if dev.type == "meta"
                else torch.Generator(device=dev).manual_seed(seed))
@@ -169,6 +183,17 @@ class LM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.w.device
+
+    def _whole(self, *modules):
+        """Context in which ``modules``' weights are whole: the sharded
+        runtime's gather (``unshard``) if one is installed."""
+        if self.unshard is None:
+            return contextlib.nullcontext()
+        return self.unshard(*modules)
+
+    def _embed(self, tokens):
+        with self._whole(self.embed):
+            return self.embed(tokens)
 
     # ------------------------------------------------------------ blocks --
     def _ffn(self, p: Block, g: LayerGroup, x, rstate, *, full: bool):
@@ -231,11 +256,18 @@ class LM(nn.Module):
         rstate = None
         if g.mixer in _ATTENTION:
             w = cfg.sliding_window
-            # a window-sized cache is a ring (the long-decode state)
-            ring = bool(w) and cache["k"].shape[2] == w
-            y = att.attn_decode(p.mixer, cfg, h, cache["k"][li],
-                                cache["v"][li], pos,
-                                window=None if ring else w, ring=ring)
+            seq = shard_ctx.decode_seq_shard()
+            if seq is not None and not g.cross_attn:
+                # this rank's slots of a linear cache split over seq.group
+                y = att.attn_decode_seq_sharded(
+                    p.mixer, cfg, h, cache["k"][li], cache["v"][li], pos,
+                    group=seq.group, window=w)
+            else:
+                # a window-sized cache is a ring (the long-decode state)
+                ring = bool(w) and cache["k"].shape[2] == w
+                y = att.attn_decode(p.mixer, cfg, h, cache["k"][li],
+                                    cache["v"][li], pos,
+                                    window=None if ring else w, ring=ring)
             if g.cross_attn:
                 x = x + y
                 y = att.cross_decode(p.mixer, cfg,
@@ -267,9 +299,11 @@ class LM(nn.Module):
     # ----------------------------------------------------------- logits --
     def _logits(self, x):
         cfg = self.cfg
-        x = rmsnorm(self.final_norm.g, x, cfg.norm_eps)
-        logits = (x @ self.embed.w.to(x.dtype).T if cfg.tie_embeddings
-                  else self.lm_head(x))
+        head = self.embed if cfg.tie_embeddings else self.lm_head
+        with self._whole(self.final_norm, head):
+            x = rmsnorm(self.final_norm.g, x, cfg.norm_eps)
+            logits = (x @ self.embed.w.to(x.dtype).T if cfg.tie_embeddings
+                      else self.lm_head(x))
         if cfg.padded_vocab != cfg.vocab_size:
             logits[..., cfg.vocab_size:] = NEG_LOGIT
         return logits
@@ -288,10 +322,12 @@ class LM(nn.Module):
                                     device=frames.device)
         x = frames
         for p in self.encoder.layers:
-            x, _, _ = self._block_full(p, _ENCODER_GROUP, x, kernels=kernels,
-                                       causal=False)
-        return rmsnorm(self.encoder.final_norm.g, x, self.cfg.norm_eps), \
-            frame_mask
+            with self._whole(p):
+                x, _, _ = self._block_full(p, _ENCODER_GROUP, x,
+                                           kernels=kernels, causal=False)
+        with self._whole(self.encoder.final_norm):
+            x = rmsnorm(self.encoder.final_norm.g, x, self.cfg.norm_eps)
+        return x, frame_mask
 
     def _encode_for(self, frames, frame_mask, *, kernels: bool):
         """((encoder output, frame lengths), frame mask) of an
@@ -318,8 +354,10 @@ class LM(nn.Module):
         for gi, g in enumerate(self.cfg.layer_plan):
             entries = []
             for p in self._layers(gi, g):
-                x, cache, aux = self._block_full(p, g, x, kernels=kernels,
-                                                 window=w, enc=enc)
+                with self._whole(p):
+                    x, cache, aux = self._block_full(p, g, x,
+                                                     kernels=kernels,
+                                                     window=w, enc=enc)
                 if with_cache:
                     entries.append(cache)
                 if aux is not None:
@@ -341,7 +379,7 @@ class LM(nn.Module):
         the sum over the calls, as the reference's.  ``aux_loss`` is the
         sum of the MoE layers' load-balance losses (0 without MoE)."""
         enc, _ = self._encode_for(frames, frame_mask, kernels=False)
-        x, _, aux_total = self._run_full(self.embed(tokens), kernels=False,
+        x, _, aux_total = self._run_full(self._embed(tokens), kernels=False,
                                          enc=enc, with_cache=False)
         out = {"logits": self._logits(x), "aux_loss": aux_total}
         if self.cfg.mtp_depth:
@@ -353,11 +391,12 @@ class LM(nn.Module):
         token t+2 from [norm(h_t) ; emb(token_t+1)] (its MoE aux loss is
         not counted, as in the reference)."""
         cfg, mtp = self.cfg, self.mtp
-        emb_next = self.embed(torch.roll(tokens, -1, dims=1))
-        z = mtp.proj(torch.cat([rmsnorm(mtp.norm.g, h, cfg.norm_eps),
-                                emb_next], dim=-1))
-        z, _, _ = self._block_full(mtp.block, cfg.layer_plan[-1], z,
-                                   kernels=False)
+        emb_next = self._embed(torch.roll(tokens, -1, dims=1))
+        with self._whole(mtp):
+            z = mtp.proj(torch.cat([rmsnorm(mtp.norm.g, h, cfg.norm_eps),
+                                    emb_next], dim=-1))
+            z, _, _ = self._block_full(mtp.block, cfg.layer_plan[-1], z,
+                                       kernels=False)
         return self._logits(z)
 
     # ---------------------------------------------------------- prefill --
@@ -385,7 +424,7 @@ class LM(nn.Module):
                 raise ValueError("ragged prompt lengths need position-masked "
                                  "mixers; recurrent states fold pad steps in")
         enc, enc_mask = self._encode_for(frames, frame_mask, kernels=True)
-        x, caches, _ = self._run_full(self.embed(tokens), kernels=True,
+        x, caches, _ = self._run_full(self._embed(tokens), kernels=True,
                                       window=window, enc=enc,
                                       with_cache=True)
         if max_len is not None and max_len > s:
@@ -452,6 +491,18 @@ class LM(nn.Module):
                                            dtype=torch.float32, device=dev)
         return state
 
+    def copy_rows(self, dst: Dict, src: Dict, slots) -> None:
+        """Copy the first ``len(slots)`` rows of the decode state ``src``
+        (an admission prefill's) into rows ``slots`` of ``dst`` (a slot
+        table's resident state): every cache tensor at axis 1, after the
+        layer axis, and ``pos`` at axis 0."""
+        k = len(slots)
+        rows = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+        for resident, fresh in zip(dst["caches"], src["caches"]):
+            for name, t in resident.items():
+                t.index_copy_(1, rows, fresh[name][:, :k])
+        dst["pos"].index_copy_(0, rows, src["pos"][:k])
+
     # ----------------------------------------------------------- decode --
     @torch.no_grad()
     def decode_step(self, state: Dict, tokens):
@@ -463,11 +514,12 @@ class LM(nn.Module):
         enc_mask = state.get("enc_mask")
         enc_len = (None if enc_mask is None
                    else att.mask_lengths(enc_mask, check=False))
-        x = self.embed(tokens)
+        x = self._embed(tokens)
         for gi, g in enumerate(self.cfg.layer_plan):
             cache = state["caches"][gi]
             for li, p in enumerate(self._layers(gi, g)):
-                x = self._block_decode(p, g, x, cache, li, pos, enc_len)
+                with self._whole(p):
+                    x = self._block_decode(p, g, x, cache, li, pos, enc_len)
         logits = self._logits(x[:, 0, :])
         pos.add_(1)
         return logits, state

@@ -41,7 +41,13 @@ per step.  EOS bookkeeping is the same
 call), ``kind="split"`` (the two legs of a split placement over an NMT
 model's ``EncoderStates``), ``kind="raw"`` (pass-through, to apply
 ``faults=``).  A continuous session goes to a tier as its
-``continuous_session``.  The sharded sessions are not ported yet.
+``continuous_session``.
+
+Both sessions serve a sharded LM
+(:class:`~repro_torch.runtime.sharded.ShardedLM`, built by
+:func:`~repro_torch.runtime.sharded.make_sharded_session`) as they serve
+an LM: it takes and returns the whole batch on every rank, and the slot
+table's admission copies rows through the model's ``copy_rows``.
 """
 
 from __future__ import annotations
@@ -558,12 +564,8 @@ class ContinuousGenerationSession:
                 torch.as_tensor(block, device=dev), max_len=self.max_len,
                 lengths=torch.as_tensor(lens_in, device=dev) if ragged
                 else None)
+            self.model.copy_rows(self._state, new, slots)
             rows = torch.as_tensor(slots, dtype=torch.long, device=dev)
-            for resident, fresh in zip(self._state["caches"],
-                                       new["caches"]):
-                for name, t in resident.items():
-                    t.index_copy_(1, rows, fresh[name][:, :k])
-            self._state["pos"].index_copy_(0, rows, new["pos"][:k])
             self._tok.index_copy_(0, rows, torch.argmax(
                 logits[:k], dim=-1).to(torch.int32))
             self._done.index_fill_(0, rows, False)

@@ -1,0 +1,373 @@
+"""Mesh-backed serving for the big-LM stack.
+
+Port of ``repro/runtime/sharded.py``: a
+:class:`~repro_torch.runtime.serving.GenerationSession` /
+:class:`~repro_torch.runtime.serving.ContinuousGenerationSession` whose LM
+parameters and decode state lie over a ``torch.distributed``
+``DeviceMesh`` (a gloo mesh of CPU processes in tests, NCCL across cards),
+under the reference's partition specs (``sharding/policy.py``), so a
+:class:`~repro_torch.runtime.engine.Tier` of the ``CollaborativeEngine``
+can be a multi-device LM server: a sharded tier is just a tier.
+
+The reference leaves execution to GSPMD.  Here every rank runs the
+port's unchanged layer code on its own part of the work:
+
+* **Parameters.**  Each is held as a ``DTensor`` under
+  ``to_placements(param_specs(...))``: the module keeps only this rank's
+  block, and a layer's weights are gathered whole just before it runs
+  (one all_gather of all its blocks) and freed after it (``LM.unshard``),
+  as FSDP does.  A weight whose spec splits nothing (or only over size-1
+  axes) is never gathered.
+* **Batch.**  Each rank runs the rows ``batch_specs`` gives it; logits are
+  gathered over the batch axes, so every rank returns the whole batch
+  and the sessions' token loops run the same on every rank.
+* **Prefill** computes on the rank's rows with gathered weights; the rank
+  then keeps only its block of every state leaf (``decode_state_specs``).
+  The state carries its specs under ``"specs"``.
+* **Decode.**  Self-attention over a linear cache split over its sequence
+  axis runs ``attn_decode_seq_sharded`` on the rank's slots (a
+  :class:`~repro_torch.sharding.ctx.SeqShard` installed for the step).
+  Any other leaf split beyond the batch (a ring cache, a cross-attention
+  group's self-attention cache, MLA's ``ckv``/``kpe``, ``ssm``/``wkv``
+  heads over ``model``) is gathered for the step and cut back after it.
+
+Tokens equal the unsharded session's only behind a top-2 logit margin: a
+rank computes B/|batch axes| rows, so a GEMM's kernel and
+``flash_decode``'s split plan change with the batch shape, and the
+sequence-sharded merge sums in another order (ROADMAP C).  MoE decode
+dispatches the rank's rows as one group, so with a capacity factor that
+drops assignments a row's output depends on which rows share its rank.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from repro_torch.runtime.serving import (
+    ContinuousGenerationSession,
+    GenerationSession,
+)
+from repro_torch.sharding.ctx import SeqShard, set_decode_seq_shard
+from repro_torch.sharding.policy import (
+    ShardingPolicy,
+    decode_state_specs,
+    make_policy,
+    mesh_shape,
+    param_specs,
+    spec_axes,
+    to_placements,
+)
+
+_ATTENTION = ("attn", "shared_attn")
+
+
+def infer_layout(cfg, mesh) -> str:
+    """Pick the policy layout for this architecture on this mesh.
+
+    ``tp`` when the attention head counts divide the ``model`` axis (the
+    split then divides real work); ``ddp`` otherwise, and for mixers that
+    carry no head axis worth splitting (rwkv6, mamba2)."""
+    tp = int(mesh_shape(mesh).shape.get("model", 1))
+    if tp <= 1:
+        return "ddp"
+    heads_ok = (cfg.num_heads % tp == 0 and cfg.num_kv_heads % tp == 0)
+    has_heads = any(g.mixer in ("attn", "shared_attn", "mla")
+                    for g in cfg.layer_plan)
+    return "tp" if (has_heads and heads_ok) else "ddp"
+
+
+def _leaves(state):
+    """(parent, key, batch axis) of each tensor of a decode state (or of
+    its spec tree): cache leaves have the batch at axis 1, after the layer
+    axis; ``pos`` and ``enc_mask`` at axis 0."""
+    for cache in state["caches"]:
+        for name in cache:
+            yield cache, name, 1
+    for name in ("pos", "enc_mask"):
+        if name in state:
+            yield state, name, 0
+
+
+def _keep(spec, axis: int, keep: bool):
+    """``spec`` with only entry ``axis`` (keep) or all but it (not keep)."""
+    return tuple(e if (i == axis) == keep else None
+                 for i, e in enumerate(spec))
+
+
+class ShardedLM:
+    """An :class:`~repro_torch.models.model.LM` over ``mesh`` under
+    ``policy``, with the LM's serving interface (``prefill``,
+    ``decode_step``, ``init_decode_state``, ``copy_rows``,
+    ``train_logits``, ``cfg``, ``device``).  Every call is a collective:
+    each rank calls it with the whole batch, and gets the whole batch's
+    logits back.  The LM given is changed in place (its parameters become
+    this rank's blocks)."""
+
+    def __init__(self, model, mesh, policy: ShardingPolicy):
+        backend = dist.get_backend()
+        if model.device.type != mesh.device_type:
+            raise ValueError(f"the model lies on {model.device.type}, the "
+                             f"mesh on {mesh.device_type}")
+        if model.device.type == "cuda" and "nccl" not in backend:
+            raise ValueError(f"a model on cuda needs an NCCL process group, "
+                             f"not {backend}")
+        if math.prod(mesh.shape) != dist.get_world_size():
+            raise ValueError(f"a {tuple(mesh.shape)} mesh does not cover the "
+                             f"{dist.get_world_size()} ranks")
+        self.model, self.mesh, self.policy = model, mesh, policy
+        self.cfg = model.cfg
+        # the mesh coordinate of each global rank, in rank order
+        self._coords = [tuple((mesh.mesh == r).nonzero()[0].tolist())
+                        for r in range(mesh.mesh.numel())]
+        self.specs = param_specs(policy, model)
+        self._dtensors: Dict[int, DTensor] = {}
+        for name, p in model.named_parameters():
+            spec = self.specs[name]
+            local = self._block(p.data, spec)
+            p.data = local
+            self._dtensors[id(p)] = DTensor.from_local(
+                local, mesh, to_placements(mesh, spec), run_check=False)
+        model.unshard = self._unshard
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    def local_bytes(self) -> int:
+        """Bytes of the parameter blocks this rank holds."""
+        return sum(dt.to_local().nbytes for dt in self._dtensors.values())
+
+    # ---------------------------------------------------------- blocks --
+    def _splits(self, spec) -> bool:
+        """Whether ``spec`` cuts a tensor (an axis of size 1 cuts nothing)."""
+        return any(self.policy.axis_size(spec_axes(e)) > 1 for e in spec)
+
+    def _block(self, t, spec):
+        """This rank's block of the whole tensor ``t`` (a copy) under
+        ``spec``; ``t`` itself where the spec cuts nothing."""
+        if not self._splits(spec):
+            return t
+        return distribute_tensor(t, self.mesh, to_placements(self.mesh, spec),
+                                 src_data_rank=None).to_local().clone()
+
+    def _gather(self, t, spec):
+        """The whole tensor from each rank's block ``t`` under ``spec``."""
+        if not self._splits(spec):
+            return t
+        return DTensor.from_local(t, self.mesh, to_placements(self.mesh, spec),
+                                  run_check=False).full_tensor()
+
+    def _rows(self, t, rows):
+        """This rank's rows of a whole-batch tensor; None stays None."""
+        if t is None:
+            return None
+        t = torch.as_tensor(t, device=self.device)
+        return self._block(t, (rows,) + (None,) * (t.dim() - 1))
+
+    @contextlib.contextmanager
+    def _unshard(self, *modules):
+        """``modules``' parameters whole while the block runs, then back to
+        this rank's blocks (the gathered copies are freed)."""
+        cut = [p for mod in modules for p in mod.parameters()
+               if p.shape != self._dtensors[id(p)].shape]
+        for p, whole in zip(cut, self._gather_params(cut)):
+            p.data = whole
+        try:
+            yield
+        finally:
+            for p in cut:
+                p.data = self._dtensors[id(p)].to_local()
+
+    def _gather_params(self, params):
+        """The whole tensors of ``params``' blocks in ONE all_gather over
+        the world (a flat buffer of every block, as FSDP gathers a layer),
+        each assembled from the ranks' blocks as ``DTensor`` lays them:
+        a dim split over several mesh dims takes them in mesh order."""
+        if not params:
+            return []
+        blocks = [self._dtensors[id(p)].to_local() for p in params]
+        flat = torch.cat([b.reshape(-1) for b in blocks])
+        parts = [torch.empty_like(flat) for _ in self._coords]
+        dist.all_gather(parts, flat)
+        sizes, out, off = self.mesh.shape, [], 0
+        for p, b in zip(params, blocks):
+            placements = self._dtensors[id(p)].placements
+            whole = b.new_empty(self._dtensors[id(p)].shape)
+            for part, coord in zip(parts, self._coords):
+                index = [0] * b.dim()
+                for md, pl in enumerate(placements):
+                    if pl.is_shard():
+                        index[pl.dim] = index[pl.dim] * sizes[md] + coord[md]
+                whole[tuple(slice(i * n, (i + 1) * n) for i, n in
+                            zip(index, b.shape))] = \
+                    part[off:off + b.numel()].view(b.shape)
+            out.append(whole)
+            off += b.numel()
+        return out
+
+    # ----------------------------------------------------------- state --
+    def _split_state(self, state, batch: int):
+        """Keep this rank's block of every leaf of a decode state whose
+        rows are already this rank's (``batch`` rows in all)."""
+        shapes = {"caches": [{name: _meta(t, 1, batch)
+                              for name, t in cache.items()}
+                             for cache in state["caches"]]}
+        shapes.update({name: _meta(state[name], 0, batch)
+                       for name in ("pos", "enc_mask") if name in state})
+        specs = decode_state_specs(self.policy, shapes)
+        for (parent, name, axis), (sp, _, _) in zip(_leaves(state),
+                                                    _leaves(specs)):
+            parent[name] = self._block(parent[name],
+                                       _keep(sp[name], axis, False))
+        state["specs"] = specs
+        return state
+
+    def init_decode_state(self, batch: int, max_len: int,
+                          dtype=torch.float32, *, ring: bool = True) -> Dict:
+        """``LM.init_decode_state`` of the whole batch, this rank's block."""
+        rows = self.policy.batch(batch)
+        n = batch // (self.policy.axis_size(rows) if rows else 1)
+        return self._split_state(
+            self.model.init_decode_state(n, max_len, dtype, ring=ring), batch)
+
+    # --------------------------------------------------------- serving --
+    @torch.no_grad()
+    def prefill(self, tokens, *, frames=None, frame_mask=None, window=None,
+                max_len=None, lengths=None):
+        """``LM.prefill`` of the whole batch: (logits (B,V) whole, this
+        rank's block of the decode state)."""
+        b = tokens.shape[0]
+        rows = self.policy.batch(b)
+        logits, state = self.model.prefill(
+            self._rows(tokens, rows), frames=self._rows(frames, rows),
+            frame_mask=self._rows(frame_mask, rows), window=window,
+            max_len=max_len, lengths=self._rows(lengths, rows))
+        return self._gather(logits, (rows, None)), self._split_state(state, b)
+
+    @torch.no_grad()
+    def decode_step(self, state: Dict, tokens):
+        """``LM.decode_step`` of the whole batch on this rank's block of
+        the state (updated in place); returns the whole batch's logits."""
+        specs = state["specs"]
+        rows = specs["pos"][0]
+        w = self.cfg.sliding_window
+        gathered, seq_axes = [], None
+        for g, cache, spec in zip(self.cfg.layer_plan, state["caches"],
+                                  specs["caches"]):
+            for name, t in cache.items():
+                cut = _keep(spec[name], 1, False)
+                if not any(spec_axes(e) for e in cut):
+                    continue
+                if name in ("k", "v") and g.mixer in _ATTENTION \
+                        and not g.cross_attn and not (w and t.shape[2] * (
+                            self.policy.axis_size(spec_axes(cut[2]))) == w):
+                    # a linear self-attention cache: decoded where it lies
+                    seq_axes = spec_axes(cut[2])
+                    continue
+                cache[name] = self._gather(t, cut)
+                gathered.append((cache, name, cut))
+        seq = None
+        if seq_axes is not None:
+            (axis,) = seq_axes        # the policy splits a sequence one way
+            seq = SeqShard(self.mesh.get_group(axis), axis, spec_axes(rows))
+        set_decode_seq_shard(seq)
+        try:
+            logits, _ = self.model.decode_step(state,
+                                               self._rows(tokens, rows))
+        finally:
+            set_decode_seq_shard(None)
+        for cache, name, cut in gathered:
+            cache[name] = self._block(cache[name], cut)
+        return self._gather(logits, (rows, None)), state
+
+    def copy_rows(self, dst: Dict, src: Dict, slots) -> None:
+        """``LM.copy_rows`` between two sharded states: each rank gathers
+        ``src``'s rows (its own block of the other axes) and writes those
+        of the slots it holds."""
+        dst_rows = dst["specs"]["pos"][0]
+        n = dst["pos"].shape[0] * (self.policy.axis_size(spec_axes(dst_rows))
+                                   if dst_rows else 1)
+        held = self._block(torch.arange(n, device=self.device),
+                           (dst_rows,)).tolist()
+        where = {s: j for j, s in enumerate(slots)}
+        mine = [(i, where[s]) for i, s in enumerate(held) if s in where]
+        idx = torch.as_tensor(mine, dtype=torch.long,
+                              device=self.device).reshape(-1, 2)
+        for (dp, name, axis), (sp, _, _), (fp, _, _), (fsp, _, _) in zip(
+                _leaves(dst), _leaves(dst["specs"]), _leaves(src),
+                _leaves(src["specs"])):
+            if _keep(sp[name], axis, False) != _keep(fsp[name], axis, False):
+                raise ValueError(f"{name}: the states split it differently")
+            fresh = self._gather(fp[name], _keep(fsp[name], axis, True))
+            if mine:
+                dp[name].index_copy_(axis, idx[:, 0],
+                                     fresh.index_select(axis, idx[:, 1]))
+
+    def train_logits(self, tokens, *, frames=None, frame_mask=None):
+        """``LM.train_logits`` of the whole batch: each rank runs its rows;
+        the logits (and ``mtp_logits``) are the whole batch's.
+        ``aux_loss`` is the mean of the batch shards' load-balance losses,
+        which is the whole batch's only when the batch is not split (the
+        loss is a product of two means over the tokens)."""
+        rows = self.policy.batch(tokens.shape[0])
+        out = self.model.train_logits(self._rows(tokens, rows),
+                                      frames=self._rows(frames, rows),
+                                      frame_mask=self._rows(frame_mask, rows))
+        for key in ("logits", "mtp_logits"):
+            if key in out:
+                out[key] = self._gather(out[key], (rows, None, None))
+        out["aux_loss"] = self._gather(out["aux_loss"][None],
+                                      (rows,)).mean()
+        return out
+
+
+def _meta(t, axis: int, n: int):
+    """A meta tensor of ``t``'s shape with ``n`` at ``axis``."""
+    shape = list(t.shape)
+    shape[axis] = n
+    return torch.empty(shape, device="meta")
+
+
+def shard_lm(model, mesh, *, batch_size: int = 8, layout: str = "auto",
+             fsdp: bool = True) -> Tuple[ShardedLM, ShardingPolicy]:
+    """Place ``model`` (an LM, built the same on every rank) on ``mesh``
+    under the sharding policy.  Returns ``(sharded_lm, policy)``;
+    ``layout="auto"`` delegates to :func:`infer_layout`."""
+    if layout == "auto":
+        layout = infer_layout(model.cfg, mesh)
+    pol = make_policy(mesh, batch_size=batch_size, layout=layout, fsdp=fsdp)
+    return ShardedLM(model, mesh, pol), pol
+
+
+def make_sharded_session(model, mesh, *, continuous: bool = False,
+                         batch_size: int = 8, layout: str = "auto",
+                         fsdp: bool = True, max_len: int = 64,
+                         max_slots: int = 8, bucket_shapes: bool = True,
+                         host_loop: bool = False):
+    """A generation session over ``model`` sharded on ``mesh``.
+
+    ``continuous=False`` returns a :class:`GenerationSession`,
+    ``continuous=True`` a :class:`ContinuousGenerationSession`
+    (decoder-only plans).  ``build_executor``, ``Tier`` and
+    ``CollaborativeEngine.serve_continuous`` compose unchanged.  Every
+    rank makes the same calls on the session (each is a collective);
+    ``launch/serve.py --mesh`` has rank 0 drive it and the others follow.
+    The session carries ``.policy``, ``.layout`` and ``.mesh``."""
+    lm, pol = shard_lm(model, mesh, batch_size=batch_size, layout=layout,
+                       fsdp=fsdp)
+    if continuous:
+        sess = ContinuousGenerationSession(lm, max_slots=max_slots,
+                                           max_len=max_len,
+                                           bucket_shapes=bucket_shapes)
+    else:
+        sess = GenerationSession(lm, max_len=max_len, host_loop=host_loop)
+    sess.policy = pol
+    sess.layout = "tp" if pol.model_axes else "ddp"
+    sess.mesh = mesh
+    return sess

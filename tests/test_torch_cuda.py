@@ -737,3 +737,125 @@ def test_smoke_whisper_and_swa_on_the_card_match_the_cpu(dev, arch):
                                          for k, v in kw.items()})[0])
             outs.append(torch.stack(seq).cpu())
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------- sequence-sharded decode --
+QW_LENS = (37, 256, 100, 5, 180, 64, 1, 129)    # a qwen3-8b table step
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,hkv,d,lens,window", [
+    (8, 256, 32, 8, 128, QW_LENS, None),            # qwen3-8b, 4 splits
+    (8, 256, 32, 8, 128, (0, 256, 300, 1, 0, 9, 256, 2), None),
+    (4, 32, 32, 8, 128, (0, 32, 7, 40), None),      # one split
+    (3, 256, 8, 2, 64, (256, 100, 3), 40),          # window
+])
+def test_flash_decode_stats_match_plain(dev, dtype, b, t, h, hkv, d, lens,
+                                        window):
+    """return_stats: the output bitwise as without stats, and (m, l)
+    within 2e-5 of the plain twin's (relative for l), from the combine
+    pass with splits and from the main kernel with one: ragged lengths,
+    length 0 (m = -1e30, l = the slot count) and lengths past the
+    cache."""
+    q = _randn(40, (b, h, d), dev, dtype)
+    kc = _randn(41, (b, t, hkv, d), dev, dtype)
+    vc = _randn(42, (b, t, hkv, d), dev, dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    out, m, l = da.flash_decode_cuda(q, kc, vc, lengths, window=window,
+                                     return_stats=True)
+    plain = da.flash_decode_plain(q, kc, vc, lengths, window=window,
+                                  return_stats=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, da.flash_decode_cuda(q, kc, vc, lengths,
+                                                 window=window))
+    assert m.dtype == l.dtype == torch.float32 and m.shape == (b, h)
+    torch.testing.assert_close(out.float(), plain[0].float(),
+                               rtol=_tol(dtype), atol=_tol(dtype))
+    torch.testing.assert_close(m, plain[1], rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(l, plain[2], rtol=2e-5, atol=2e-5)
+
+
+def test_flash_decode_stats_under_a_cuda_graph(dev):
+    """A captured stats call reads the lengths on the device at replay."""
+    b, t, h, hkv, d = 8, 256, 32, 8, 128
+    q = _randn(43, (b, h, d), dev, torch.float32)
+    kc = _randn(44, (b, t, hkv, d), dev, torch.float32)
+    vc = _randn(45, (b, t, hkv, d), dev, torch.float32)
+    lengths = torch.tensor(QW_LENS, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.flash_decode_cuda(q, kc, vc, lengths, return_stats=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = da.flash_decode_cuda(q, kc, vc, lengths, return_stats=True)
+    for lens in (QW_LENS, (1, 2, 3, 0, 256, 255, 300, 128)):
+        lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = da.flash_decode_plain(q, kc, vc, lengths, return_stats=True)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_merged_slices_equal_the_whole_cache_on_the_card(dev, n):
+    """flash_decode(return_stats=True) on n slices of qwen3-8b's decode
+    cache, merged by merge_decode_stats, against the whole cache's
+    flash_decode: the sequence-sharded decode's arithmetic on one card."""
+    b, t, h, hkv, d = 8, 256, 32, 8, 128
+    q = _randn(46, (b, h, d), dev, torch.float32)
+    kc = _randn(47, (b, t, hkv, d), dev, torch.float32)
+    vc = _randn(48, (b, t, hkv, d), dev, torch.float32)
+    lengths = torch.tensor((0,) + QW_LENS[1:], dtype=torch.int32, device=dev)
+    s = t // n
+    parts = [da.flash_decode_cuda(
+        q, kc[:, i * s:(i + 1) * s], vc[:, i * s:(i + 1) * s],
+        (lengths - i * s).clamp(min=0), return_stats=True) for i in range(n)]
+    got = da.merge_decode_stats(*zip(*parts))
+    want = da.flash_decode_cuda(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_sharded_session_on_a_one_card_nccl_mesh(dev, tmp_path):
+    """The smoke qwen3-8b through make_sharded_session on a 1x1 NCCL mesh
+    (tp: the caches' slots over the size-1 model axis, so the decode runs
+    attn_decode_seq_sharded: the stats kernel and two all_reduces a
+    layer) serves the unsharded session's tokens behind a 1e-4 margin,
+    and launches flash_decode."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import resolve
+    from repro_torch.runtime.serving import GenerationSession, greedy_margins
+    from repro_torch.runtime.sharded import make_sharded_session
+
+    model = resolve("qwen3-8b", device=dev, seed=3).model
+    toks = np.random.default_rng(4).integers(4, 512, (4, 12)).astype(
+        np.int32)
+    lens = np.array([12, 7, 12, 9], np.int32)
+    m_ref, ref = GenerationSession(model, max_len=32).generate_with_lengths(
+        toks, max_new=8, lengths=lens)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        sess = make_sharded_session(
+            model, make_host_mesh((1, 1), ("data", "model"), "cuda"),
+            max_len=32, batch_size=4, layout="tp")
+        ops.reset_launch_counts()
+        m_got, got = sess.generate_with_lengths(toks, max_new=8,
+                                                lengths=lens)
+        assert ops.launch_counts()["flash_decode"] > 0
+    finally:
+        dist.destroy_process_group()
+    for row, (t, n) in enumerate(zip(toks, lens)):
+        margins = greedy_margins(model, t[:n], ref[row])
+        low = np.flatnonzero(margins < 1e-4)
+        k = int(low[0]) if low.size else len(margins)
+        np.testing.assert_array_equal(got[row, :k], ref[row, :k])
+        if not low.size:
+            assert m_got[row] == m_ref[row]
