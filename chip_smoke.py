@@ -161,6 +161,21 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    kernels launched; it prints the rank's parameter bytes and the eager
    B=8 decode step, sharded beside unsharded, in turns.  Phase 6 also
    times the stats call at qwen3-8b's step.
+17. (run after phase 16, before phases 11-12) sharded training: qwen3-8b
+   at full width cut to 4 of its 36 layers (2.016 B parameters, random
+   weights from seed 0) takes 3 AdamW steps through ``make_train_step``
+   on a ``ShardedLM`` over a 1x1 NCCL mesh (``tp``) at B=4 S=256 from
+   ``launch/train.py``'s token stream, then the unsharded model on the
+   same weights and batches; each step's loss and grad norm and every
+   parameter after step 3 are held equal (bitwise, else within 1e-6
+   relative; it prints which held).  The dry run's per-rank argument
+   bytes of this step at float32 (``launch/dryrun.argument_bytes``) are
+   held against the card's ``memory_allocated`` and the state's own
+   tensors within 2%, naming the term that is off.  A ragged B=8
+   ``generate_with_lengths`` of 16 tokens from the trained sharded model
+   is held against the unsharded one behind the margin, and must launch
+   both attention kernels.  It prints the eager train step, sharded
+   beside unsharded, in turns, and the peak memory.
 
 It prints one JSON line of kernel numbers (each kernel's launches summed
 over the main paths that run it) and, last, the line
@@ -219,7 +234,14 @@ SWA_W = 4096                    # the long_500k variants' sliding window
 SWA_CUT = 4                     # qwen3-8b-swa's layers (of 36) in phase 15
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print ``msg``; a phase's header ("== ...") with the seconds since
+    the script started."""
+    if msg.startswith("== "):
+        msg = f"{msg} [{time.perf_counter() - _T0:.0f} s]"
     print(msg, flush=True)
 
 
@@ -2479,6 +2501,181 @@ def sharded_phase(ops):
     return {"qwen3-8b sharded": launches}
 
 
+# --------------------------------------------------------------- phase 17 --
+ST_CUT, ST_B, ST_S, ST_STEPS = 4, 4, 256, 3   # phase 17: qwen3-8b's layers
+                                              # (of 36), batch, steps
+ST_REL = 1e-6                   # sharded vs unsharded where not bitwise
+
+
+def train_steps(step, state, batches):
+    """``step`` over ``batches``: (state, losses, grad norms, ms each)."""
+    losses, norms, times = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return state, losses, norms, times
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b| (0 where both are 0)."""
+    a, b = a.detach(), b.detach()
+    scale = float(b.abs().max())
+    return max_err(a, b) / scale if scale else max_err(a, b)
+
+
+def dryrun_bytes_check(lm, pol, state, base_bytes):
+    """The dry-run's per-rank argument bytes of this train step at float32
+    (``launch/dryrun.argument_bytes`` on the meta device) against what the
+    card holds after the steps: ``memory_allocated`` less what was
+    allocated before the model, and the state's own tensors term by
+    term.  Raises naming the term that is off by more than 2%."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import LM
+
+    meta = LM(lm.cfg, device="meta")
+    inputs = {k: torch.empty((ST_B, ST_S), dtype=torch.int32, device="meta")
+              for k in ("tokens", "targets")}
+    want = dryrun.argument_bytes(meta, "train", inputs, pol,
+                                 param_dtype=torch.float32,
+                                 moments_dtype=torch.float32)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - base_bytes
+    held = {"parameters": sum(p.nbytes for p in state.params.values()),
+            "moments": sum(t.nbytes for t in (*state.opt.mu.values(),
+                                              *state.opt.nu.values())),
+            "step": state.opt.step.nbytes}
+    log(f"  dry-run per-rank argument bytes at float32 {want}; on the card "
+        f"after {ST_STEPS} steps: memory_allocated {allocated} B (less the "
+        f"{base_bytes} B held before the model), the state's tensors {held}")
+    off = [f"{k}: {held[k]} vs {want[k]}" for k in held
+           if abs(held[k] - want[k]) > 0.02 * want[k]]
+    if abs(allocated - want["total"]) > 0.02 * want["total"]:
+        off.append(f"memory_allocated {allocated} vs the total "
+                   f"{want['total']} (unaccounted "
+                   f"{allocated - sum(held.values())} B)")
+    if off:
+        raise AssertionError("dry-run bytes off by more than 2%: "
+                             + "; ".join(off))
+    return want, allocated
+
+
+def sharded_training_phase(ops):
+    """qwen3-8b at full width cut to 4 of 36 layers: 3 AdamW steps through
+    ``make_train_step`` on a ``ShardedLM`` over a 1x1 NCCL mesh (``tp``)
+    at B=4 S=256 from ``launch/train.py``'s token stream, then the same
+    steps unsharded on the same weights and batches; losses, grad norms
+    and every parameter held equal (bitwise, else within 1e-6 relative);
+    the dry-run's per-rank bytes against the card's; a ragged B=8
+    generate of 16 tokens from the trained sharded model against the
+    unsharded one behind the margin, through both attention kernels; the
+    eager step, sharded beside unsharded, in turns."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.serving import GenerationSession
+    from repro_torch.runtime.sharded import shard_lm
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+
+    empty_cache()
+    base = torch.cuda.memory_allocated()
+    cfg = cut_config("qwen3-8b", (ST_CUT,))
+    model, n_params = build_cut(cfg)
+    init = {n: t.to("cpu", copy=True) for n, t in model.state_dict().items()}
+    rng = np.random.default_rng(0)
+    stream = rng.integers(1, cfg.vocab_size, ST_STEPS * ST_B * (ST_S + 1)
+                          * 2).astype(np.int32)
+    batches = list(lm_batches(stream, batch_size=ST_B,
+                              seq_len=ST_S))[:ST_STEPS]
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=60))
+        try:
+            lm, pol = shard_lm(model, make_host_mesh((1, 1), ("data",
+                                                              "model"),
+                                                     "cuda"),
+                               batch_size=ST_B, layout="tp")
+            st_a = init_train_state(lm)
+            step_a = make_train_step(lm)
+            ops.reset_launch_counts()
+            st_a, loss_a, norm_a, ms_a = train_steps(step_a, st_a, batches)
+            if any(ops.launch_counts().values()):
+                raise AssertionError("a kernel launched while training")
+            want, allocated = dryrun_bytes_check(lm, pol, st_a, base)
+
+            other = build_cut(cfg)[0]
+            other.load_state_dict(init)
+            del init
+            st_b = init_train_state(other)
+            step_b = make_train_step(other)
+            st_b, loss_b, norm_b, ms_b = train_steps(step_b, st_b, batches)
+            log(f"  {ST_STEPS} steps at B={ST_B} S={ST_S}, sharded 1x1 "
+                f"(tp) / unsharded: losses {loss_a} / {loss_b}; grad norms "
+                f"{norm_a} / {norm_b}; ms {[round(t, 1) for t in ms_a]} / "
+                f"{[round(t, 1) for t in ms_b]}")
+            if not (np.all(np.isfinite(loss_a)) and loss_a[-1] < loss_a[0]):
+                raise AssertionError(f"the sharded loss did not fall: "
+                                     f"{loss_a}")
+            worst = {"loss": max(abs(a - b) / abs(b)
+                                 for a, b in zip(loss_a, loss_b)),
+                     "grad_norm": max(abs(a - b) / abs(b)
+                                      for a, b in zip(norm_a, norm_b)),
+                     "parameters": max(rel_err(st_a.params[n],
+                                               st_b.params[n])
+                                       for n in st_b.params)}
+            bitwise = (loss_a == loss_b and norm_a == norm_b and all(
+                torch.equal(st_a.params[n], st_b.params[n])
+                for n in st_b.params))
+            log(f"  sharded vs unsharded after {ST_STEPS} steps: "
+                + ("bitwise equal" if bitwise else
+                   f"not bitwise; worst relative errors {worst}"))
+            if not bitwise and max(worst.values()) > ST_REL:
+                raise AssertionError(f"sharded training vs unsharded: "
+                                     f"{worst} > {ST_REL}")
+            turns = []
+            for step, st in ((step_a, st_a), (step_b, st_b)) * 2:
+                turns.append(train_steps(step, st, batches[:1])[3][0])
+            log(f"  eager train step, in turns sharded / unsharded: "
+                f"{turns[0]:.1f} / {turns[1]:.1f}, {turns[2]:.1f} / "
+                f"{turns[3]:.1f} ms; peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            del st_a, st_b, step_a, step_b
+            empty_cache()
+
+            toks = rng.integers(4, cfg.vocab_size, (8, 64)).astype(np.int32)
+            lens = np.concatenate([[64], rng.integers(5, 65, 7)]).astype(
+                np.int32)
+            ref = GenerationSession(other, max_len=QW_T)\
+                .generate_with_lengths(toks, max_new=SH_NEW, lengths=lens)
+            ops.reset_launch_counts()
+            got = GenerationSession(lm, max_len=QW_T).generate_with_lengths(
+                toks, max_new=SH_NEW, lengths=lens)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+        finally:
+            dist.destroy_process_group()
+    log(f"  kernel launches, the trained sharded model's generate: "
+        f"{launches}")
+    for name in ("flash_attention", "flash_decode"):
+        if launches[name] == 0:
+            raise AssertionError(f"serving the trained sharded model never "
+                                 f"launched {name}")
+    held_rows("trained sharded GenerationSession vs unsharded", other,
+              [t[:n] for t, n in zip(toks, lens)], list(zip(*ref)),
+              list(zip(*got)))
+    del model, other, lm
+    empty_cache()
+    return {"qwen3-8b sharded trained": launches}
+
+
 # ---------------------------------------------------------- phases 9-10 --
 RAGGED = [128, 37, 64, 5, 100, 128, 1, 23]
 
@@ -3102,6 +3299,11 @@ def main() -> int:
         "mesh (sequence-sharded decode)")
     log(f"  {check_stats_cases(da, gen)} stats cases within tolerance")
     paths.update(sharded_phase(ops))
+
+    log("== phase 17: qwen3-8b at full width, 4 of 36 layers: sharded "
+        "training on a 1x1 NCCL mesh vs unsharded, the dry-run's bytes, "
+        "serving the trained sharded model")
+    paths.update(sharded_training_phase(ops))
 
     log("== phase 11: training the paper's three NMT models at full width")
     model, _ = nmt_training("marian", "en-zh", ops, 200, smi)

@@ -76,6 +76,17 @@ def get_config(name: str, shape: Optional[str] = None) -> ModelConfig:
     return cfg.validate()
 
 
+def shape_supported(name: str, shape: str) -> Tuple[bool, str]:
+    """Whether (arch, shape) is runnable; returns (ok, reason-if-not):
+    long_500k needs a configuration that supports long decode (a
+    recurrent state, or a sliding-window variant)."""
+    cfg = _module(name).CONFIG
+    if shape == "long_500k" and not cfg.supports_long_decode:
+        return False, ("full-attention KV cache is O(context): skipped per "
+                       "DESIGN.md §long_500k")
+    return True, ""
+
+
 def smoke_config(name: str) -> ModelConfig:
     """Reduced same-family variant: <=2 layers per group kind, d_model
     256, vocab 512, <=4 experts — the reference's reduction rules, rule

@@ -32,13 +32,9 @@ from repro_torch.data.pipeline import lm_batches
 from repro_torch.device import resolve_device
 from repro_torch.models.model import LM
 from repro_torch.models.registry import resolve
-from repro_torch.training.checkpoint import save_checkpoint, state_to_jax
+from repro_torch.training.checkpoint import save_train_state
 from repro_torch.training.optimizer import AdamWConfig, cosine_schedule
-from repro_torch.training.train_loop import (
-    TrainState,
-    init_train_state,
-    make_train_step,
-)
+from repro_torch.training.train_loop import init_train_state, make_train_step
 
 
 TRAIN_BYTES_PER_PARAM = 16   # float32 parameter, gradient, two moments
@@ -109,8 +105,7 @@ def main(argv=None):
     print(f"done: loss {losses[0]:.3f} -> {losses[-1]:.3f} "
           f"in {time.time() - t0:.0f}s")
     if args.ckpt:
-        params, opt = state_to_jax(model, state.params, state.opt)
-        save_checkpoint(args.ckpt, TrainState(params, opt), step=args.steps)
+        save_train_state(args.ckpt, model, state, step=args.steps)
         print(f"checkpoint: {args.ckpt}")
     return losses
 

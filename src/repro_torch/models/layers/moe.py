@@ -48,6 +48,7 @@ from torch import nn
 
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.layers.basic import SwiGLU, normal_param
+from repro_torch.sharding import ctx as shard_ctx
 
 
 class _Weight(nn.Module):
@@ -148,9 +149,14 @@ def combine(out, meta: Dict, k: int):
 
 def load_balance_loss(probs, top_i, num_experts: int):
     """Switch-transformer aux loss E * sum_e f_e * P_e (float32 scalar),
-    f_e the share of tokens whose first choice is e."""
+    f_e the share of tokens whose first choice is e, P_e the mean router
+    probability.  Under a batch split over ranks (a
+    :class:`~repro_torch.sharding.ctx.BatchShard` installed), both means
+    are taken over the whole batch before their product."""
     assign = F.one_hot(top_i[:, 0], num_experts).float()
-    return num_experts * torch.sum(assign.mean(0) * probs.mean(0))
+    f = shard_ctx.batch_mean(assign.mean(0))
+    p = shard_ctx.batch_mean(probs.mean(0))
+    return num_experts * torch.sum(f * p)
 
 
 def _dispatch(p: MoE, mo: MoEConfig, x):

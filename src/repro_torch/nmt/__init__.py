@@ -23,7 +23,7 @@ from repro_torch.nmt.common import (
 )
 from repro_torch.nmt.gru import GRUSeq2Seq
 from repro_torch.nmt.lstm import BiLSTMSeq2Seq
-from repro_torch.nmt.registry import PAPER_MODELS
+from repro_torch.nmt.registry import PAPER_MODELS, make_paper_model
 from repro_torch.nmt.transformer import MarianTransformer, make_executors
 
 __all__ = [
@@ -37,4 +37,5 @@ __all__ = [
     "MarianTransformer",
     "PAPER_MODELS",
     "make_executors",
+    "make_paper_model",
 ]

@@ -1,12 +1,32 @@
-"""Serving runtime: the C-NMT-routed tiered serving engine and the LM
-generation sessions that serve as its tiers."""
+"""Serving runtime: prefill/decode steps, generation sessions, and the
+C-NMT-routed tiered serving engine."""
 
-from repro_torch.runtime.engine import CollaborativeEngine, RequestResult, Tier
 from repro_torch.runtime.serving import (
+    ContinuousGenerationSession,
     GenerationSession,
     TierFaultError,
     build_executor,
+    make_batched_tier_executor,
+    make_faulty_executor,
+    make_prefill_step,
+    make_serve_step,
+    make_split_tier_executors,
+    make_tier_executor,
 )
+from repro_torch.runtime.engine import CollaborativeEngine, Tier, RequestResult
 
-__all__ = ["CollaborativeEngine", "Tier", "RequestResult",
-           "GenerationSession", "TierFaultError", "build_executor"]
+__all__ = [
+    "ContinuousGenerationSession",
+    "GenerationSession",
+    "TierFaultError",
+    "build_executor",
+    "make_batched_tier_executor",
+    "make_faulty_executor",
+    "make_prefill_step",
+    "make_serve_step",
+    "make_split_tier_executors",
+    "make_tier_executor",
+    "CollaborativeEngine",
+    "Tier",
+    "RequestResult",
+]

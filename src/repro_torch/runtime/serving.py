@@ -52,6 +52,7 @@ table's admission copies rows through the model's ``copy_rows``.
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -68,6 +69,30 @@ _POSITION_MASKED_MIXERS = ("attn", "mla", "shared_attn")
 def _ragged_plan_ok(model) -> bool:
     return all(g.mixer in _POSITION_MASKED_MIXERS
                for g in model.cfg.layer_plan)
+
+
+def make_prefill_step(model, *, max_len: Optional[int] = None) -> Callable:
+    """prefill_step(tokens[, lengths][, frames]) -> (last_logits,
+    decode_state): the unit the dry-run prices for prefill_32k.  The
+    reference's step also takes ``params``; the port's weights live in
+    the model."""
+
+    def prefill_step(tokens, lengths=None, frames=None):
+        kw = {"frames": frames} if frames is not None else {}
+        return model.prefill(tokens, max_len=max_len, lengths=lengths, **kw)
+
+    return prefill_step
+
+
+def make_serve_step(model) -> Callable:
+    """serve_step(state, tokens (B,1)) -> (logits (B,V), state): ONE new
+    token per sequence against the fixed-capacity decode state, the unit
+    the dry-run prices for decode_32k / long_500k."""
+
+    def serve_step(state, tokens):
+        return model.decode_step(state, tokens)
+
+    return serve_step
 
 
 def _next_pow2(n: int, floor: int = 1) -> int:
@@ -245,6 +270,53 @@ def build_executor(session_or_model, *, kind: str = "solo",
     if faults is not None:
         executor = _faulty_wrap(executor, faults, message=fault_message)
     return executor
+
+
+def _warn_deprecated(old: str, new: str) -> None:
+    warnings.warn(f"{old} is deprecated; use {new}", DeprecationWarning,
+                  stacklevel=3)
+
+
+def make_tier_executor(session, *, max_new: int = 16,
+                       vocab_clip: Optional[int] = None) -> Callable:
+    """Deprecated alias for ``build_executor(session, kind='solo')``."""
+    _warn_deprecated("make_tier_executor",
+                     "build_executor(session, kind='solo')")
+    return build_executor(session, kind="solo", max_new=max_new,
+                          vocab_clip=vocab_clip)
+
+
+def make_batched_tier_executor(session, *, max_new: int = 16,
+                               vocab_clip: Optional[int] = None) -> Callable:
+    """Deprecated alias for ``build_executor(session, kind='batched')``."""
+    _warn_deprecated("make_batched_tier_executor",
+                     "build_executor(session, kind='batched')")
+    return build_executor(session, kind="batched", max_new=max_new,
+                          vocab_clip=vocab_clip)
+
+
+def make_split_tier_executors(model, params=None, *,
+                              vocab_clip: Optional[int] = None
+                              ) -> Tuple[Callable, Callable]:
+    """Deprecated alias for ``build_executor(model, kind='split')``.
+    ``params`` is the reference's argument; the port's weights live in
+    the model, so it must be None."""
+    _warn_deprecated("make_split_tier_executors",
+                     "build_executor(model, kind='split', params=...)")
+    if params is not None:
+        raise ValueError("the port's models hold their weights: pass no "
+                         "params")
+    return build_executor(model, kind="split", vocab_clip=vocab_clip)
+
+
+def make_faulty_executor(executor: Callable, should_fail,
+                         *, message: str = "injected tier fault") -> Callable:
+    """Deprecated alias for ``build_executor(executor, kind='raw',
+    faults=...)``."""
+    _warn_deprecated("make_faulty_executor",
+                     "build_executor(executor, kind='raw', faults=...)")
+    return build_executor(executor, kind="raw", faults=should_fail,
+                          fault_message=message)
 
 
 class GenerationSession:

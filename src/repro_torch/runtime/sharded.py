@@ -30,6 +30,21 @@ port's unchanged layer code on its own part of the work:
   Any other leaf split beyond the batch (a ring cache, a cross-attention
   group's self-attention cache, MLA's ``ckv``/``kpe``, ``ssm``/``wkv``
   heads over ``model``) is gathered for the step and cut back after it.
+* **Training** (``training.train_loop`` takes a :class:`ShardedLM` as it
+  takes an LM; the state holds this rank's blocks and their moments).
+  The weight gather is differentiable (:class:`_Gather`): its backward
+  sums each whole-size gradient over the ranks that split the batch and
+  cuts it to the rank's block, in ONE reduce_scatter a module, as FSDP
+  does.  Every rank computes the same whole-batch loss on the gathered
+  logits, so the logits' gather only slices its gradient.  A weight no
+  spec cuts has its gradient all-reduced over the batch ranks
+  (:meth:`ShardedLM.sync_grads`); ranks that share rows compute it
+  redundantly and are not added.  The global norm sums each block's
+  squares over the axes that cut it, and only those
+  (:meth:`ShardedLM.grad_square_sum`).  The MoE load-balance loss, a
+  product of two token means, takes both means over the whole batch
+  (a :class:`~repro_torch.sharding.ctx.BatchShard` installed for the
+  forward).
 
 Tokens equal the unsharded session's only behind a top-2 logit margin: a
 rank computes B/|batch axes| rows, so a GEMM's kernel and
@@ -47,13 +62,19 @@ from typing import Dict, Tuple
 
 import torch
 import torch.distributed as dist
+from torch import nn
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.runtime.serving import (
     ContinuousGenerationSession,
     GenerationSession,
 )
-from repro_torch.sharding.ctx import SeqShard, set_decode_seq_shard
+from repro_torch.sharding.ctx import (
+    BatchShard,
+    SeqShard,
+    set_batch_shard,
+    set_decode_seq_shard,
+)
 from repro_torch.sharding.policy import (
     ShardingPolicy,
     decode_state_specs,
@@ -100,14 +121,36 @@ def _keep(spec, axis: int, keep: bool):
                  for i, e in enumerate(spec))
 
 
+class _Gather(torch.autograd.Function):
+    """The whole tensors of ``params`` (this rank's blocks) in one
+    all_gather over the world; backward: each whole-size gradient summed
+    over ``group`` (the ranks that split the rows of the call, None if
+    none did) and cut to this rank's block, in one reduce_scatter.
+    ``DTensor.full_tensor``'s backward would only cut the gradient: right
+    for a value every rank computes whole, wrong for a weight that two
+    batch shards both used."""
+
+    @staticmethod
+    def forward(ctx, lm, params, group, *blocks):
+        ctx.lm, ctx.params, ctx.group = lm, params, group
+        return tuple(lm._gather_blocks(params, blocks))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None) + tuple(
+            ctx.lm._reduce_blocks(ctx.params, grads, ctx.group))
+
+
 class ShardedLM:
     """An :class:`~repro_torch.models.model.LM` over ``mesh`` under
     ``policy``, with the LM's serving interface (``prefill``,
     ``decode_step``, ``init_decode_state``, ``copy_rows``,
-    ``train_logits``, ``cfg``, ``device``).  Every call is a collective:
-    each rank calls it with the whole batch, and gets the whole batch's
-    logits back.  The LM given is changed in place (its parameters become
-    this rank's blocks)."""
+    ``train_logits``, ``cfg``, ``device``) and what the train step reads
+    (``named_parameters``, ``requires_grad_``, ``sync_grads``,
+    ``grad_square_sum``).  Every call is a collective: each rank calls it
+    with the whole batch, and gets the whole batch's logits back.  The LM
+    given is changed in place (its parameters become this rank's
+    blocks)."""
 
     def __init__(self, model, mesh, policy: ShardingPolicy):
         backend = dist.get_backend()
@@ -125,6 +168,7 @@ class ShardedLM:
         # the mesh coordinate of each global rank, in rank order
         self._coords = [tuple((mesh.mesh == r).nonzero()[0].tolist())
                         for r in range(mesh.mesh.numel())]
+        self._coord = self._coords[dist.get_rank()]
         self.specs = param_specs(policy, model)
         self._dtensors: Dict[int, DTensor] = {}
         for name, p in model.named_parameters():
@@ -133,6 +177,15 @@ class ShardedLM:
             p.data = local
             self._dtensors[id(p)] = DTensor.from_local(
                 local, mesh, to_placements(mesh, spec), run_check=False)
+        # the groups a train step reduces over: the batch axes', and each
+        # set of axes that cuts a parameter (created here, on every rank
+        # in the same order, as new groups must be)
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        for axes in [self._cut_axes((policy.batch_axes,))] + [
+                self._cut_axes(spec) for spec in self.specs.values()]:
+            if axes and axes not in self._groups:
+                self._groups[axes] = self._new_group(axes)
+        self._grad_group = None      # the batch group of the last forward
         model.unshard = self._unshard
 
     @property
@@ -143,10 +196,41 @@ class ShardedLM:
         """Bytes of the parameter blocks this rank holds."""
         return sum(dt.to_local().nbytes for dt in self._dtensors.values())
 
+    def named_parameters(self):
+        """The LM's parameters: this rank's blocks."""
+        return self.model.named_parameters()
+
+    def requires_grad_(self, flag: bool = True):
+        self.model.requires_grad_(flag)
+        return self
+
+    # ---------------------------------------------------------- groups --
+    def _cut_axes(self, spec) -> Tuple[str, ...]:
+        """The mesh axes of size > 1 that ``spec`` names, in mesh order."""
+        named = {a for e in spec for a in spec_axes(e)}
+        return tuple(a for a in self.mesh.mesh_dim_names
+                     if a in named and self.policy.axis_size((a,)) > 1)
+
+    def _new_group(self, axes):
+        """The process group of the ranks that share this rank's
+        coordinates off ``axes`` (created for every such set of ranks)."""
+        names = self.mesh.mesh_dim_names
+        dims = [names.index(a) for a in axes]
+        rest = [d for d in range(len(names)) if d not in dims]
+        grid = self.mesh.mesh.permute(*rest, *dims).reshape(
+            -1, self.policy.axis_size(axes))
+        group, _ = dist.new_subgroups_by_enumeration(grid.tolist())
+        return group
+
+    def _group(self, axes):
+        """The group over ``axes`` (a spec entry or a tuple of names);
+        None where they span one rank."""
+        return self._groups.get(self._cut_axes((axes,)))
+
     # ---------------------------------------------------------- blocks --
     def _splits(self, spec) -> bool:
         """Whether ``spec`` cuts a tensor (an axis of size 1 cuts nothing)."""
-        return any(self.policy.axis_size(spec_axes(e)) > 1 for e in spec)
+        return bool(self._cut_axes(spec))
 
     def _block(self, t, spec):
         """This rank's block of the whole tensor ``t`` (a copy) under
@@ -172,44 +256,138 @@ class ShardedLM:
 
     @contextlib.contextmanager
     def _unshard(self, *modules):
-        """``modules``' parameters whole while the block runs, then back to
-        this rank's blocks (the gathered copies are freed)."""
-        cut = [p for mod in modules for p in mod.parameters()
-               if p.shape != self._dtensors[id(p)].shape]
-        for p, whole in zip(cut, self._gather_params(cut)):
-            p.data = whole
+        """``modules``' parameters whole while the block runs (gathered
+        tensors stand in for the parameters in their modules, through
+        :class:`_Gather`, so a train step's backward reaches the blocks),
+        then the blocks again (the gathered copies are freed)."""
+        cut, seen = [], set()
+        for mod in modules:
+            for owner in mod.modules():
+                for name, p in owner._parameters.items():
+                    if isinstance(p, nn.Parameter) and id(p) not in seen \
+                            and p.shape != self._dtensors[id(p)].shape:
+                        seen.add(id(p))
+                        cut.append((owner, name, p))
+        params = [p for _, _, p in cut]
+        wholes = _Gather.apply(self, params, self._grad_group,
+                               *params) if params else ()
+        for (owner, name, _), whole in zip(cut, wholes):
+            owner._parameters[name] = whole
         try:
             yield
         finally:
-            for p in cut:
-                p.data = self._dtensors[id(p)].to_local()
+            for owner, name, p in cut:
+                owner._parameters[name] = p
 
-    def _gather_params(self, params):
-        """The whole tensors of ``params``' blocks in ONE all_gather over
-        the world (a flat buffer of every block, as FSDP gathers a layer),
-        each assembled from the ranks' blocks as ``DTensor`` lays them:
-        a dim split over several mesh dims takes them in mesh order."""
+    def _region(self, p, coord):
+        """The slices of ``p``'s whole tensor that the rank at mesh
+        coordinate ``coord`` holds, as ``DTensor`` lays blocks out: a dim
+        split over several mesh dims takes them in mesh order."""
+        dt = self._dtensors[id(p)]
+        index = [0] * dt.dim()
+        for md, pl in enumerate(dt.placements):
+            if pl.is_shard():
+                index[pl.dim] = index[pl.dim] * self.mesh.shape[md] + coord[md]
+        return tuple(slice(i * n, (i + 1) * n)
+                     for i, n in zip(index, dt.to_local().shape))
+
+    def _gather_blocks(self, params, blocks):
+        """The whole tensors of ``params`` from each rank's ``blocks`` of
+        them (the blocks themselves, or tensors laid out alike: AdamW's
+        moments) in ONE all_gather over the world: a flat buffer of every
+        block, as FSDP gathers a layer."""
         if not params:
             return []
-        blocks = [self._dtensors[id(p)].to_local() for p in params]
         flat = torch.cat([b.reshape(-1) for b in blocks])
         parts = [torch.empty_like(flat) for _ in self._coords]
         dist.all_gather(parts, flat)
-        sizes, out, off = self.mesh.shape, [], 0
+        out, off = [], 0
         for p, b in zip(params, blocks):
-            placements = self._dtensors[id(p)].placements
             whole = b.new_empty(self._dtensors[id(p)].shape)
             for part, coord in zip(parts, self._coords):
-                index = [0] * b.dim()
-                for md, pl in enumerate(placements):
-                    if pl.is_shard():
-                        index[pl.dim] = index[pl.dim] * sizes[md] + coord[md]
-                whole[tuple(slice(i * n, (i + 1) * n) for i, n in
-                            zip(index, b.shape))] = \
+                whole[self._region(p, coord)] = \
                     part[off:off + b.numel()].view(b.shape)
             out.append(whole)
             off += b.numel()
         return out
+
+    def _reduce_blocks(self, params, grads, group):
+        """This rank's block of each whole-size gradient in ``grads``
+        (None: zeros), summed over ``group`` in ONE reduce_scatter of a
+        flat buffer holding each member's blocks in turn; only cut to the
+        block where ``group`` is None (every rank saw every row)."""
+        grads = [torch.zeros(self._dtensors[id(p)].shape, dtype=p.dtype,
+                             device=p.device) if g is None else g
+                 for p, g in zip(params, grads)]
+        if group is None:
+            return [g[self._region(p, self._coord)].clone()
+                    for p, g in zip(params, grads)]
+        members = dist.get_process_group_ranks(group)
+        chunks = [torch.cat([g[self._region(p, self._coords[q])].reshape(-1)
+                             for p, g in zip(params, grads)])
+                  for q in members]
+        flat = torch.empty_like(chunks[0])
+        dist.reduce_scatter(flat, chunks, group=group)
+        out, off = [], 0
+        for p in params:
+            out.append(flat[off:off + p.numel()].view(p.shape).to(p.dtype))
+            off += p.numel()
+        return out
+
+    # -------------------------------------------------------- training --
+    def sync_grads(self, grads: Dict[str, torch.Tensor]) -> None:
+        """All-reduce (sum, in place) the gradients of the parameters no
+        spec cuts over the ranks that split the last forward's rows; the
+        cut ones arrive summed from :class:`_Gather`'s backward."""
+        if self._grad_group is None:
+            return
+        names = [n for n in grads if not self._splits(self.specs[n])]
+        if not names:
+            return
+        flat = torch.cat([grads[n].reshape(-1) for n in names])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self._grad_group)
+        off = 0
+        for n in names:
+            g = grads[n]
+            g.copy_(flat[off:off + g.numel()].view(g.shape))
+            off += g.numel()
+
+    def grad_square_sum(self, grads: Dict[str, torch.Tensor]):
+        """The sum of squares of the whole gradients whose blocks are
+        ``grads`` (float32): each block's squares summed over the ranks
+        that hold the tensor's other blocks (the axes its spec cuts), and
+        only those."""
+        by_axes: Dict[Tuple[str, ...], list] = {}
+        for name, g in grads.items():
+            by_axes.setdefault(self._cut_axes(self.specs[name]), []).append(
+                torch.sum(torch.square(g.float())))
+        total = None
+        for axes, sums in by_axes.items():
+            part = sum(sums)        # in order, as the unsharded norm sums
+            if axes:
+                dist.all_reduce(part, op=dist.ReduceOp.SUM,
+                                group=self._groups[axes])
+            total = part if total is None else total + part
+        return total
+
+    def whole_tensors(self, blocks: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        """The whole tensors of ``blocks`` (keyed by parameter name, laid
+        out as the parameters' blocks: the parameters or their moments),
+        in one all_gather.  A collective."""
+        names = [n for n in blocks if self._splits(self.specs[n])]
+        params = dict(self.model.named_parameters())
+        out = dict(blocks)
+        with torch.no_grad():
+            out.update(zip(names, self._gather_blocks(
+                [params[n] for n in names], [blocks[n] for n in names])))
+        return out
+
+    def block_of(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's block of parameter ``name``'s whole tensor (a
+        copy, on the model's device)."""
+        p = dict(self.model.named_parameters())[name]
+        return whole.to(self.device)[self._region(p, self._coord)].clone()
 
     # ----------------------------------------------------------- state --
     def _split_state(self, state, batch: int):
@@ -311,19 +489,24 @@ class ShardedLM:
 
     def train_logits(self, tokens, *, frames=None, frame_mask=None):
         """``LM.train_logits`` of the whole batch: each rank runs its rows;
-        the logits (and ``mtp_logits``) are the whole batch's.
-        ``aux_loss`` is the mean of the batch shards' load-balance losses,
-        which is the whole batch's only when the batch is not split (the
-        loss is a product of two means over the tokens)."""
+        the logits (and ``mtp_logits``) are the whole batch's, and so is
+        ``aux_loss`` (the load-balance means are taken over the ranks
+        that split the rows).  Differentiable: a loss of the outputs
+        reaches this rank's parameter blocks (see :class:`_Gather`)."""
         rows = self.policy.batch(tokens.shape[0])
-        out = self.model.train_logits(self._rows(tokens, rows),
-                                      frames=self._rows(frames, rows),
-                                      frame_mask=self._rows(frame_mask, rows))
+        self._grad_group = group = self._group(rows)
+        if group is not None:
+            set_batch_shard(BatchShard(group, self.policy.axis_size(
+                spec_axes(rows))))
+        try:
+            out = self.model.train_logits(
+                self._rows(tokens, rows), frames=self._rows(frames, rows),
+                frame_mask=self._rows(frame_mask, rows))
+        finally:
+            set_batch_shard(None)
         for key in ("logits", "mtp_logits"):
             if key in out:
                 out[key] = self._gather(out[key], (rows, None, None))
-        out["aux_loss"] = self._gather(out["aux_loss"][None],
-                                      (rows,)).mean()
         return out
 
 

@@ -15,6 +15,12 @@ and one written here loads with ``repro.training.checkpoint``.
 The write is atomic (a temporary file, then ``os.replace``); loading
 restores exact dtypes and shapes and raises ``KeyError`` on a missing
 leaf and ``ValueError`` on a shape mismatch.
+
+:func:`save_train_state` / :func:`load_train_state` write and read a
+model's ``TrainState`` in the reference's layout, and take a
+:class:`~repro_torch.runtime.sharded.ShardedLM`'s state as well: saving
+gathers its blocks (a collective) and rank 0 writes; loading cuts each
+rank's blocks from the whole tensors in the file.
 """
 
 from __future__ import annotations
@@ -26,9 +32,15 @@ from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.convert import params_from_jax, params_to_jax
+from repro_torch.convert import (
+    params_from_jax,
+    params_to_jax,
+    reference_leaves,
+)
 from repro_torch.training.optimizer import AdamWState
+from repro_torch.training.train_loop import TrainState
 
 
 def _is_namedtuple(node) -> bool:
@@ -140,3 +152,54 @@ def state_from_jax(model, params_tree, opt_tree: AdamWState
     step = torch.as_tensor(np.asarray(opt_tree.step, np.int32), device=dev)
     return from_jax(params_tree), AdamWState(
         step=step, mu=from_jax(opt_tree.mu), nu=from_jax(opt_tree.nu))
+
+
+def save_train_state(path: str, model, state: TrainState, *,
+                     step: int | None = None) -> str:
+    """Write ``model``'s ``state`` as the reference's ``TrainState``
+    (``repro.training.checkpoint.load_checkpoint`` reads it).  For a
+    sharded LM (one with ``whole_tensors``) every rank must call it: the
+    parameters and moments are gathered whole, rank 0 writes, and the
+    ranks meet at a barrier after the write."""
+    params, mu, nu = state.params, state.opt.mu, state.opt.nu
+    whole = getattr(model, "whole_tensors", None)
+    if whole is not None:
+        params, mu, nu = whole(params), whole(mu), whole(nu)
+    if whole is None or dist.get_rank() == 0:
+        tree = TrainState(*state_to_jax(model, params, AdamWState(
+            step=state.opt.step, mu=mu, nu=nu)))
+        save_checkpoint(path, tree, step=step)
+    if whole is not None:
+        dist.barrier()
+    return path
+
+
+@torch.no_grad()
+def load_train_state(path: str, model, state: TrainState) -> TrainState:
+    """Read a ``TrainState`` checkpoint in the reference's layout into
+    ``state`` (``model``'s parameters and moments, in place); a sharded
+    LM (one with ``block_of``) keeps this rank's block of each tensor.
+    Raises ``KeyError`` on a missing leaf and ``ValueError`` on a shape
+    mismatch."""
+    with np.load(path, allow_pickle=False) as z:
+        flat = {k: z[k] for k in z.files if k != "__manifest__"}
+    leaves = reference_leaves(model)
+    cut = getattr(model, "block_of", None)
+    for prefix, tensors in ((".params", state.params),
+                            (".opt.mu", state.opt.mu),
+                            (".opt.nu", state.opt.nu)):
+        for name, t in tensors.items():
+            leaf = leaves[name]
+            key = prefix + leaf.keystr
+            if key not in flat:
+                raise KeyError(f"checkpoint missing leaf {key}")
+            arr = flat[key] if leaf.layer is None else flat[key][leaf.layer]
+            whole = torch.as_tensor(np.ascontiguousarray(
+                arr.T if leaf.transpose else arr))
+            got = whole if cut is None else cut(name, whole)
+            if tuple(got.shape) != tuple(t.shape):
+                raise ValueError(f"shape mismatch for {key}: "
+                                 f"{tuple(got.shape)} vs {tuple(t.shape)}")
+            t.copy_(got)
+    state.opt.step.copy_(torch.as_tensor(flat[".opt.step"]))
+    return state

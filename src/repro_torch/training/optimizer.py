@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, NamedTuple, Optional
+from typing import Callable, Dict, Mapping, NamedTuple, Optional
 
 import torch
 
@@ -58,12 +58,18 @@ def adamw_init(params: Mapping[str, torch.Tensor],
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float, *,
+                        square_sum: Optional[Callable] = None):
     """Scales ``grads`` in place to a global norm of at most ``max_norm``,
-    the norm taken over every tensor in float32.  Returns (grads,
-    global_norm)."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                        for g in grads.values()))
+    the norm taken over every tensor in float32.  ``square_sum(grads)``,
+    if given, returns the sum of squares in place of the local one (a
+    sharded model's blocks count each whole tensor's elements once).
+    Returns (grads, global_norm)."""
+    if square_sum is None:
+        gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                            for g in grads.values()))
+    else:
+        gn = torch.sqrt(square_sum(grads))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     for g in grads.values():
         g.copy_(g.float() * scale)

@@ -4,6 +4,15 @@ Port of ``repro/training/train_loop.py``.  The reference's state holds
 the parameter pytree; the port's holds the model's parameters by name
 (the same tensors the model computes with, updated in place), so a
 train step needs no copy of the weights.
+
+As the reference jits one ``make_train_step`` under ``train_state_specs``
+shardings, the port's takes a
+:class:`~repro_torch.runtime.sharded.ShardedLM` as it takes an LM: the
+state's parameters and both moments are then this rank's blocks, each
+rank calls the step with the whole batch and runs its rows, the loss is
+the whole batch's, each gradient is summed over the batch shards onto
+the rank's block, the global norm counts every element once, and AdamW
+updates the blocks (the step counter is replicated).
 """
 
 from __future__ import annotations
@@ -32,7 +41,8 @@ class TrainState(NamedTuple):
 def init_train_state(model, moments_dtype=torch.float32) -> TrainState:
     """The model's parameters, unfrozen (the port's models are built
     frozen), and zero AdamW moments.  The weights are the model's own,
-    drawn at construction (the reference draws them here from a key)."""
+    drawn at construction (the reference draws them here from a key); a
+    sharded LM's are this rank's blocks, and so are its moments."""
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     return TrainState(params=params,
@@ -49,16 +59,24 @@ def leaf_ndims(model) -> Dict[str, int]:
 
 def apply_gradients(params: Dict[str, torch.Tensor], loss: torch.Tensor,
                     opt: AdamWState, *, lr, cfg: AdamWConfig,
-                    leaf_ndim: Dict[str, int]):
+                    leaf_ndim: Dict[str, int], model=None):
     """The body of every train step here: grads of ``loss`` (zeros for a
     parameter it does not reach, as ``jax.grad`` gives) -> clip -> AdamW.
-    Returns (params, new opt state, global grad norm)."""
+    A sharded ``model`` (one with ``sync_grads``) sums the replicated
+    parameters' gradients over its batch shards and takes the global
+    norm over the whole tensors.  Returns (params, new opt state, global
+    grad norm)."""
     names = list(params)
     grads = torch.autograd.grad(loss, [params[n] for n in names],
                                 allow_unused=True)
     grads = {n: torch.zeros_like(params[n]) if g is None else g
              for n, g in zip(names, grads)}
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    sync = getattr(model, "sync_grads", None)
+    if sync is not None:
+        sync(grads)
+    grads, gnorm = clip_by_global_norm(
+        grads, cfg.clip_norm,
+        square_sum=getattr(model, "grad_square_sum", None))
     params, opt = adamw_update(params, grads, opt, lr=lr, cfg=cfg,
                                leaf_ndim=leaf_ndim)
     return params, opt, gnorm
@@ -67,7 +85,9 @@ def apply_gradients(params: Dict[str, torch.Tensor], loss: torch.Tensor,
 def make_train_step(model, *, lr_schedule: Optional[Callable] = None,
                     opt_cfg: AdamWConfig = AdamWConfig(),
                     remat: bool = False) -> Callable:
-    """Returns train_step(state, batch) -> (state, metrics) for an LM.
+    """Returns train_step(state, batch) -> (state, metrics) for an LM or
+    a :class:`~repro_torch.runtime.sharded.ShardedLM` (every rank calls
+    the step with the whole batch: a collective).
 
     ``batch`` holds numpy arrays or tensors ({"tokens", "targets"[,
     "mask"]}).  ``remat=True`` wraps the loss in
@@ -96,7 +116,7 @@ def make_train_step(model, *, lr_schedule: Optional[Callable] = None,
                   else opt_cfg.lr)
             params, opt, gnorm = apply_gradients(
                 state.params, loss, state.opt, lr=lr, cfg=opt_cfg,
-                leaf_ndim=ndims)
+                leaf_ndim=ndims, model=model)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(grad_norm=gnorm, lr=lr)
         return TrainState(params=params, opt=opt), metrics

@@ -22,6 +22,9 @@ import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from _torch_threads import cap_threads
+
+cap_threads()
 
 F32_TOL = 2e-5
 

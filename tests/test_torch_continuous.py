@@ -70,6 +70,9 @@ from repro_torch.runtime.serving import (
     build_executor,
     greedy_margins,
 )
+from _torch_threads import cap_threads
+
+cap_threads()
 
 MARGIN = 1e-4
 

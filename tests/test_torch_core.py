@@ -36,6 +36,9 @@ from repro_torch.core.calibration import device_from_roofline
 from repro_torch.core.profiles import make_profile as t_make_profile
 from repro_torch.data import pipeline as tpipe
 from repro_torch.data import synthetic as tsyn
+from _torch_threads import cap_threads
+
+cap_threads()
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

@@ -28,6 +28,9 @@ from repro_torch.configs import get_config
 from repro_torch.models import config as mc
 from repro_torch.models import costs
 from repro_torch.models.model import LM
+from _torch_threads import cap_threads
+
+cap_threads()
 
 _NESTED = {"moe": mc.MoEConfig, "mla": mc.MLAConfig, "ssm": mc.SSMConfig,
            "rwkv": mc.RWKVConfig, "encoder": mc.EncoderConfig}

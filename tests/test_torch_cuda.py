@@ -26,6 +26,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import rwkv6_wkv as wkv
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.nmt import MarianTransformer, TransformerConfig
+from _torch_threads import cap_threads
+
+cap_threads()
 
 pytestmark = pytest.mark.cuda
 

@@ -45,6 +45,9 @@ from repro_torch.nmt.transformer import make_executors
 from repro_torch.runtime import engine as tengine
 from repro_torch.runtime.serving import build_executor as t_build_executor
 from test_torch_rnn import min_margin
+from _torch_threads import cap_threads
+
+cap_threads()
 
 PKGS = {"jax": (jlat, jlen, jprof, jfaults, jengine, jtx),
         "torch": (tlat, tlen, tprof, tfaults, tengine, ttx)}

@@ -28,6 +28,9 @@ from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from _torch_threads import cap_threads
+
+cap_threads()
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2

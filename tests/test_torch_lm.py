@@ -43,6 +43,9 @@ from repro_torch.runtime.serving import (
     TierFaultError,
     build_executor,
 )
+from _torch_threads import cap_threads
+
+cap_threads()
 
 TOL = 1e-4
 ARCHS = ("rwkv6-3b", "zamba2-1.2b", "qwen3-8b", "qwen3-32b", "deepseek-67b",

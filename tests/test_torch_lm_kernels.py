@@ -23,6 +23,9 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rwkv6_wkv as twkv
 from repro_torch.kernels import ssd_scan as tssd
+from _torch_threads import cap_threads
+
+cap_threads()
 
 WKV_TOL = 2e-4
 SSD_TOL = 3e-4

@@ -30,6 +30,9 @@ from repro_torch.models.registry import resolve as t_resolve
 from repro_torch.nmt import MarianTransformer as TMarian
 from repro_torch.nmt import TransformerConfig as TConfig
 from repro_torch.nmt.transformer import make_executors
+from _torch_threads import cap_threads
+
+cap_threads()
 
 V = 64
 TOL = 1e-5

@@ -28,6 +28,9 @@ from repro.models.layers import attention as j_att
 from repro_torch.configs import smoke_config
 from repro_torch.models.config import LayerGroup, MLAConfig, ModelConfig
 from repro_torch.models.layers import attention as att
+from _torch_threads import cap_threads
+
+cap_threads()
 
 TOL = 1e-5
 

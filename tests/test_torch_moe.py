@@ -33,6 +33,9 @@ from repro.configs import smoke_config as j_smoke_config
 from repro.models.layers import moe as j_moe
 from repro_torch.configs import smoke_config
 from repro_torch.models.layers import moe
+from _torch_threads import cap_threads
+
+cap_threads()
 
 TOL = 1e-5
 

@@ -48,6 +48,9 @@ from repro_torch.launch import train as train_cli
 from repro_torch.models.model import LM
 from repro_torch.models.registry import available, resolve
 from repro_torch.training.losses import lm_loss
+from _torch_threads import cap_threads
+
+cap_threads()
 
 ARCHS = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b", "deepseek-v3-671b")
 DENSE = ("qwen3-32b", "deepseek-67b", "chameleon-34b")

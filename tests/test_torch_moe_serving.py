@@ -29,6 +29,9 @@ from repro_torch.runtime.serving import (
 )
 from repro_torch.training.train_loop import init_train_state, make_train_step
 from test_torch_moe_lm import ARCHS, _batch, _pair
+from _torch_threads import cap_threads
+
+cap_threads()
 
 MARGIN = 1e-4
 

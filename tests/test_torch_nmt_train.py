@@ -42,6 +42,9 @@ from repro_torch.training.checkpoint import (
     state_to_jax,
 )
 from repro_torch.training.train_loop import init_train_state
+from _torch_threads import cap_threads
+
+cap_threads()
 
 V = 64
 # the configurations of tests/test_nmt_models.py

@@ -43,6 +43,9 @@ from repro_torch.models.model import LM
 from repro_torch.models.registry import available, resolve
 from repro_torch.runtime.serving import GenerationSession, greedy_margins
 from repro_torch.training.train_loop import leaf_ndims
+from _torch_threads import cap_threads
+
+cap_threads()
 
 ARCH = "qwen3-8b"
 TOL = 1e-4

@@ -30,6 +30,9 @@ from repro_torch.models.registry import resolve as t_resolve
 from repro_torch.nmt import BiLSTMSeq2Seq as TBiLSTM
 from repro_torch.nmt import GRUSeq2Seq as TGRU
 from repro_torch.nmt import RNNConfig as TConfig
+from _torch_threads import cap_threads
+
+cap_threads()
 
 V = 64
 TOL = 1e-5

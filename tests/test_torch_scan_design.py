@@ -31,6 +31,9 @@ import torch
 from repro_torch.kernels import rwkv6_wkv as wkv
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.models.layers.mamba2 import pick_chunk
+from _torch_threads import cap_threads
+
+cap_threads()
 
 WKV_TOL, SSD_TOL = 2e-4, 3e-4
 # (heads, head size, state size, model chunk): full width and smoke

@@ -62,6 +62,9 @@ from repro_torch.runtime.serving import (
     GenerationSession,
     greedy_margins,
 )
+from _torch_threads import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "_torch_sharded_worker.py")

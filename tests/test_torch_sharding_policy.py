@@ -34,6 +34,9 @@ from repro_torch.runtime.sharded import infer_layout
 from repro_torch.sharding import policy as pol
 from repro_torch.training.optimizer import AdamWState
 from repro_torch.training.train_loop import TrainState
+from _torch_threads import cap_threads
+
+cap_threads()
 
 MESHES = {"2x2": ((2, 2), ("data", "model")),
           "2x4": ((2, 4), ("data", "model")),

@@ -34,6 +34,9 @@ from repro_torch.core import profiles as tprof
 from repro_torch.core import scheduler as tsched
 from repro_torch.core import simulator as tsim
 from repro_torch.core import tx_estimator as ttx
+from _torch_threads import cap_threads
+
+cap_threads()
 
 PKGS = {
     "jax": types.SimpleNamespace(arr=jarr, faults=jfaults, lat=jlat,

@@ -37,6 +37,9 @@ from repro_torch.nmt import TransformerConfig as TTConfig
 from repro_torch.runtime.engine import CollaborativeEngine, Tier
 from repro_torch.runtime.serving import build_executor
 from test_torch_rnn import EOS_BIAS, min_margin, ragged, rnn_models
+from _torch_threads import cap_threads
+
+cap_threads()
 
 V = 64
 LENS = [5, 9, 3, 7]

@@ -35,6 +35,9 @@ from repro_torch.kernels.decode_attention import flash_decode_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.models.layers import attention as att
 from repro_torch.models.model import LM
+from _torch_threads import cap_threads
+
+cap_threads()
 
 WINDOW = 8           # smoke_config's cap on the 4096 window
 

@@ -17,6 +17,9 @@ from repro.models.model import LM as JLM
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.models.model import LM
 from test_torch_swa import WINDOW, _close, _swa_smoke
+from _torch_threads import cap_threads
+
+cap_threads()
 @pytest.mark.parametrize("name", ["qwen3-8b", "zamba2-1.2b"])
 def test_swa_models_match_jax_past_the_window(name):
     """Prefill 12 tokens (past the window of 8) into a linear state of 20

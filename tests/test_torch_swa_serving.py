@@ -24,6 +24,9 @@ from repro_torch.runtime.serving import (
     greedy_margins,
 )
 from test_torch_swa import WINDOW, _swa_smoke
+from _torch_threads import cap_threads
+
+cap_threads()
 
 
 @pytest.mark.parametrize("max_len,max_new", [(WINDOW, 4), (24, 12)])

@@ -75,6 +75,9 @@ from repro_torch.training.train_loop import (
     leaf_ndims,
     make_train_step,
 )
+from _torch_threads import cap_threads
+
+cap_threads()
 
 ARCHS = ("rwkv6-3b", "zamba2-1.2b", "qwen3-8b")
 V = 64

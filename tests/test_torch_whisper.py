@@ -45,6 +45,9 @@ from repro_torch.runtime.serving import (
     greedy_margins,
 )
 from repro_torch.training.losses import lm_loss
+from _torch_threads import cap_threads
+
+cap_threads()
 
 ARCH = "whisper-large-v3"
 TOL = 1e-4
