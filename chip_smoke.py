@@ -17,9 +17,13 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    zamba2's 64 heads of P = N = 64 (within 3e-4), at the chunk lengths
    prefill meets, with and without an initial state, and under every
    value tile their hosts can pick; then the attention
-   kernels at qwen3-8b's shapes (32 query heads over 8 KV heads of 128:
-   a causal B=8 S=64 prefill, a B=8 T=256 decode over ragged lengths and
-   over lengths past the cache, the idle slots of a slot table); then the
+   kernels at the D=128 models' shapes (qwen3-8b's 32 query heads over 8
+   KV heads of 128, qwen3-moe-30b-a3b's 32 over 4, moonshot-v1-16b-a3b's
+   16 over 16; float32 and bfloat16: a causal B=8 S=64 prefill, a B=8
+   T=256 decode over ragged lengths and over lengths past the cache, the
+   idle slots of a slot table; and in bfloat16 at phase 18's own shapes:
+   the causal prefill at B=2 S=37 and at the admission waves' padded
+   buckets, the decode over a 45-slot cache and a 128-slot table); then the
    attention kernels' edge cases: a 2048-slot cache cut into many splits, GQA,
    length 0 in a batch, every query tile on ragged shapes (head dims 16,
    32, 64, 128, causal with S != T), a captured ``flash_decode`` replayed
@@ -47,7 +51,9 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    (``rwkv6_wkv`` also at B=1 S=37, the chunk of 1 a prime prompt gives
    rwkv6-3b; the attention kernels also at qwen3-8b's phase-3 shapes and
    at phase 15's: whisper's encoder, cross prefill and cross decode,
-   qwen3-8b-swa's windowed prefill, linear-window and ring decode),
+   qwen3-8b-swa's windowed prefill, linear-window and ring decode; and in
+   bfloat16 at phase 18's: the three D=128 models' prefill and decode and
+   whisper's encoder, bounded at 2-byte operands and 989 TFLOP/s),
    and each scan kernel under every value tile its host
    chooses between; the tokens/s and peak memory of one batch-8
    translate; and Marian's decode step, eager and from a CUDA graph, with
@@ -176,6 +182,28 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    is held against the unsharded one behind the margin, and must launch
    both attention kernels.  It prints the eager train step, sharded
    beside unsharded, in turns, and the peak memory.
+18. (run after phase 17, before phases 11-12) bfloat16 serving at full
+   depth: qwen3-8b cut to 4 of 36 layers at full width, drawn from seed 0
+   in bf16 and in float32 (each bf16 weight must be its float32 draw
+   cast), its bf16 prefill + four decode-step logits on the kernels held
+   against the float32 twin within 2.0x the gap of the bf16 plain route
+   to the same twin; then qwen3-8b (36 layers), qwen3-moe-30b-a3b (48)
+   and moonshot-v1-16b-a3b (48) each built whole in bf16 on the card
+   (``resolve(..., param_dtype=torch.bfloat16)``, seed 0), one at a
+   time: prefill + four decode-step logits, a ragged B=8
+   ``generate_with_lengths`` of 16 tokens and ragged admission waves on
+   8 slots with every kernel call held against its plain version on the
+   same inputs (a bf16 output within 2e-2 of it, a float32 one within
+   phase 3's limit, each over the scale max(1, max |plain|)), then 12
+   prompts through ``serve_continuous`` on 8 slots (both modes), each
+   launching both attention kernels; it prints the parameters' bytes,
+   the eager slot-table step at 8 live slots with its ATen operators,
+   its device time beside the weight-read bound (for a MoE model also
+   beside the read of only the experts its routing picked), and the peak
+   memory; then zamba2-1.2b, rwkv6-3b and whisper-large-v3 (1500 frames)
+   whole in bf16: prefill + four decode-step logits and an 8-token
+   generate with every kernel call checked the same way, the logits and
+   state bf16, and each of the family's kernels launched.
 
 It prints one JSON line of kernel numbers (each kernel's launches summed
 over the main paths that run it) and, last, the line
@@ -231,6 +259,8 @@ WH_H, WH_T = 20, 1500           # whisper-large-v3: 20 MHA heads of 64 over
 WH_LENS = (1500, 1213, 700, 1)  # ragged frame lengths of a batch of 4
 WH_B, WH_MAX_LEN, WH_NEW = 4, 448, 32   # phase 15's generation
 SWA_W = 4096                    # the long_500k variants' sliding window
+BF16_T = 128                    # phase 18's slot-table and session capacity
+BF16_LENS = (53, 9, 128, 80, 1, 66, 29, 46)   # a B=8 step's pos + 1 there
 SWA_CUT = 4                     # qwen3-8b-swa's layers (of 36) in phase 15
 
 
@@ -381,31 +411,58 @@ def check_kernels(fa, da, gen):
 
 
 def check_gqa_cases(fa, da, gen):
-    """The D=128 models' attention in float32 (``GQA_SHAPES``: qwen3-8b,
-    qwen3-moe-30b-a3b's group of 8, moonshot-v1-16b-a3b's MHA): an
-    admission wave's causal prefill, a slot-table step's decode over
-    ragged lengths, and the decode of idle slots whose lengths run past
-    the cache (they attend to every slot, as the reference's mask ``idx
-    <= pos`` does there)."""
+    """The D=128 models' attention (``GQA_SHAPES``: qwen3-8b,
+    qwen3-moe-30b-a3b's group of 8, moonshot-v1-16b-a3b's MHA) in float32
+    and in bfloat16 (phase 18's dtype): an admission wave's causal
+    prefill, a slot-table step's decode over ragged lengths, and the
+    decode of idle slots whose lengths run past the cache (they attend to
+    every slot, as the reference's mask ``idx <= pos`` does there)."""
     cases = 0
-    for model, h, hkv in GQA_SHAPES:
-        q = randn(gen, (8, 64, h, QW_D))
-        k, v = (randn(gen, (8, 64, hkv, QW_D)) for _ in range(2))
-        within(f"{model} flash_attention f32 B=8 S=T=64 H={h} Hkv={hkv} "
-               f"D={QW_D} causal",
-               fa.flash_attention_cuda(q, k, v, causal=True),
-               fa.flash_attention_plain(q, k, v, causal=True), F32_TOL)
-        q = randn(gen, (8, h, QW_D))
-        kc, vc = (randn(gen, (8, QW_T, hkv, QW_D)) for _ in range(2))
-        for what, lens in (("ragged", QW_LENS),
-                           ("past the cache",
-                            (QW_T + 1, 300, QW_T, 1000, 511, 2**20, 258, 1))):
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        for model, h, hkv in GQA_SHAPES:
+            q = randn(gen, (8, 64, h, QW_D), dtype)
+            k, v = (randn(gen, (8, 64, hkv, QW_D), dtype) for _ in range(2))
+            within(f"{model} flash_attention {name} B=8 S=T=64 H={h} "
+                   f"Hkv={hkv} D={QW_D} causal",
+                   fa.flash_attention_cuda(q, k, v, causal=True),
+                   fa.flash_attention_plain(q, k, v, causal=True), tol)
+            q = randn(gen, (8, h, QW_D), dtype)
+            kc, vc = (randn(gen, (8, QW_T, hkv, QW_D), dtype)
+                      for _ in range(2))
+            for what, lens in (("ragged", QW_LENS),
+                               ("past the cache",
+                                (QW_T + 1, 300, QW_T, 1000, 511, 2**20, 258,
+                                 1))):
+                lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                within(f"{model} flash_decode {name} B=8 T={QW_T} H={h} "
+                       f"Hkv={hkv} D={QW_D} {what} lens={lens}",
+                       da.flash_decode_cuda(q, kc, vc, lt),
+                       da.flash_decode_plain(q, kc, vc, lt), tol)
+            cases += 3
+    for model, h, hkv in GQA_SHAPES:      # phase 18's own bf16 shapes
+        # check_bf16_model's B=2 S=37 prefill, the admission waves' padded
+        # (batch, width) buckets at max_len 128, and the decodes over
+        # lm_logits' 45-slot cache and the sessions' 128-slot tables
+        for b, s in ((2, 37), (1, 8), (2, 16), (4, 32), (8, 64)):
+            q = randn(gen, (b, s, h, QW_D), torch.bfloat16)
+            k, v = (randn(gen, (b, s, hkv, QW_D), torch.bfloat16)
+                    for _ in range(2))
+            within(f"{model} flash_attention bf16 B={b} S=T={s} H={h} "
+                   f"Hkv={hkv} D={QW_D} causal",
+                   fa.flash_attention_cuda(q, k, v, causal=True),
+                   fa.flash_attention_plain(q, k, v, causal=True), BF16_TOL)
+            cases += 1
+        for t, lens in ((45, (38, 41)), (BF16_T, BF16_LENS)):
+            q = randn(gen, (len(lens), h, QW_D), torch.bfloat16)
+            kc, vc = (randn(gen, (len(lens), t, hkv, QW_D), torch.bfloat16)
+                      for _ in range(2))
             lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
-            within(f"{model} flash_decode f32 B=8 T={QW_T} H={h} Hkv={hkv} "
-                   f"D={QW_D} {what} lens={lens}",
+            within(f"{model} flash_decode bf16 B={len(lens)} T={t} H={h} "
+                   f"Hkv={hkv} D={QW_D} lens={lens}",
                    da.flash_decode_cuda(q, kc, vc, lt),
-                   da.flash_decode_plain(q, kc, vc, lt), F32_TOL)
-        cases += 3
+                   da.flash_decode_plain(q, kc, vc, lt), BF16_TOL)
+            cases += 1
     return cases
 
 
@@ -685,6 +742,67 @@ def plain_kernels(ops):
             setattr(ops, name, fn)
 
 
+# each kernel's limit on one call's error against its plain version, over
+# the scale max(1, max |plain|): 2e-2 for a bf16 output, phase 3's limit
+# for a float32 one (the scan kernels run in float32 inside a bf16 model)
+CALL_TOL = {"flash_attention": F32_TOL, "flash_decode": F32_TOL,
+            "rwkv6_wkv": WKV_TOL, "ssd_scan": SSD_TOL}
+
+
+@contextlib.contextmanager
+def checked_kernels(worst):
+    """While active, each kernel wrapper runs and counts its launch as on
+    the main path, and each CUDA launch is followed by the kernel's plain
+    version on the same inputs: every output must be finite and within
+    ``CALL_TOL`` (``BF16_TOL`` for a bf16 output) x max(1, max |plain|) of
+    the plain one.  ``worst`` gathers per kernel the calls checked and the
+    call nearest its limit.  Raises at the first call out of it."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    from repro_torch.kernels import ssd_scan as ssd
+    mods = {"flash_attention": fa, "flash_decode": da, "rwkv6_wkv": wkv,
+            "ssd_scan": ssd}
+    cuda = {name: getattr(m, f"{name}_cuda") for name, m in mods.items()}
+
+    def checked(name):
+        plain = getattr(mods[name], f"{name}_plain")
+
+        def call(*args, **kw):
+            out = cuda[name](*args, **kw)
+            want = plain(*args, **kw)
+            w = worst.setdefault(name, {"calls": 0, "share": -1.0})
+            w["calls"] += 1
+            for a, b in zip(_outputs(out), _outputs(want)):
+                scale = max(1.0, float(b.float().abs().max()))
+                tol = (BF16_TOL if a.dtype == torch.bfloat16
+                       else CALL_TOL[name]) * scale
+                err = max_err(a, b)
+                what = (f"{' x '.join(str(tuple(t.shape)) for t in args[:2])}"
+                        f" {_dname(a.dtype)}")
+                if not (err <= tol and torch.isfinite(a).all()):
+                    raise AssertionError(f"{name} at {what}: {err} against "
+                                         f"its plain version > {tol}")
+                if err / tol > w["share"]:
+                    w.update(share=err / tol, err=err, tol=tol, shape=what)
+            return out
+        return call
+
+    for name, m in mods.items():
+        setattr(m, f"{name}_cuda", checked(name))
+    try:
+        yield
+    finally:
+        for name, m in mods.items():
+            setattr(m, f"{name}_cuda", cuda[name])
+
+
+def checked_line(worst) -> str:
+    return "; ".join(
+        f"{name} {w['calls']} calls, nearest its limit {w['err']:.3e} of "
+        f"{w['tol']:.3e} at {w['shape']}" for name, w in sorted(worst.items()))
+
+
 def model_outputs(model, src, mask):
     with torch.inference_mode():
         enc, m = model.encode(src, mask)
@@ -781,11 +899,12 @@ def main_path(model, ops):
 
 # --------------------------------------------------------------- phase 6 --
 def time_case(kernel, plain, library, nbytes, flops, *, per_graph=50,
-              plain_per_graph=10) -> dict:
+              plain_per_graph=10, dtype=torch.float32) -> dict:
     """Device time of the kernel, its plain version and the library call
     (None where no single PyTorch call computes the function) on the same
     inputs, the kernel's eager per-call time, its largest difference from
-    the plain version over every output, and its bound."""
+    the plain version over every output, and its bound (``flops`` at the
+    peak rate of the operands' ``dtype``)."""
     err = max_err(torch.cat([t.flatten() for t in _outputs(kernel())]),
                   torch.cat([t.flatten() for t in _outputs(plain())]))
     if not err < float("inf"):
@@ -796,7 +915,7 @@ def time_case(kernel, plain, library, nbytes, flops, *, per_graph=50,
                 plain_ms=device_ms(plain, per_graph=plain_per_graph),
                 library_ms=(None if library is None
                             else device_ms(library, per_graph=per_graph)),
-                max_abs_err=err, **bound(nbytes, flops, torch.float32))
+                max_abs_err=err, **bound(nbytes, flops, dtype))
 
 
 def decode_case(da, gen, b, length):
@@ -845,40 +964,50 @@ def attention_case(fa, gen, b, s):
     return row
 
 
-def causal_case(fa, gen, b, s, h=ZA_H, hkv=ZA_H, d=DH, model="zamba2-1.2b"):
+def causal_case(fa, gen, b, s, h=ZA_H, hkv=ZA_H, d=DH, model="zamba2-1.2b",
+                dtype=torch.float32):
     """flash_attention over one causal prefill call with all keys valid:
     zamba2-1.2b's shared attention (32 heads of 64) or, with ``h``,
     ``hkv``, ``d`` given, qwen3-8b's (32 query heads over 8 KV heads of
-    128).  The yardstick is SDPA with is_causal (and enable_gqa) on the
-    same numbers.  FLOP count the causal half."""
+    128), in ``dtype``.  The yardstick is SDPA with is_causal (and
+    enable_gqa) on the same numbers.  FLOP count the causal half; bytes
+    and the peak rate are the dtype's."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    q = randn(gen, (b, s, h, d))
-    k, v = (randn(gen, (b, s, hkv, d)) for _ in range(2))
+    q = randn(gen, (b, s, h, d), dtype)
+    k, v = (randn(gen, (b, s, hkv, d), dtype) for _ in range(2))
     qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
     big = b * s > 1024
     row = time_case(
         lambda: fa.flash_attention_cuda(q, k, v, causal=True),
         lambda: fa.flash_attention_plain(q, k, v, causal=True),
         lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=h != hkv),
-        4 * 2 * b * s * (h + hkv) * d, 2 * b * h * s * (s + 1) * d,
-        per_graph=5 if big else 50, plain_per_graph=1 if big else 10)
+        q.element_size() * 2 * b * s * (h + hkv) * d,
+        2 * b * h * s * (s + 1) * d,
+        per_graph=5 if big else 50, plain_per_graph=1 if big else 10,
+        dtype=dtype)
     row["library_err"] = max_err(
         fa.flash_attention_cuda(q, k, v, causal=True),
         sdpa(qs, ks, vs, is_causal=True,
              enable_gqa=h != hkv).permute(0, 2, 1, 3))
-    row["shape"] = f"{model} B={b} S=T={s} H={h} Hkv={hkv} dh={d} causal f32"
+    row["shape"] = (f"{model} B={b} S=T={s} H={h} Hkv={hkv} dh={d} causal "
+                    f"{_dname(dtype)}")
     return row
 
 
-def gqa_decode_case(da, gen, b, h=QW_H, hkv=QW_HKV, model="qwen3-8b"):
+def _dname(dtype) -> str:
+    return "f32" if dtype == torch.float32 else "bf16"
+
+
+def gqa_decode_case(da, gen, b, h=QW_H, hkv=QW_HKV, model="qwen3-8b",
+                    dtype=torch.float32):
     """flash_decode over one layer of a slot-table step: a cache of
     ``QW_T`` slots, ragged lengths, ``h`` query heads over ``hkv`` KV
-    heads of 128 (qwen3-8b's 32 over 8 by default).  Bytes count the
-    valid slots only; the yardstick is SDPA with a key mask and
-    enable_gqa."""
+    heads of 128 (qwen3-8b's 32 over 8 by default), in ``dtype``.  Bytes
+    count the valid slots only (the dtype's size; lengths int32); the
+    yardstick is SDPA with a key mask and enable_gqa."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    q = randn(gen, (b, h, QW_D))
-    kc, vc = (randn(gen, (b, QW_T, hkv, QW_D)) for _ in range(2))
+    q = randn(gen, (b, h, QW_D), dtype)
+    kc, vc = (randn(gen, (b, QW_T, hkv, QW_D), dtype) for _ in range(2))
     lens = torch.tensor(QW_LENS[:b], dtype=torch.int32, device="cuda")
     valid = sum(QW_LENS[:b])
     qs = q[:, :, None, :]
@@ -889,13 +1018,13 @@ def gqa_decode_case(da, gen, b, h=QW_H, hkv=QW_HKV, model="qwen3-8b"):
         lambda: da.flash_decode_cuda(q, kc, vc, lens),
         lambda: da.flash_decode_plain(q, kc, vc, lens),
         lambda: sdpa(qs, ks, vs, attn_mask=keymask, enable_gqa=h != hkv),
-        4 * (2 * valid * hkv * QW_D + 2 * b * h * QW_D + b),
-        4 * valid * h * QW_D)
+        q.element_size() * (2 * valid * hkv * QW_D + 2 * b * h * QW_D)
+        + 4 * b, 4 * valid * h * QW_D, dtype=dtype)
     row["library_err"] = max_err(
         da.flash_decode_cuda(q, kc, vc, lens),
         sdpa(qs, ks, vs, attn_mask=keymask, enable_gqa=h != hkv)[:, :, 0])
     row["shape"] = (f"{model} B={b} H={h} Hkv={hkv} dh={QW_D} "
-                    f"T={QW_T} lens={QW_LENS[:b]} f32")
+                    f"T={QW_T} lens={QW_LENS[:b]} {_dname(dtype)}")
     return row
 
 
@@ -919,24 +1048,26 @@ def gqa_decode_stats_case(da, gen, b=8):
     return row
 
 
-def whisper_encoder_case(fa, gen, b=WH_B):
+def whisper_encoder_case(fa, gen, b=WH_B, dtype=torch.float32):
     """flash_attention over one whisper-large-v3 encoder layer: B=4 of
     1500 frames, 20 heads of 64, non-causal, no lengths (the reference's
-    encoder attends to every frame).  The yardstick is SDPA."""
+    encoder attends to every frame), in ``dtype``.  The yardstick is
+    SDPA."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    q, k, v = (randn(gen, (b, WH_T, WH_H, DH)) for _ in range(3))
+    q, k, v = (randn(gen, (b, WH_T, WH_H, DH), dtype) for _ in range(3))
     qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
     row = time_case(
         lambda: fa.flash_attention_cuda(q, k, v, causal=False),
         lambda: fa.flash_attention_plain(q, k, v, causal=False),
         lambda: sdpa(qs, ks, vs),
-        4 * 4 * b * WH_T * WH_H * DH, 4 * b * WH_H * WH_T * WH_T * DH,
-        per_graph=5, plain_per_graph=1)
+        q.element_size() * 4 * b * WH_T * WH_H * DH,
+        4 * b * WH_H * WH_T * WH_T * DH,
+        per_graph=5, plain_per_graph=1, dtype=dtype)
     row["library_err"] = max_err(
         fa.flash_attention_cuda(q, k, v, causal=False),
         sdpa(qs, ks, vs).permute(0, 2, 1, 3))
     row["shape"] = (f"whisper encoder B={b} S=T={WH_T} H={WH_H} dh={DH} "
-                    "non-causal f32")
+                    f"non-causal {_dname(dtype)}")
     return row
 
 
@@ -1125,15 +1256,26 @@ def timings(gen):
              ("flash_attention", window_prefill_case(fa, gen)),
              ("flash_decode", window_decode_case(da, gen, 4200, 4150, SWA_W)),
              ("flash_decode", window_decode_case(da, gen, SWA_W, SWA_W,
-                                                 None))]
+                                                 None)),
+             # phase 18's bf16 shapes
+             *[("flash_attention", causal_case(fa, gen, 8, 64, h, hkv, QW_D,
+                                               model, torch.bfloat16))
+               for model, h, hkv in GQA_SHAPES],
+             *[("flash_decode", gqa_decode_case(da, gen, 8, h, hkv, model,
+                                                torch.bfloat16))
+               for model, h, hkv in GQA_SHAPES],
+             ("flash_attention", whisper_encoder_case(
+                 fa, gen, dtype=torch.bfloat16))]
     cases += scan_cases(gen)
     for name, r in cases:
         lib = ("library — (no single PyTorch call computes it)"
                if r["library_ms"] is None else
                f"sdpa {r['library_ms']:.5f}ms (kernel vs sdpa "
                f"{r['library_err']:.2e})")
-        by = r["bound_by"] + (f" ({F32_PEAK_NOTE})"
-                              if r["bound_by"] == "operations" else "")
+        by = r["bound_by"] + (
+            (f" ({F32_PEAK_NOTE})" if r["shape"].endswith("f32")
+             else " (bf16 at 989 TFLOP/s)")
+            if r["bound_by"] == "operations" else "")
         log(f"  {name} {r['shape']}: device {r['ms']:.5f}ms, eager "
             f"{r['eager_ms']:.5f}ms, bound {r['bound_ms']:.5f}ms by {by}, "
             f"plain {r['plain_ms']:.5f}ms, {lib} "
@@ -1586,6 +1728,7 @@ def qwen3_phase(ops):
         sess.step()
     step_ms = (time.perf_counter() - t0) / 20 * 1e3
     busy, kernels = profiled_busy_ms(lambda: [sess.step() for _ in range(5)])
+    n_ops = aten_ops(sess.step)
     with torch.inference_mode():
         tok = sess._tok[:, None].clone()
         graph_ms = device_ms(lambda: model.decode_step(sess._state, tok),
@@ -1600,7 +1743,8 @@ def qwen3_phase(ops):
     log(f"  slot-table step at 8 live slots: {step_ms:.2f}ms eager = "
         f"{8 / step_ms * 1e3:.1f} decode tokens/s; bound {weights_ms:.2f}ms "
         f"(the {4 * n_params / 1e9:.2f} GB of float32 weights at 3.35 TB/s); "
-        f"profiled: {kernels / 5:.0f} device kernels and "
+        f"{n_ops} ATen operators; profiled: {kernels / 5:.0f} device kernels "
+        f"and "
         f"{busy / 5:.2f}ms device time per step = device busy "
         f"{100 * busy / 5 / step_ms:.1f}% of the step; the model's decode "
         f"step from a CUDA graph {graph_ms:.2f}ms")
@@ -1618,7 +1762,7 @@ def qwen3_phase(ops):
 
 # --------------------------------------------------------------- phase 14 --
 # phase 14's depth cuts: every width is the configuration's own; the depth
-# is what fits one 80 GB card in float32 (ROADMAP A.5)
+# is what fits one 80 GB card in float32 (phase 18 serves them whole in bf16)
 MOE_CUTS = {
     # 24 of 48 MoE layers: 15.6 B parameters, 62 GB
     "qwen3-moe-30b-a3b": dict(counts=(24,)),
@@ -2540,7 +2684,6 @@ def dryrun_bytes_check(lm, pol, state, base_bytes):
     inputs = {k: torch.empty((ST_B, ST_S), dtype=torch.int32, device="meta")
               for k in ("tokens", "targets")}
     want = dryrun.argument_bytes(meta, "train", inputs, pol,
-                                 param_dtype=torch.float32,
                                  moments_dtype=torch.float32)
     torch.cuda.synchronize()
     allocated = torch.cuda.memory_allocated() - base_bytes
@@ -2674,6 +2817,296 @@ def sharded_training_phase(ops):
     del model, other, lm
     empty_cache()
     return {"qwen3-8b sharded trained": launches}
+
+
+# --------------------------------------------------------------- phase 18 --
+BF16 = torch.bfloat16
+# the models phase 18 serves in bfloat16 at full depth on one card
+BF16_MODELS = ("qwen3-8b", "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")
+BF16_TWIN_LAYERS = 4      # qwen3-8b's layers (of 36) against its f32 twin
+BF16_TWIN_CEILING = 2.0   # the kernels' bf16 gap over the plain route's
+
+
+def bf16_twin_check(ops):
+    """qwen3-8b at full width cut to ``BF16_TWIN_LAYERS`` layers, drawn
+    from seed 0 in bf16 and in float32: the bf16 weights must be the
+    float32 ones cast (bitwise), and the bf16 logits on the kernels must
+    lie within ``BF16_TWIN_CEILING`` x the gap between the bf16 plain
+    route and the float32 twin (the CPU tests hold that plain route
+    within 0.8-1.1x of the reference's own bf16-vs-f32 gap)."""
+    from repro_torch.models.model import LM
+
+    cfg = cut_config("qwen3-8b", (BF16_TWIN_LAYERS,))
+    half = LM(cfg, device="cuda", seed=0, param_dtype=BF16)
+    full = LM(cfg, device="cuda", seed=0)
+    for (name, p), q in zip(half.named_parameters(), full.parameters()):
+        if not torch.equal(p, q.to(p.dtype)):
+            raise AssertionError(f"{name}: the bf16 draw is not the float32 "
+                                 "draw cast")
+    toks = torch.as_tensor(np.random.default_rng(32).integers(
+        4, cfg.vocab_size, (2, 37)), dtype=torch.int32, device="cuda")
+    twin = lm_logits(full, toks)
+    kern = lm_logits(half, toks)
+    with plain_kernels(ops):
+        plain = lm_logits(half, toks)
+    err, gap = max_err(kern, twin), max_err(plain, twin)
+    log(f"  qwen3-8b, {BF16_TWIN_LAYERS} of 36 layers (seed 0): every bf16 "
+        f"weight == its float32 draw cast; prefill + 4 decode-step logits, "
+        f"bf16 on the kernels vs the float32 twin {err:.4e}, bf16 on the "
+        f"plain route vs the twin {gap:.4e} ({err / gap:.2f}x, ceiling "
+        f"{BF16_TWIN_CEILING}x; max |twin| {float(twin.abs().max()):.3f})")
+    if not (kern.dtype == BF16 and torch.isfinite(kern).all()
+            and err <= BF16_TWIN_CEILING * gap):
+        raise AssertionError(f"bf16 vs the float32 twin {err} > "
+                             f"{BF16_TWIN_CEILING} x {gap}")
+    del half, full
+    empty_cache()
+
+
+def check_bf16_model(model, ops, what):
+    """A full-depth bf16 LM on the kernels, prefill + four decode-step
+    logits at B=2 S=37 (bf16 and finite), each kernel call held against
+    its plain version on the same inputs (``checked_kernels``).  The
+    logits of the whole run are no test of the kernels: over 36-48
+    random layers a one-step bf16 change of the embeddings moves them by
+    about their own size."""
+    toks = torch.as_tensor(np.random.default_rng(31).integers(
+        4, model.cfg.vocab_size, (2, 37)), dtype=torch.int32, device="cuda")
+    worst = {}
+    ops.reset_launch_counts()
+    with checked_kernels(worst):
+        got = lm_logits(model, toks)
+    launches = ops.launch_counts()
+    log(f"  {what} B=2 S=37: prefill + 4 decode-step logits ({got.dtype}), "
+        f"launches {launches}; each kernel call vs its plain version: "
+        f"{checked_line(worst)}")
+    if not (got.dtype == BF16 and torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: logits not finite bf16")
+    for k in ("flash_attention", "flash_decode"):
+        if launches[k] == 0:
+            raise AssertionError(f"{what}: {k} never launched")
+
+
+def aten_ops(fn) -> int:
+    """The ATen operators that ``fn()`` dispatches: each one a host-side
+    call, whether it launches a kernel or not."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def routed_bytes(model, fn) -> int:
+    """The weight bytes ``fn()`` needs read: every parameter but the
+    routed experts' (the embedding table whole), plus, per MoE layer, the
+    distinct experts its router picks in the call; the port's dispatch
+    reads every expert instead."""
+    from repro_torch.models.layers import moe
+
+    picked = []
+    route = moe.route
+
+    def spy(p, mo, tokens):
+        out = route(p, mo, tokens)
+        picked.append((p, int(torch.unique(out[1]).numel())))
+        return out
+
+    moe.route = spy
+    try:
+        fn()
+    finally:
+        moe.route = route
+    layers = [m for m in model.modules() if isinstance(m, moe.MoE)]
+    own = {id(m): sum(t.w.nbytes for t in (m.experts_gate, m.experts_up,
+                                            m.experts_down)) for m in layers}
+    if len(picked) != len(layers):
+        raise AssertionError(f"{len(picked)} routings for {len(layers)} "
+                             "MoE layers in one step")
+    return (sum(p.nbytes for p in model.parameters()) - sum(own.values())
+            + sum(own[id(m)] * n // m.experts_gate.w.shape[0]
+                  for m, n in picked))
+
+
+def bf16_model_phase(name, ops, rng):
+    """``name`` at full width and depth in bf16 on the card (``resolve(
+    ..., param_dtype=torch.bfloat16)``, seed 0): ``check_bf16_model``, a
+    ragged B=8 ``generate_with_lengths`` and ragged admission waves on 8
+    slots with each kernel call checked, 12 prompts through
+    ``serve_continuous`` on 8 slots (both modes), then the eager
+    slot-table step at 8 live slots (its ATen operators, its device time
+    beside the weight-read bound and, for a MoE model, beside the read of
+    the experts its routing picked), and the peak memory."""
+    from repro_torch.models.registry import resolve
+    from repro_torch.runtime.serving import (ContinuousGenerationSession,
+                                             GenerationSession)
+
+    attn = ("flash_attention", "flash_decode")
+    empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = resolve(name, size="full", device="cuda", seed=0, param_dtype=BF16)
+    model = r.model
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.nbytes for p in model.parameters())
+    log(f"  {name}: all {r.cfg.num_layers} layers, d_model {r.cfg.d_model}; "
+        f"{n_params / 1e9:.3f}B parameters in {n_bytes / 1e9:.2f} GB (bf16 "
+        f"matrices, float32 norms and router), built in "
+        f"{time.perf_counter() - t0:.2f}s; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    check_bf16_model(model, ops, name)
+    paths = {}
+
+    vocab = model.cfg.vocab_size
+    lens = np.array([37, 8, 21, 64, 5, 50, 13, 30], np.int32)
+    toks = rng.integers(4, vocab, (8, int(lens.max()))).astype(np.int32)
+    sess = GenerationSession(model, max_len=BF16_T)
+    worst = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with checked_kernels(worst):
+        m_out, out = sess.generate_with_lengths(toks, max_new=16,
+                                                lengths=lens)
+    wall = time.perf_counter() - t0
+    paths[f"{name} bf16"] = ops.launch_counts()
+    log(f"  ragged B=8 generate_with_lengths (lengths {lens.tolist()}, 16 "
+        f"new): {wall:.2f}s with each kernel call checked, output lengths "
+        f"{m_out.tolist()}, launches {paths[f'{name} bf16']}; each call vs "
+        f"its plain version: {checked_line(worst)}")
+    if out.shape != (8, 16) or ((out < 0) | (out >= vocab)).any():
+        raise AssertionError(f"{name} bf16: bad generation {out}")
+    prompts = [rng.integers(4, vocab, int(n)).astype(np.int32)
+               for n in rng.integers(5, 61, 12)]
+    csess = ContinuousGenerationSession(model, max_slots=8, max_len=BF16_T)
+    worst = {}
+    ops.reset_launch_counts()
+    with checked_kernels(worst):
+        csess.admit(prompts[:5], max_new=8)
+        for _ in range(2):
+            csess.step()
+        csess.admit(prompts[5:8], max_new=8)
+        for _ in range(2):
+            csess.step()
+    paths[f"{name} bf16 admission waves"] = ops.launch_counts()
+    log(f"  ragged admission waves of 5 then 3 prompts (lengths "
+        f"{[len(p) for p in prompts[:8]]}), 2 steps after each, launches "
+        f"{paths[f'{name} bf16 admission waves']}; each call vs its plain "
+        f"version: {checked_line(worst)}")
+    _, paths[f"{name} bf16 continuous"] = serve_both_modes(
+        csess, ops, prompts, 8, 20.0, attn)
+    for what, launches in paths.items():
+        for k in attn:
+            if launches[k] == 0:
+                raise AssertionError(f"{what}: {k} never launched")
+
+    csess.reset()
+    csess.admit([p[:16] for p in prompts[:8]], max_new=BF16_T - 32)
+    for _ in range(3):
+        csess.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        csess.step()
+    step_ms = (time.perf_counter() - t0) / 10 * 1e3
+    busy, kernels = profiled_busy_ms(lambda: [csess.step() for _ in range(3)])
+    n_ops = aten_ops(csess.step)
+    bound_ms = n_bytes / HBM_BYTES_S * 1e3
+    routed = ""
+    if r.cfg.moe:
+        need = routed_bytes(model, csess.step)
+        routed = (f"; the weights this step's routing needs (every expert "
+                  f"it picks once, the rest whole) {need / 1e9:.2f} GB = "
+                  f"{need / HBM_BYTES_S * 1e3:.2f}ms")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  {name} bf16 slot-table step at 8 live slots: {step_ms:.2f}ms "
+        f"eager = {8 / step_ms * 1e3:.1f} decode tokens/s; {n_ops} ATen "
+        f"operators; {busy / 3:.2f}ms device time ({kernels / 3:.0f} device "
+        f"kernels, device busy {100 * busy / 3 / step_ms:.1f}% of the "
+        f"step); weight-read bound {bound_ms:.2f}ms ({n_bytes / 1e9:.2f} GB "
+        f"at 3.35 TB/s{', the dispatch reading every expert' if r.cfg.moe else ''})"
+        f"{routed}; peak memory {peak:.2f} GiB")
+    del model, sess, csess, r
+    empty_cache()
+    return paths
+
+
+def bf16_small_phase(name, ops, needed):
+    """``name`` (zamba2-1.2b, rwkv6-3b or whisper-large-v3) at full width
+    and depth in bf16 on the card, seed 0: prefill + four decode-step
+    logits at B=2 (whisper with 1500 frames of each ragged length) and a
+    ``GenerationSession`` generate of 8 tokens, each kernel call held
+    against its plain version (``checked_kernels``), the logits and every
+    floating state leaf bf16 and finite, each of ``needed`` launched."""
+    from repro_torch.models.registry import resolve
+    from repro_torch.runtime.serving import GenerationSession
+
+    empty_cache()
+    r = resolve(name, size="full", device="cuda", seed=0, param_dtype=BF16)
+    model, cfg = r.model, r.model.cfg
+    toks = torch.as_tensor(np.random.default_rng(34).integers(
+        4, cfg.vocab_size, (2, 37)), dtype=torch.int32, device="cuda")
+    frames = mask = None
+    if cfg.is_encoder_decoder:
+        frames = torch.as_tensor(np.random.default_rng(15).standard_normal(
+            (2, WH_T, cfg.d_model)), dtype=torch.float32, device="cuda")
+        mask = (torch.arange(WH_T, device="cuda")[None, :] < torch.tensor(
+            WH_LENS[1:3], device="cuda")[:, None]).float()
+    worst = {}
+    ops.reset_launch_counts()
+    with checked_kernels(worst), torch.inference_mode():
+        got = (whisper_logits(model, toks, frames, mask) if frames is not None
+               else lm_logits(model, toks))
+        _, state = model.prefill(toks, frames=frames, frame_mask=mask,
+                                 max_len=BF16_T)
+        sess = GenerationSession(model, max_len=BF16_T)
+        _, out = sess.generate_with_lengths(
+            toks.cpu().numpy(), max_new=8,
+            frames=None if frames is None else frames)
+    launches = ops.launch_counts()
+    leaves = [t for c in state["caches"] for t in c.values()
+              if t.is_floating_point()]
+    log(f"  {name}: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B "
+        f"parameters in bf16, prefill + 4 decode-step logits "
+        f"({got.dtype}, max |logit| over the real vocabulary "
+        f"{float(got[..., :cfg.vocab_size].float().abs().max()):.3f}) "
+        f"and an 8-token generate, launches {launches}; each kernel call vs "
+        f"its plain version: {checked_line(worst)}")
+    if not (got.dtype == BF16 and torch.isfinite(got).all()
+            and all(t.dtype == BF16 for t in leaves)
+            and out.shape == (2, 8)):
+        raise AssertionError(f"{name}: bf16 logits, state or tokens off")
+    for k in needed:
+        if launches[k] == 0:
+            raise AssertionError(f"{name} bf16: {k} never launched")
+    del model, r, state, sess
+    empty_cache()
+    return {f"{name} bf16": launches}
+
+
+def bf16_phase(ops):
+    """Phase 18: the float32-twin check, each of ``BF16_MODELS`` served in
+    bf16 at full depth, then the recurrent and encoder-decoder families'
+    short bf16 pass."""
+    bf16_twin_check(ops)
+    rng = np.random.default_rng(33)
+    paths = {}
+    for name in BF16_MODELS:
+        paths.update(bf16_model_phase(name, ops, rng))
+    for name, needed in (("zamba2-1.2b", ("ssd_scan", "flash_attention",
+                                          "flash_decode")),
+                         ("rwkv6-3b", ("rwkv6_wkv",)),
+                         ("whisper-large-v3", ("flash_attention",
+                                               "flash_decode"))):
+        paths.update(bf16_small_phase(name, ops, needed))
+    return paths
 
 
 # ---------------------------------------------------------- phases 9-10 --
@@ -3304,6 +3737,11 @@ def main() -> int:
         "training on a 1x1 NCCL mesh vs unsharded, the dry-run's bytes, "
         "serving the trained sharded model")
     paths.update(sharded_training_phase(ops))
+
+    log("== phase 18: qwen3-8b, qwen3-moe-30b-a3b and moonshot-v1-16b-a3b "
+        "in bfloat16 at full depth on one card; zamba2-1.2b, rwkv6-3b and "
+        "whisper-large-v3 in bfloat16")
+    paths.update(bf16_phase(ops))
 
     log("== phase 11: training the paper's three NMT models at full width")
     model, _ = nmt_training("marian", "en-zh", ops, 200, smi)

@@ -28,6 +28,28 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
+def _t_keep(a) -> torch.Tensor:
+    """A leaf as a tensor of its own dtype: float32, or JAX's bfloat16,
+    which reaches numpy as ``ml_dtypes.bfloat16`` (``torch.from_numpy``
+    refuses it) and crosses as its 16-bit pattern, bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16)
+    return _t(a)
+
+
+def _numpy(tensor: torch.Tensor) -> np.ndarray:
+    """A host copy of ``tensor`` as numpy, a bfloat16 one as
+    ``ml_dtypes.bfloat16`` (what ``np.asarray`` of a JAX bf16 array
+    gives), bit for bit."""
+    t = tensor.detach().to("cpu", copy=True)
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    import ml_dtypes     # JAX's own numpy dtypes; needed only to go there
+    return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+
+
 def _dense(sd, prefix, p) -> None:
     """The reference's ``dense`` is ``x @ w + b`` with ``w`` of shape
     (d_in, d_out); ``nn.Linear`` stores its weight as (d_out, d_in)."""
@@ -145,7 +167,9 @@ def lm_params_from_jax(tree, cfg) -> Dict[str, torch.Tensor]:
     (``mixer.xq`` .. ``mixer.xo``, ``ln_x``), the MoE leaves
     (``ffn.router``, ``ffn.experts_*``, ``ffn.shared.*``) and the eight MLA
     leaves are per-layer leaves like any other.  Every tensor is used as
-    given (float32), never redrawn.  Load the result with
+    given, in its own dtype (the bfloat16 leaves of a reference
+    ``LM(param_dtype=jnp.bfloat16)`` bit for bit, for the port's
+    ``LM(param_dtype=torch.bfloat16)``), never redrawn.  Load the result with
     ``model.load_state_dict(...)``.
     """
     unknown = set(tree) - {"embed", "final_norm", "lm_head", "groups",
@@ -176,7 +200,7 @@ def lm_params_from_jax(tree, cfg) -> Dict[str, torch.Tensor]:
                                  f"{count}")
             for li in range(count):
                 flat[f"{prefix}.{li}.{name}"] = stacked[li]
-    return {name: _t(a) for name, a in flat.items()}
+    return {name: _t_keep(a) for name, a in flat.items()}
 
 
 # ------------------------------------------------------ port -> reference --
@@ -271,7 +295,7 @@ def _to_jax(sd, leaf_of, tree) -> Tuple[dict, Dict[str, str]]:
     paths: Dict[str, str] = {}
     for name, tensor in sd.items():
         leaf = leaf_of(name)
-        a = tensor.detach().to("cpu", copy=True).numpy()
+        a = _numpy(tensor)
         if leaf.transpose:
             a = np.ascontiguousarray(a.T)
         if leaf.layer is None:

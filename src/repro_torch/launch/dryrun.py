@@ -28,8 +28,10 @@ group), the LM built on the ``meta`` device, and the port's own design:
   all_gather of each module's blocks over the world (a flat buffer, in
   the blocks' promoted dtype), for training the gradients' reduce_scatter
   over the batch ranks, the replicated gradients' all_reduce, the
-  norm's and the MoE load-balance means' all_reduces; the logits'
-  gather over the batch axes; in decode, the gather of every split state
+  norm's and the MoE load-balance means' all_reduces, and the loss's
+  all_reduce of each cross entropy's token count and sum (each rank's
+  logits stay its rows'); in serving, the last logits' gather over the
+  batch axes; in decode, the gather of every split state
   leaf that is not a linear self-attention cache, and the
   sequence-sharded decode's two all_reduces per attention layer.  Bytes
   are each collective's result buffer on one rank (the reference counts
@@ -66,7 +68,6 @@ from repro_torch.configs import (
     get_config,
     shape_supported,
 )
-from repro_torch.convert import reference_leaves
 from repro_torch.launch.mesh import H100
 from repro_torch.models.costs import step_cost
 from repro_torch.models.model import LM
@@ -119,21 +120,6 @@ def input_specs(cfg, shape_name: str, *, model: LM) -> Dict:
 
 
 # ---------------------------------------------------------- per rank --
-def param_dtypes(model: LM, param_dtype=PARAM_DTYPE) -> Dict[str, torch.dtype]:
-    """Each parameter's dtype in the reference's ``LM(param_dtype=)``: its
-    matrices (a ``w`` leaf other than the router's and rwkv6's ``mix``
-    coefficients, and mamba2's ``conv_w``/``conv_b``) at ``param_dtype``,
-    every other leaf (norms, biases, decays, the router) in float32."""
-    out = {}
-    for name, leaf in reference_leaves(model).items():
-        keys = [k for k in leaf.path if isinstance(k, str)]
-        owner = keys[-2] if len(keys) > 1 else ""
-        matrix = ((keys[-1] == "w" and owner not in ("router", "mix"))
-                  or keys[-1] in ("conv_w", "conv_b"))
-        out[name] = param_dtype if matrix else torch.float32
-    return out
-
-
 def block_shape(shape, spec, pol: ShardingPolicy) -> tuple:
     """A rank's block of ``shape`` under ``spec``: each dim divided by the
     size of the axes its entry names (the policy names only axes that
@@ -164,16 +150,15 @@ def _tree_bytes(tree, specs, pol) -> int:
 
 
 def argument_bytes(model: LM, kind: str, inputs: Dict, pol: ShardingPolicy,
-                   *, param_dtype=PARAM_DTYPE,
-                   moments_dtype=torch.float32) -> Dict[str, int]:
+                   *, moments_dtype=torch.float32) -> Dict[str, int]:
     """One rank's bytes of the step's arguments (the reference's
-    ``argument_size_in_bytes``), term by term: ``parameters``;
+    ``argument_size_in_bytes``), term by term: ``parameters`` (each at
+    its dtype in ``model``);
     for train ``moments`` (mu and nu) and ``step`` (the int32 counter);
     for decode ``state``; ``inputs``; and their ``total``."""
     specs = param_specs(pol, model)
-    dtypes = param_dtypes(model, param_dtype)
     out = {"parameters": sum(
-        _nbytes(block_shape(p.shape, specs[n], pol), dtypes[n])
+        _nbytes(block_shape(p.shape, specs[n], pol), p.dtype)
         for n, p in model.named_parameters())}
     if kind == "train":
         out["moments"] = 2 * sum(
@@ -218,8 +203,8 @@ def _add(stats, op: str, nbytes: int, count: int = 1) -> None:
     stats[op]["count"] += count
 
 
-def collective_bytes(model: LM, kind: str, inputs: Dict, pol: ShardingPolicy,
-                     *, param_dtype=PARAM_DTYPE) -> Dict:
+def collective_bytes(model: LM, kind: str, inputs: Dict,
+                     pol: ShardingPolicy) -> Dict:
     """The bytes one rank's collectives produce in one step of the port's
     sharded runtime (each collective's result buffer), by kind."""
     cfg = model.cfg
@@ -227,7 +212,6 @@ def collective_bytes(model: LM, kind: str, inputs: Dict, pol: ShardingPolicy,
              for op in ("all-gather", "reduce-scatter", "all-reduce")}
     world = math.prod(pol.mesh.sizes)
     specs = param_specs(pol, model)
-    dtypes = param_dtypes(model, param_dtype)
     params = dict(model.named_parameters())
     names = {id(p): n for n, p in params.items()}
     cut = {n for n, s in specs.items()
@@ -235,7 +219,7 @@ def collective_bytes(model: LM, kind: str, inputs: Dict, pol: ShardingPolicy,
 
     def block_bytes(names_, dtype=None):
         return sum(_nbytes(block_shape(params[n].shape, specs[n], pol),
-                           dtype or dtypes[n]) for n in names_)
+                           dtype or params[n].dtype) for n in names_)
 
     batch_in = inputs["tokens"].shape[0]
     rows = pol.batch(batch_in)
@@ -246,22 +230,23 @@ def collective_bytes(model: LM, kind: str, inputs: Dict, pol: ShardingPolicy,
         mine = [n for n in unit_names if n in cut]
         if not mine:
             continue
-        flat_dtype = dtypes[mine[0]]
+        flat_dtype = params[mine[0]].dtype
         for n in mine[1:]:
-            flat_dtype = torch.promote_types(flat_dtype, dtypes[n])
+            flat_dtype = torch.promote_types(flat_dtype, params[n].dtype)
         own = block_bytes(mine, flat_dtype)
         _add(stats, "all-gather", world * own)
         if kind == "train" and split:
             _add(stats, "reduce-scatter", own)
     b_loc = batch_in // (pol.axis_size(spec_axes(rows)) if split else 1)
-    logits = ((batch_in, inputs["tokens"].shape[1], cfg.padded_vocab)
-              if kind == "train" else (batch_in, cfg.padded_vocab))
-    if split:
-        n_logits = 2 if (kind == "train" and cfg.mtp_depth) else 1
-        _add(stats, "all-gather", n_logits * _nbytes(logits, param_dtype),
-             n_logits)
+    if split and kind != "train":
+        _add(stats, "all-gather",
+             _nbytes((batch_in, cfg.padded_vocab), model.param_dtype))
     if kind == "train":
         if split:
+            # the loss: each cross entropy's token count and sum (float32)
+            # over the batch ranks in one all_reduce; no logits move
+            n_ce = 2 if cfg.mtp_depth else 1
+            _add(stats, "all-reduce", 2 * n_ce * 4)
             rep = [n for n in specs if n not in cut]
             if rep:
                 _add(stats, "all-reduce", block_bytes(rep))
@@ -333,7 +318,7 @@ def analyze(arch: str, shape_name: str, mesh_name: str, *, remat=True,
     cfg = get_config(arch, shape=shape_name)
     seq, batch, kind = INPUT_SHAPES[shape_name]
     pol = make_policy(mesh, batch_size=batch, layout=layout, fsdp=fsdp)
-    model = LM(cfg, device="meta")
+    model = LM(cfg, device="meta", param_dtype=PARAM_DTYPE)
     inputs = input_specs(cfg, shape_name, model=model)
     moments = moments_dtype(cfg)
     args = argument_bytes(model, kind, inputs, pol, moments_dtype=moments)

@@ -85,11 +85,12 @@ class GQA(nn.Module):
     ``xk``, ``xv``, ``xo``: the reference's ``gqa_params(cross=)``."""
 
     def __init__(self, cfg: ModelConfig, *, cross: bool = False, device,
-                 generator):
+                 generator, dtype=torch.float32):
         super().__init__()
         d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
             cfg.head_dim
-        mk = lambda a, b: Linear(a, b, device=device, generator=generator)
+        mk = lambda a, b: Linear(a, b, device=device, generator=generator,
+                                 dtype=dtype)
         self.q, self.k = mk(d, h * dh), mk(d, hkv * dh)
         self.v, self.o = mk(d, hkv * dh), mk(h * dh, d)
         if cfg.qk_norm:
@@ -265,11 +266,13 @@ class MLA(nn.Module):
     """Leaves ``q_down``, ``q_norm``, ``q_up``, ``kv_down``, ``kv_norm``,
     ``k_up``, ``v_up`` and ``o``, the reference's names and shapes."""
 
-    def __init__(self, cfg: ModelConfig, *, device, generator):
+    def __init__(self, cfg: ModelConfig, *, device, generator,
+                 dtype=torch.float32):
         super().__init__()
         m: MLAConfig = cfg.mla
         d, h = cfg.d_model, cfg.num_heads
-        mk = lambda a, b: Linear(a, b, device=device, generator=generator)
+        mk = lambda a, b: Linear(a, b, device=device, generator=generator,
+                                 dtype=dtype)
         self.q_down = mk(d, m.q_lora_rank)
         self.q_norm = RMSNorm(m.q_lora_rank, device=device)
         self.q_up = mk(m.q_lora_rank,
@@ -279,6 +282,14 @@ class MLA(nn.Module):
         self.k_up = mk(m.kv_lora_rank, h * m.qk_nope_head_dim)
         self.v_up = mk(m.kv_lora_rank, h * m.v_head_dim)
         self.o = mk(h * m.v_head_dim, d)
+
+
+def _scale(m: MLAConfig, dtype):
+    """MLA's softmax scale in the working dtype: the reference multiplies
+    the scores in that dtype (rounded there at bf16) before the float32
+    softmax."""
+    return torch.tensor((m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5,
+                        dtype=dtype)
 
 
 def _mla_q(p: MLA, cfg: ModelConfig, x, positions):
@@ -319,8 +330,8 @@ def mla_full(p: MLA, cfg: ModelConfig, x):
     q_eff = torch.cat([q_nope, q_pe], dim=-1)
     k_eff = torch.cat([k_nope, k_pe[:, :, None, :].expand(
         b, s, h, m.qk_rope_head_dim)], dim=-1)
-    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    scores = torch.einsum("bshd,bthd->bhst", q_eff, k_eff).float() * scale
+    scale = _scale(m, x.dtype)
+    scores = (torch.einsum("bshd,bthd->bhst", q_eff, k_eff) * scale).float()
     pos = torch.arange(s, device=x.device)
     scores = scores.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
@@ -343,9 +354,9 @@ def mla_decode(p: MLA, cfg: ModelConfig, x, cache_ckv, cache_kpe, pos):
     _write_slot(cache_kpe, k_pe[:, 0], pos)
     w_kup = p.k_up.w.view(m.kv_lora_rank, h, m.qk_nope_head_dim)
     q_c = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_kup.to(x.dtype))
-    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
     scores = (torch.einsum("bhr,btr->bht", q_c, cache_ckv)
-              + torch.einsum("bhd,btd->bht", q_pe[:, 0], cache_kpe)) * scale
+              + torch.einsum("bhd,btd->bht", q_pe[:, 0], cache_kpe)) \
+        * _scale(m, x.dtype)
     valid = torch.arange(s_max, device=x.device)[None, :] <= pos[:, None]
     scores = scores.float().masked_fill(~valid[:, None, :], NEG_INF)
     w = torch.softmax(scores, dim=-1).to(x.dtype)

@@ -7,7 +7,11 @@ a projection's weight ``w`` is stored (d_in, d_out) and applied as
 ``x @ w`` (no ``nn.Linear`` transpose); a norm's scale is ``g``; the
 embedding table is ``w`` (vocab, d).  Weights are drawn in place from an
 explicit ``torch.Generator`` with the reference's laws (N(0, 1/d_in) for
-projections, N(0, 1/d) for the embedding).
+projections, N(0, 1/d) for the embedding), in float32, and each is cast
+to its ``dtype`` as soon as it is drawn (the reference's ``(normal(key,
+shape, float32) * scale).astype(dtype)``): a model at ``param_dtype``
+holds the bits of the float32 model from the same seed, cast tensor by
+tensor.  Norm scales and every other constant leaf stay float32.
 """
 
 from __future__ import annotations
@@ -21,15 +25,17 @@ def _param(tensor: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(tensor, requires_grad=False)
 
 
-def const_param(value: float, shape, device) -> nn.Parameter:
-    return _param(torch.full(shape, value, dtype=torch.float32,
-                             device=device))
+def const_param(value: float, shape, device,
+                dtype=torch.float32) -> nn.Parameter:
+    return _param(torch.full(shape, value, dtype=dtype, device=device))
 
 
-def normal_param(shape, std: float, *, device, generator) -> nn.Parameter:
+def normal_param(shape, std: float, *, device, generator,
+                 dtype=torch.float32) -> nn.Parameter:
+    """N(0, std^2) drawn in float32, then cast to ``dtype``."""
     w = torch.empty(shape, dtype=torch.float32, device=device)
     w.normal_(0.0, std, generator=generator)
-    return _param(w)
+    return _param(w.to(dtype))
 
 
 # ------------------------------------------------------------------ norms --
@@ -83,11 +89,11 @@ class Linear(nn.Module):
     d_in^-0.5 by default."""
 
     def __init__(self, d_in: int, d_out: int, *, device, generator,
-                 scale: float | None = None):
+                 scale: float | None = None, dtype=torch.float32):
         super().__init__()
         scale = scale if scale is not None else d_in ** -0.5
         self.w = normal_param((d_in, d_out), scale, device=device,
-                              generator=generator)
+                              generator=generator, dtype=dtype)
 
     def forward(self, x):
         return linear(self.w, x)
@@ -100,10 +106,11 @@ def linear(w, x):
 class Embedding(nn.Module):
     """Token table ``w`` (vocab, d), drawn N(0, 1/d)."""
 
-    def __init__(self, vocab: int, d: int, *, device, generator):
+    def __init__(self, vocab: int, d: int, *, device, generator,
+                 dtype=torch.float32):
         super().__init__()
         self.w = normal_param((vocab, d), d ** -0.5, device=device,
-                              generator=generator)
+                              generator=generator, dtype=dtype)
 
     def forward(self, tokens):
         return self.w[tokens.long()]
@@ -111,9 +118,11 @@ class Embedding(nn.Module):
 
 # ------------------------------------------------------------------- ffn --
 class SwiGLU(nn.Module):
-    def __init__(self, d_model: int, d_ff: int, *, device, generator):
+    def __init__(self, d_model: int, d_ff: int, *, device, generator,
+                 dtype=torch.float32):
         super().__init__()
-        mk = lambda a, b: Linear(a, b, device=device, generator=generator)
+        mk = lambda a, b: Linear(a, b, device=device, generator=generator,
+                                 dtype=dtype)
         self.gate, self.up = mk(d_model, d_ff), mk(d_model, d_ff)
         self.down = mk(d_ff, d_model)
 

@@ -58,7 +58,8 @@ class MambaState(NamedTuple):
 class Mamba2Mixer(nn.Module):
     """The mixer's parameters, named as in the reference's pytree."""
 
-    def __init__(self, cfg: ModelConfig, *, device, generator):
+    def __init__(self, cfg: ModelConfig, *, device, generator,
+                 dtype=torch.float32):
         super().__init__()
         s, d = cfg.ssm, cfg.d_model
         d_in = s.expand * d
@@ -66,17 +67,20 @@ class Mamba2Mixer(nn.Module):
         conv_ch = d_in + 2 * s.n_groups * s.state_dim
         # in_proj emits [z, x, B, C, dt]
         self.in_proj = Linear(d, 2 * d_in + 2 * s.n_groups * s.state_dim + nh,
-                              device=device, generator=generator)
+                              device=device, generator=generator, dtype=dtype)
+        # the conv's weight and bias are matrices to the reference's dtype
+        # rule; a_log, d_skip, dt_bias and the norm stay float32
         self.conv_w = normal_param((s.conv_width, conv_ch),
                                    s.conv_width ** -0.5, device=device,
-                                   generator=generator)
-        self.conv_b = const_param(0.0, (conv_ch,), device)
+                                   generator=generator, dtype=dtype)
+        self.conv_b = const_param(0.0, (conv_ch,), device, dtype)
         self.a_log = _param(torch.log(torch.linspace(1.0, 16.0, nh,
                                                      device=device)))
         self.d_skip = const_param(1.0, (nh,), device)
         self.dt_bias = const_param(0.0, (nh,), device)
         self.norm_g = RMSNorm(d_in, device=device)
-        self.out_proj = Linear(d_in, d, device=device, generator=generator)
+        self.out_proj = Linear(d_in, d, device=device, generator=generator,
+                               dtype=dtype)
 
 
 def _split_proj(cfg: ModelConfig, zxbcdt):

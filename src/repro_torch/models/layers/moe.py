@@ -54,9 +54,11 @@ from repro_torch.sharding import ctx as shard_ctx
 class _Weight(nn.Module):
     """A bare ``w`` leaf (the reference's ``{"w": ...}``)."""
 
-    def __init__(self, shape, std: float, *, device, generator):
+    def __init__(self, shape, std: float, *, device, generator,
+                 dtype=torch.float32):
         super().__init__()
-        self.w = normal_param(shape, std, device=device, generator=generator)
+        self.w = normal_param(shape, std, device=device, generator=generator,
+                              dtype=dtype)
 
 
 class MoE(nn.Module):
@@ -64,12 +66,15 @@ class MoE(nn.Module):
     (E, D, F), ``experts_down.w`` (E, F, D) and, with shared experts,
     ``shared`` (a SwiGLU of width F * num_shared_experts)."""
 
-    def __init__(self, cfg: ModelConfig, *, device, generator):
+    def __init__(self, cfg: ModelConfig, *, device, generator,
+                 dtype=torch.float32):
         super().__init__()
         mo: MoEConfig = cfg.moe
         d, f, e = cfg.d_model, mo.d_ff_expert, mo.num_experts
-        kw = dict(device=device, generator=generator)
-        self.router = _Weight((d, e), d ** -0.5, **kw)
+        kw = dict(device=device, generator=generator, dtype=dtype)
+        # the router's math is float32 at any dtype
+        self.router = _Weight((d, e), d ** -0.5, device=device,
+                              generator=generator)
         self.experts_gate = _Weight((e, d, f), d ** -0.5, **kw)
         self.experts_up = _Weight((e, d, f), d ** -0.5, **kw)
         self.experts_down = _Weight((e, f, d), f ** -0.5, **kw)

@@ -49,11 +49,15 @@ class RWKVState(NamedTuple):
 class TimeMix(nn.Module):
     """The time-mix parameters, named as in the reference's pytree."""
 
-    def __init__(self, cfg: ModelConfig, *, device, generator):
+    def __init__(self, cfg: ModelConfig, *, device, generator,
+                 dtype=torch.float32):
         super().__init__()
         rc, d = cfg.rwkv, cfg.d_model
         h = d // rc.head_dim
-        mk = lambda a, b: Linear(a, b, device=device, generator=generator)
+        mk = lambda a, b: Linear(a, b, device=device, generator=generator,
+                                 dtype=dtype)
+        # the token-shift coefficients, decays, bonus and group norm stay
+        # float32 at any dtype (the reference's rule)
         self.mix = nn.ParameterDict(
             {n: const_param(0.5, (d,), device) for n in ("r", "k", "v", "g",
                                                          "w")})
@@ -68,10 +72,12 @@ class TimeMix(nn.Module):
 
 
 class ChannelMix(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device, generator):
+    def __init__(self, cfg: ModelConfig, *, device, generator,
+                 dtype=torch.float32):
         super().__init__()
         d = cfg.d_model
-        mk = lambda a, b: Linear(a, b, device=device, generator=generator)
+        mk = lambda a, b: Linear(a, b, device=device, generator=generator,
+                                 dtype=dtype)
         self.mix = nn.ParameterDict(
             {n: const_param(0.5, (d,), device) for n in ("r", "k")})
         self.rk = mk(d, d)

@@ -21,6 +21,19 @@ its own.  Weights are drawn at construction from a ``torch.Generator``
 seeded with ``seed`` on the target device (on the ``meta`` device
 nothing is drawn or allocated: shapes only, to size a configuration).
 
+``param_dtype`` (float32 or bfloat16) is the reference's
+``LM(param_dtype=)``: matrices in that dtype, norms, biases, decays and
+the MoE router in float32 (the layers' constructors hold the rule).  The embedding is read
+in ``param_dtype``, so the residual stream, every cache and the logits
+are in it; the norms, RoPE, the softmaxes, the router and the scan
+kernels compute in float32 and cast back, where the reference does.
+Attention runs through the kernels, which take bf16 operands, compute in
+float32 and round their output once, where the reference's jnp
+attention rounds its scores and weights to the working dtype (ROADMAP
+C).
+Weights are drawn in float32 and each is cast as it is drawn, so the
+bf16 model from a seed is the float32 model from that seed, cast.
+
 Entry points:
 
 * ``train_logits(tokens)`` — the full causal forward with no cache, for
@@ -104,9 +117,9 @@ class Block(nn.Module):
     """One layer of group ``g``: mixer + FFN + their norms."""
 
     def __init__(self, cfg: ModelConfig, g: LayerGroup, *, device,
-                 generator):
+                 generator, dtype=torch.float32):
         super().__init__()
-        kw = dict(device=device, generator=generator)
+        kw = dict(device=device, generator=generator, dtype=dtype)
         d = cfg.d_model
         self.ln1 = RMSNorm(d, device=device)
         if g.mixer in ("attn", "shared_attn"):
@@ -138,14 +151,19 @@ def _stack(entries: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
 
 
 class LM(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
+    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
+                 param_dtype=torch.float32):
         super().__init__()
+        if param_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"param_dtype must be float32 or bfloat16, "
+                             f"got {param_dtype}")
         self.cfg = cfg.validate()
+        self.param_dtype = param_dtype
         self.unshard = None      # the sharded runtime's per-module gather
         dev = resolve_device(device)
         gen = (None if dev.type == "meta"
                else torch.Generator(device=dev).manual_seed(seed))
-        kw = dict(device=dev, generator=gen)
+        kw = dict(device=dev, generator=gen, dtype=param_dtype)
         self.embed = Embedding(cfg.padded_vocab, cfg.d_model, **kw)
         self.final_norm = RMSNorm(cfg.d_model, device=dev)
         if not cfg.tie_embeddings:
@@ -193,7 +211,7 @@ class LM(nn.Module):
 
     def _embed(self, tokens):
         with self._whole(self.embed):
-            return self.embed(tokens)
+            return self.embed(tokens).to(self.param_dtype)
 
     # ------------------------------------------------------------ blocks --
     def _ffn(self, p: Block, g: LayerGroup, x, rstate, *, full: bool):
@@ -338,7 +356,11 @@ class LM(nn.Module):
         if frames is None:
             raise ValueError(f"{self.cfg.name} is an encoder-decoder: give "
                              "frames=")
-        frames = torch.as_tensor(frames, device=self.device)
+        # the encoder runs in the model's dtype, as the reference's does
+        # on frames of it (given float32 frames, its bf16 encoder scan
+        # raises on the carry's dtype: ROADMAP C)
+        frames = torch.as_tensor(frames, device=self.device).to(
+            self.param_dtype)
         if frame_mask is not None:
             frame_mask = torch.as_tensor(frame_mask, device=self.device)
         enc_out, mask = self.encode(frames, frame_mask, kernels=kernels)
@@ -448,14 +470,17 @@ class LM(nn.Module):
         return self._logits(last), state
 
     # ------------------------------------------------------ decode state --
-    def init_decode_state(self, batch: int, max_len: int,
-                          dtype=torch.float32, *, ring: bool = True) -> Dict:
-        """Fresh (empty) decode state with capacity ``max_len``; an
+    def init_decode_state(self, batch: int, max_len: int, dtype=None, *,
+                          ring: bool = True) -> Dict:
+        """Fresh (empty) decode state with capacity ``max_len``, its
+        tensors in ``dtype`` (default the model's ``param_dtype``; ``pos``
+        int32, ``enc_mask`` float32, as the reference's); an
         attention cache under a sliding window holds ``min(max_len,
         window)`` slots (a ring when that is the window).  ``ring=False``
         keeps ``max_len`` slots, the shapes ``prefill(max_len=)`` returns:
         past the window such a cache decodes linear under the window."""
         cfg, dev = self.cfg, self.device
+        dtype = dtype or self.param_dtype
         caches: List[Dict[str, torch.Tensor]] = []
         zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
         for g in cfg.layer_plan:

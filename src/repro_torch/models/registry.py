@@ -25,6 +25,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import torch
+
 from repro_torch.nmt.common import RNNConfig, TransformerConfig
 from repro_torch.nmt.gru import GRUSeq2Seq
 from repro_torch.nmt.lstm import BiLSTMSeq2Seq
@@ -97,14 +99,16 @@ def available() -> Tuple[str, ...]:
 def resolve(name: str, *, size: str = "smoke",
             # NMT knobs (ignored for LM names)
             scale: float = 1.0, vocab: int = 8000, max_decode_len: int = 256,
-            # LM knob (ignored for NMT names)
-            shape: Optional[str] = None,
+            # LM knobs (ignored for NMT names)
+            shape: Optional[str] = None, param_dtype=torch.float32,
             device=None, seed: int = 0) -> ResolvedModel:
     """Resolve a model name to an instantiated model on ``device``
     (``cuda`` unless the caller asks for ``"cpu"``), its weights drawn
     from a ``torch.Generator`` seeded with ``seed``.  For LM names
     ``size`` picks ``smoke_config`` ("smoke") or ``get_config``
-    ("full"; ``shape`` selects a documented variant)."""
+    ("full"; ``shape`` selects a documented variant) and ``param_dtype``
+    the LM's (float32 by default; ``torch.bfloat16`` is the reference's
+    serving dtype, ``LM(param_dtype=)``).  The NMT models are float32."""
     from repro_torch.configs import ARCH_NAMES, get_config, smoke_config
     from repro_torch.models.model import LM
 
@@ -124,7 +128,7 @@ def resolve(name: str, *, size: str = "smoke",
     if arch in ARCH_NAMES:
         cfg = (smoke_config(arch) if size == "smoke"
                else get_config(arch, shape))
-        return ResolvedModel(name=arch, family="lm",
-                             model=LM(cfg, device=device, seed=seed), cfg=cfg)
+        model = LM(cfg, device=device, seed=seed, param_dtype=param_dtype)
+        return ResolvedModel(name=arch, family="lm", model=model, cfg=cfg)
     raise KeyError(
         f"unknown model {name!r}; available: {', '.join(available())}")

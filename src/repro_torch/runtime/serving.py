@@ -387,9 +387,8 @@ class GenerationSession:
         if frames is None:
             tokens, lens_in = self._bucket_pad(tokens, lens_in, max_new)
         else:
-            lens_in = None
-            frames = torch.as_tensor(frames, dtype=torch.float32,
-                                     device=dev)
+            lens_in = None               # the LM casts to its dtype
+            frames = torch.as_tensor(frames, device=dev)
         with torch.inference_mode():
             logits, state = self.model.prefill(
                 torch.as_tensor(tokens, device=dev), max_len=self.max_len,
@@ -467,7 +466,7 @@ def greedy_margins(model, prompt: np.ndarray, tokens: np.ndarray, *,
                             device=dev),
             max_len=len(prompt) + max(len(toks), 1),
             frames=None if frames is None else torch.as_tensor(
-                frames, dtype=torch.float32, device=dev)[None])
+                frames, device=dev)[None])
         for i, t in enumerate(toks):
             top2 = torch.topk(logits[0].float(), 2).values
             out.append(top2[0] - top2[1])

@@ -148,11 +148,18 @@ class ShardedLM:
     ``train_logits``, ``cfg``, ``device``) and what the train step reads
     (``named_parameters``, ``requires_grad_``, ``sync_grads``,
     ``grad_square_sum``).  Every call is a collective: each rank calls it
-    with the whole batch, and gets the whole batch's logits back.  The LM
+    with the whole batch; serving calls return the whole batch's logits,
+    ``train_logits`` this rank's rows'.  The LM
     given is changed in place (its parameters become this rank's
     blocks)."""
 
     def __init__(self, model, mesh, policy: ShardingPolicy):
+        if model.param_dtype != torch.float32:
+            # a module's blocks are gathered as one flat buffer of one
+            # dtype (_gather_blocks); bf16 matrices beside float32 norms
+            # need one buffer per dtype, which is not built yet
+            raise ValueError(f"a sharded LM must be float32, not "
+                             f"{model.param_dtype}")
         backend = dist.get_backend()
         if model.device.type != mesh.device_type:
             raise ValueError(f"the model lies on {model.device.type}, the "
@@ -186,11 +193,16 @@ class ShardedLM:
             if axes and axes not in self._groups:
                 self._groups[axes] = self._new_group(axes)
         self._grad_group = None      # the batch group of the last forward
+        self._train_rows = None      # and its batch spec entry
         model.unshard = self._unshard
 
     @property
     def device(self) -> torch.device:
         return self.model.device
+
+    @property
+    def param_dtype(self) -> torch.dtype:
+        return self.model.param_dtype
 
     def local_bytes(self) -> int:
         """Bytes of the parameter blocks this rank holds."""
@@ -406,8 +418,8 @@ class ShardedLM:
         state["specs"] = specs
         return state
 
-    def init_decode_state(self, batch: int, max_len: int,
-                          dtype=torch.float32, *, ring: bool = True) -> Dict:
+    def init_decode_state(self, batch: int, max_len: int, dtype=None, *,
+                          ring: bool = True) -> Dict:
         """``LM.init_decode_state`` of the whole batch, this rank's block."""
         rows = self.policy.batch(batch)
         n = batch // (self.policy.axis_size(rows) if rows else 1)
@@ -487,13 +499,29 @@ class ShardedLM:
                 dp[name].index_copy_(axis, idx[:, 0],
                                      fresh.index_select(axis, idx[:, 1]))
 
+    @property
+    def batch_group(self):
+        """The ranks that split the rows of the last ``train_logits``
+        (None where every rank ran every row)."""
+        return self._grad_group
+
+    def local_rows(self, t):
+        """This rank's rows of a whole-batch tensor (targets, a mask) in
+        the last ``train_logits``' split; None stays None."""
+        return self._rows(t, self._train_rows)
+
     def train_logits(self, tokens, *, frames=None, frame_mask=None):
-        """``LM.train_logits`` of the whole batch: each rank runs its rows;
-        the logits (and ``mtp_logits``) are the whole batch's, and so is
-        ``aux_loss`` (the load-balance means are taken over the ranks
-        that split the rows).  Differentiable: a loss of the outputs
-        reaches this rank's parameter blocks (see :class:`_Gather`)."""
+        """``LM.train_logits`` of the whole batch, each rank on its rows:
+        the logits (and ``mtp_logits``) are this rank's rows
+        (:meth:`local_rows` cuts the targets alike; nothing gathers
+        them), ``aux_loss`` is the whole batch's (the load-balance means
+        are taken over the ranks that split the rows).  Differentiable: a
+        loss of the outputs reaches this rank's parameter blocks, summed
+        over the ranks that split the rows (see :class:`_Gather`), so a
+        loss term over rows is this rank's rows' share of the whole
+        batch's (``training.losses.lm_loss``)."""
         rows = self.policy.batch(tokens.shape[0])
+        self._train_rows = rows
         self._grad_group = group = self._group(rows)
         if group is not None:
             set_batch_shard(BatchShard(group, self.policy.axis_size(
@@ -504,9 +532,6 @@ class ShardedLM:
                 frame_mask=self._rows(frame_mask, rows))
         finally:
             set_batch_shard(None)
-        for key in ("logits", "mtp_logits"):
-            if key in out:
-                out[key] = self._gather(out[key], (rows, None, None))
         return out
 
 

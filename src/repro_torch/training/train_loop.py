@@ -92,7 +92,12 @@ def make_train_step(model, *, lr_schedule: Optional[Callable] = None,
     ``batch`` holds numpy arrays or tensors ({"tokens", "targets"[,
     "mask"]}).  ``remat=True`` wraps the loss in
     ``torch.utils.checkpoint`` (its activations are recomputed in the
-    backward instead of kept), as ``jax.checkpoint`` does."""
+    backward instead of kept), as ``jax.checkpoint`` does.  The model
+    must be float32: bfloat16 training (the reference's bf16 moments
+    beside bf16 matrices) is not ported."""
+    if model.param_dtype != torch.float32:
+        raise ValueError(f"make_train_step trains a float32 model, not "
+                         f"{model.param_dtype}")
     ndims = leaf_ndims(model)
 
     def loss_fn(tokens, targets, mask):

@@ -8,7 +8,8 @@ timeout), builds a (2, 2) ``("data", "model")`` mesh, and for each case
 shards the LM, runs three train steps through ``make_train_step`` and
 records the losses, grad norms, each rank's block shapes and (rank 0)
 the parameters and both moments gathered whole.  Then the MoE
-load-balance loss of one sharded forward, and a sharded checkpoint:
+load-balance loss and this rank's logits of one sharded forward, the
+metrics of ``lm_loss`` over a masked batch, and a sharded checkpoint:
 written by ``save_train_state``, read back into a fresh sharded state.
 Writes what it saw to ``WORKDIR/out_RANK.pt``; imports torch and the
 port only.
@@ -32,6 +33,7 @@ from repro_torch.training.checkpoint import (  # noqa: E402
     load_train_state,
     save_train_state,
 )
+from repro_torch.training.losses import lm_loss  # noqa: E402
 from repro_torch.training.train_loop import (  # noqa: E402
     init_train_state,
     make_train_step,
@@ -99,8 +101,14 @@ def main(rank: int, world: int, workdir: str) -> None:
     lm, _ = shard_lm(_lm("qwen3-moe-30b-a3b", inputs), mesh, batch_size=4,
                      layout="tp")
     with torch.no_grad():
-        out["aux_loss"] = float(lm.train_logits(
-            torch.as_tensor(inputs["aux_tokens"]))["aux_loss"])
+        logits_out = lm.train_logits(torch.as_tensor(inputs["aux_tokens"]))
+        out["aux_loss"] = float(logits_out["aux_loss"])
+        out["logits"] = logits_out["logits"].clone()
+        aux_batch = {"tokens": torch.as_tensor(inputs["aux_tokens"]),
+                     "targets": torch.as_tensor(inputs["aux_targets"]),
+                     "mask": torch.as_tensor(inputs["aux_mask"])}
+        _, metrics = lm_loss(lm, aux_batch)
+        out["loss_metrics"] = {k: float(v) for k, v in metrics.items()}
     torch.save(out, os.path.join(workdir, f"out_{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()

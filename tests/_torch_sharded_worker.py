@@ -106,6 +106,9 @@ def main(rank: int, world: int, workdir: str) -> None:
     with torch.no_grad():
         out["moe_logits"] = moe.model.train_logits(
             torch.as_tensor(inputs["moe_tokens"]))["logits"]
+    # the batch rows whose logits this rank returned
+    out["moe_rows"] = moe.model.local_rows(
+        torch.arange(len(inputs["moe_tokens"]))).tolist()
 
     # a spec entry naming two axes: the block of ("data", "model")
     ddp = make_sharded_session(_lm("rwkv6-3b", inputs), mesh, batch_size=4,

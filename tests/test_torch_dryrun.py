@@ -175,8 +175,7 @@ def test_qwen3_8b_float32_parameters_per_rank_on_pod1():
     model = LM(get_config("qwen3-8b"), device="meta")
     pol = make_policy(dr.MESHES["pod1"], batch_size=256, layout="tp")
     inputs = dr.input_specs(model.cfg, "train_4k", model=model)
-    terms = dr.argument_bytes(model, "train", inputs, pol,
-                              param_dtype=torch.float32)
+    terms = dr.argument_bytes(model, "train", inputs, pol)
     assert terms["parameters"] == 129_208_320
     assert terms["moments"] == 2 * 129_208_320
     assert terms["total"] == sum(v for k, v in terms.items()
@@ -248,6 +247,31 @@ def test_port_collectives_follow_its_design(records):
                                     device="meta")}
     assert dr.collective_bytes(model, "train", inputs, one)[
         "total_bytes"] == 0
+
+
+def test_train_step_gathers_no_logits(records):
+    """qwen3-8b train_4k on pod1: the gathers are the modules' blocks
+    only; the loss moves each cross entropy's token count and sum
+    (8 bytes, one all_reduce), not the (256, 4096, 151936) bfloat16
+    logits (318.6 GB a rank) that an all_gather would make whole."""
+    cfg = get_config("qwen3-8b")
+    train = records["pod1"]["qwen3-8b", "train_4k"]["collectives"]
+    units = cfg.num_layers + 2           # embedding, layers, norm + head
+    assert train["all-gather"]["count"] == units
+    logits = 256 * 4096 * cfg.padded_vocab * 2
+    assert logits == 318_632_886_272
+    assert train["total_bytes"] < logits / 10
+    model = LM(smoke_config("deepseek-v3-671b"), device="meta")
+    pol = make_policy(((2, 2), ("data", "model")), batch_size=4,
+                      layout="tp")
+    inputs = {k: torch.empty((4, 16), dtype=torch.int32, device="meta")
+              for k in ("tokens", "targets")}
+    dec = {"tokens": inputs["tokens"][:, :1]}
+    with_mtp = dr.collective_bytes(model, "train", inputs, pol)
+    no_loss = dr.collective_bytes(model, "prefill", dec, pol)
+    assert with_mtp["all-reduce"]["count"] >= 1
+    assert with_mtp["all-gather"]["count"] == \
+        no_loss["all-gather"]["count"] - 1 + 3    # MTP: embed, block, head
 
 
 def test_xla_only_flags_change_no_number():

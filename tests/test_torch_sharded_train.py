@@ -52,6 +52,7 @@ from repro_torch.sharding.policy import (
     train_state_specs,
 )
 from repro_torch.training.checkpoint import save_train_state
+from repro_torch.training.losses import lm_loss
 from repro_torch.training.train_loop import init_train_state, make_train_step
 from _torch_spawn import join, spawn
 from _torch_threads import cap_threads
@@ -104,9 +105,13 @@ def _run(workdir):
     batches = {n: _batches(n) for n in ARCHS}
     aux_tokens = np.random.default_rng(3).integers(1, 512, (4, 16)).astype(
         np.int32)
+    aux_targets = np.roll(aux_tokens, -1, 1)
+    aux_mask = np.ones((4, 16), np.float32)
+    aux_mask[1, 5:] = aux_mask[2, 12:] = 0.0     # uneven counts per shard
     torch.save({"weights": weights, "batches": batches,
                 "train_cases": TRAIN_CASES, "ckpt_case": CKPT_CASE,
-                "aux_tokens": aux_tokens}, os.path.join(workdir, "inputs.pt"))
+                "aux_tokens": aux_tokens, "aux_targets": aux_targets,
+                "aux_mask": aux_mask}, os.path.join(workdir, "inputs.pt"))
     procs = spawn(WORKER, workdir)
 
     ref = {"jax": {}, "ckpt": os.path.join(workdir, "unsharded.npz")}
@@ -122,8 +127,15 @@ def _run(workdir):
             ref["jax_like"] = JTrainState(params, j_adamw_init(params))
         if name == "qwen3-moe-30b-a3b":
             with torch.no_grad():
-                ref["aux"] = float(model.train_logits(
-                    torch.as_tensor(aux_tokens))["aux_loss"])
+                out = model.train_logits(torch.as_tensor(aux_tokens))
+                ref["aux"] = float(out["aux_loss"])
+                ref["logits"] = out["logits"].clone()
+                _, metrics = lm_loss(model, {
+                    "tokens": torch.as_tensor(aux_tokens),
+                    "targets": torch.as_tensor(aux_targets),
+                    "mask": torch.as_tensor(aux_mask)})
+                ref["loss_metrics"] = {k: float(v)
+                                       for k, v in metrics.items()}
             ref["aux_jax"] = float(jm.train_logits(params, aux_tokens)[
                 "aux_loss"])
         state = init_train_state(model)
@@ -218,6 +230,27 @@ def test_sharded_moe_aux_loss_is_the_whole_batch(run):
     for out in run["outs"]:
         assert out["aux_loss"] == pytest.approx(want, rel=0, abs=AUX_TOL)
     assert run["ref"]["aux_jax"] == pytest.approx(want, rel=1e-4)
+
+
+def test_sharded_train_logits_are_the_ranks_rows(run):
+    """smoke qwen3-moe-30b-a3b under tp on the (2, 2) mesh, rows over
+    data: ``train_logits`` returns only this rank's 2 of the 4 rows (no
+    gather), equal within 1e-5 to the unsharded logits of those rows;
+    ``lm_loss``'s reported ce, aux and loss over a mask that leaves the
+    two row shards 21 and 28 tokens are the same on every rank and the
+    unsharded port's within 1e-6 relative."""
+    want = run["ref"]["logits"]
+    for out in run["outs"]:
+        d = out["coord"][0]
+        got = out["logits"]
+        assert tuple(got.shape) == (2,) + tuple(want.shape[1:])
+        np.testing.assert_allclose(got.numpy(),
+                                   want[2 * d:2 * d + 2].numpy(),
+                                   rtol=0, atol=1e-5)
+    metrics = [out["loss_metrics"] for out in run["outs"]]
+    assert all(m == metrics[0] for m in metrics[1:])
+    for key, value in run["ref"]["loss_metrics"].items():
+        assert metrics[0][key] == pytest.approx(value, rel=1e-6), key
 
 
 def _leaves(tree):
