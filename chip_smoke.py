@@ -205,6 +205,28 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    generate with every kernel call checked the same way, the logits and
    state bf16, and each of the family's kernels launched.
 
+19. (run after phase 18, before phases 11-12) bfloat16 sharded and
+   trained: phase 3 also holds bf16 ``flash_decode(return_stats=True)``
+   against its plain twin at phase 16's shapes (the output within 2e-2
+   of its scale, m and l within 2e-5, a one-slice merge the kernel's
+   output bitwise) and phase 6 times it; qwen3-8b (36 layers) and
+   qwen3-moe-30b-a3b (48) whole in bf16 through ``make_sharded_session``
+   on a 1x1 NCCL mesh (``tp``: every attention layer decodes through the
+   bf16 stats kernel and the float32 merge), a ragged B=8 generate and
+   12 prompts on a slot table of 8 against the unsharded bf16 sessions
+   (bitwise, else behind the margin), both attention kernels launched,
+   the eager step sharded beside unsharded; qwen3-8b cut to 4 of 36
+   layers in bf16 (bf16 moments), 3 steps at B=4 S=256: the 1x1-mesh
+   steps and the unsharded ones bitwise, ``LM(remat=True)`` and
+   ``remat=False`` bitwise with each one's peak memory, the loss falling
+   and its gap to the float32 twin's, and the dry run's per-rank bytes
+   against ``memory_allocated`` within 1% with bf16 and with float32
+   moments; then 3 bf16 steps at B=1 S=64 at full depth: rwkv6-3b and
+   zamba2-1.2b (float32 moments) and qwen3-8b (``remat=True``, bf16
+   moments) at the deepest cut the dry run's bytes and the 4-layer
+   run's peak say fits (all 36 layers where they do), each with ms a
+   step, the device busy share, the peak memory and a falling loss.
+
 It prints one JSON line of kernel numbers (each kernel's launches summed
 over the main paths that run it) and, last, the line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -223,6 +245,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -755,7 +778,8 @@ def checked_kernels(worst):
     the main path, and each CUDA launch is followed by the kernel's plain
     version on the same inputs: every output must be finite and within
     ``CALL_TOL`` (``BF16_TOL`` for a bf16 output) x max(1, max |plain|) of
-    the plain one.  ``worst`` gathers per kernel the calls checked and the
+    the plain one (the max over values under 1e29: an empty row's m is
+    the -1e30 sentinel, which the kernel must then return too).  ``worst`` gathers per kernel the calls checked and the
     call nearest its limit.  Raises at the first call out of it."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -774,7 +798,9 @@ def checked_kernels(worst):
             w = worst.setdefault(name, {"calls": 0, "share": -1.0})
             w["calls"] += 1
             for a, b in zip(_outputs(out), _outputs(want)):
-                scale = max(1.0, float(b.float().abs().max()))
+                live = b.float().abs()
+                live = live[live < 1e29]
+                scale = max(1.0, float(live.max()) if live.numel() else 1.0)
                 tol = (BF16_TOL if a.dtype == torch.bfloat16
                        else CALL_TOL[name]) * scale
                 err = max_err(a, b)
@@ -1028,23 +1054,23 @@ def gqa_decode_case(da, gen, b, h=QW_H, hkv=QW_HKV, model="qwen3-8b",
     return row
 
 
-def gqa_decode_stats_case(da, gen, b=8):
-    """``flash_decode(return_stats=True)`` at qwen3-8b's slot-table step,
-    the sequence-sharded decode's call (phase 16): the output and each
-    row's (m, l) in float32; no single PyTorch call returns the softmax
-    state."""
-    q = randn(gen, (b, QW_H, QW_D))
-    kc, vc = (randn(gen, (b, QW_T, QW_HKV, QW_D)) for _ in range(2))
+def gqa_decode_stats_case(da, gen, b=8, h=QW_H, hkv=QW_HKV,
+                          model="qwen3-8b", dtype=torch.float32):
+    """``flash_decode(return_stats=True)`` at a slot-table step (qwen3-8b's
+    32 over 8 heads by default), the sequence-sharded decode's call
+    (phases 16 and 19): the output in ``dtype`` and each row's (m, l) in
+    float32; no single PyTorch call returns the softmax state."""
+    q = randn(gen, (b, h, QW_D), dtype)
+    kc, vc = (randn(gen, (b, QW_T, hkv, QW_D), dtype) for _ in range(2))
     lens = torch.tensor(QW_LENS[:b], dtype=torch.int32, device="cuda")
     valid = sum(QW_LENS[:b])
     row = time_case(
         lambda: da.flash_decode_cuda(q, kc, vc, lens, return_stats=True),
         lambda: da.flash_decode_plain(q, kc, vc, lens, return_stats=True),
-        None, 4 * (2 * valid * QW_HKV * QW_D + 2 * b * QW_H * QW_D + b
-                   + 2 * b * QW_H),
-        4 * valid * QW_H * QW_D)
-    row["shape"] = (f"qwen3-8b return_stats B={b} H={QW_H} Hkv={QW_HKV} "
-                    f"dh={QW_D} T={QW_T} lens={QW_LENS[:b]} f32")
+        None, q.element_size() * (2 * valid * hkv * QW_D + 2 * b * h * QW_D)
+        + 4 * (b + 2 * b * h), 4 * valid * h * QW_D, dtype=dtype)
+    row["shape"] = (f"{model} return_stats B={b} H={h} Hkv={hkv} "
+                    f"dh={QW_D} T={QW_T} lens={QW_LENS[:b]} {_dname(dtype)}")
     return row
 
 
@@ -1265,7 +1291,11 @@ def timings(gen):
                                                 torch.bfloat16))
                for model, h, hkv in GQA_SHAPES],
              ("flash_attention", whisper_encoder_case(
-                 fa, gen, dtype=torch.bfloat16))]
+                 fa, gen, dtype=torch.bfloat16)),
+             # phase 19's bf16 sequence-sharded decode
+             *[("flash_decode", gqa_decode_stats_case(
+                 da, gen, 8, h, hkv, model, torch.bfloat16))
+               for model, h, hkv in GQA_SHAPES[:2]]]
     cases += scan_cases(gen)
     for name, r in cases:
         lib = ("library — (no single PyTorch call computes it)"
@@ -2524,19 +2554,59 @@ def check_stats_cases(da, gen):
     return len(cases) + 1 + (len(cases) - 1) + 2
 
 
-def first_low_margin(model, prompt, tokens) -> int:
+def check_bf16_stats_cases(da, gen):
+    """bf16 ``flash_decode(return_stats=True)`` against its plain twin at
+    each of ``GQA_SHAPES`` (B=8, heads of 128, 256 slots: ragged, a length
+    0, lengths past the cache): the bf16 output within
+    2e-2 x max(1, max |plain|), m within 2e-5 and l within 2e-5 relative
+    (both float32); the output bitwise as without stats; and
+    ``merge_decode_stats`` of the one slice (a 1x1 mesh's merge) the
+    kernel's own output, bitwise."""
+    b = 8
+    cases = [QW_LENS, (0,) + QW_LENS[1:], (256, 300, 1, 0, 129, 5, 2, 255)]
+    for model, h, hkv in GQA_SHAPES:
+        q = randn(gen, (b, h, QW_D), torch.bfloat16)
+        kc, vc = (randn(gen, (b, QW_T, hkv, QW_D), torch.bfloat16)
+                  for _ in range(2))
+        for lens in cases:
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            got = da.flash_decode_cuda(q, kc, vc, lengths, return_stats=True)
+            want = da.flash_decode_plain(q, kc, vc, lengths,
+                                         return_stats=True)
+            tol = BF16_TOL * max(1.0, float(want[0].float().abs().max()))
+            errs = (max_err(got[0], want[0]), max_err(got[1], want[1]),
+                    float(((got[2] - want[2]).abs() / want[2]).max()))
+            what = f"{model} H={h} Hkv={hkv} T={QW_T} lens={lens}"
+            log(f"  bf16 stats {what}: out {errs[0]:.3e} (limit {tol:.3e}), "
+                f"m {errs[1]:.3e}, l (relative) {errs[2]:.3e}")
+            if not (got[0].dtype == torch.bfloat16 and errs[0] <= tol
+                    and max(errs[1:]) <= F32_TOL
+                    and all(torch.isfinite(x).all() for x in got)):
+                raise AssertionError(f"bf16 stats {what}: {errs}")
+            if not torch.equal(got[0],
+                               da.flash_decode_cuda(q, kc, vc, lengths)):
+                raise AssertionError(f"{what}: return_stats changed the "
+                                     f"bf16 output")
+            if not torch.equal(da.merge_decode_stats([got[0]], [got[1]],
+                                                     [got[2]]), got[0]):
+                raise AssertionError(f"{what}: a one-slice merge moved the "
+                                     f"bf16 output")
+    return len(cases) * len(GQA_SHAPES)
+
+
+def first_low_margin(model, prompt, tokens, margin=MARGIN) -> int:
     """The index of the first of ``tokens`` (a greedy continuation of
-    ``prompt``) behind a top-2 logit margin under 1e-4, else len."""
+    ``prompt``) behind a top-2 logit margin under ``margin``, else len."""
     from repro_torch.runtime.serving import greedy_margins
 
-    low = np.flatnonzero(greedy_margins(model, prompt, tokens) < MARGIN)
+    low = np.flatnonzero(greedy_margins(model, prompt, tokens) < margin)
     return int(low[0]) if low.size else len(tokens)
 
 
-def held_rows(what, model, prompts, want, got):
+def held_rows(what, model, prompts, want, got, margin=MARGIN):
     """Each row of ``got`` ((m, tokens) pairs) equals ``want``'s, or
-    differs only at or after a token behind a top-2 margin under 1e-4
-    (margins computed only for rows that differ)."""
+    differs only at or after a token behind a top-2 margin under
+    ``margin`` (margins computed only for rows that differ)."""
     differ = 0
     for i, (p, (m_w, t_w), (m_g, t_g)) in enumerate(zip(prompts, want,
                                                         got)):
@@ -2547,12 +2617,12 @@ def held_rows(what, model, prompts, want, got):
         n = min(len(t_w), len(t_g))
         first = int(np.flatnonzero(t_w[:n] != t_g[:n])[0]) if (
             t_w[:n] != t_g[:n]).any() else n
-        if first < first_low_margin(model, p, t_w[:first + 1]):
+        if first < first_low_margin(model, p, t_w[:first + 1], margin):
             raise AssertionError(f"{what}: row {i} differs at token {first} "
                                  f"above the margin: {t_g.tolist()} != "
                                  f"{t_w.tolist()}")
     log(f"  {what}: {len(prompts) - differ} of {len(prompts)} rows "
-        f"equal, {differ} differ behind a top-2 margin under {MARGIN:g}")
+        f"equal, {differ} differ behind a top-2 margin under {margin:g}")
 
 
 def step_ms(lm, toks, steps=10):
@@ -2671,37 +2741,41 @@ def rel_err(a, b) -> float:
     return max_err(a, b) / scale if scale else max_err(a, b)
 
 
-def dryrun_bytes_check(lm, pol, state, base_bytes):
-    """The dry-run's per-rank argument bytes of this train step at float32
-    (``launch/dryrun.argument_bytes`` on the meta device) against what the
-    card holds after the steps: ``memory_allocated`` less what was
-    allocated before the model, and the state's own tensors term by
-    term.  Raises naming the term that is off by more than 2%."""
+def dryrun_bytes_check(lm, pol, state, base_bytes, *, tol=0.02,
+                       moments=torch.float32, b=ST_B, s=ST_S):
+    """The dry-run's per-rank argument bytes of this train step at the
+    model's dtype with ``moments`` moments (``launch/dryrun.
+    argument_bytes`` on the meta device) against what the card holds
+    after the steps: ``memory_allocated`` less what was allocated before
+    the model, and the state's own tensors term by term.  Raises naming
+    the term that is off by more than ``tol``."""
     from repro_torch.launch import dryrun
     from repro_torch.models.model import LM
 
-    meta = LM(lm.cfg, device="meta")
-    inputs = {k: torch.empty((ST_B, ST_S), dtype=torch.int32, device="meta")
+    meta = LM(lm.cfg, device="meta", param_dtype=lm.param_dtype)
+    inputs = {k: torch.empty((b, s), dtype=torch.int32, device="meta")
               for k in ("tokens", "targets")}
     want = dryrun.argument_bytes(meta, "train", inputs, pol,
-                                 moments_dtype=torch.float32)
+                                 moments_dtype=moments)
     torch.cuda.synchronize()
     allocated = torch.cuda.memory_allocated() - base_bytes
     held = {"parameters": sum(p.nbytes for p in state.params.values()),
             "moments": sum(t.nbytes for t in (*state.opt.mu.values(),
                                               *state.opt.nu.values())),
             "step": state.opt.step.nbytes}
-    log(f"  dry-run per-rank argument bytes at float32 {want}; on the card "
-        f"after {ST_STEPS} steps: memory_allocated {allocated} B (less the "
-        f"{base_bytes} B held before the model), the state's tensors {held}")
+    log(f"  dry-run per-rank argument bytes ({_dname(lm.param_dtype)} "
+        f"model, {_dname(moments)} moments) {want}; on the card after the "
+        f"steps: memory_allocated {allocated} B (less the {base_bytes} B "
+        f"held before the model; {100 * (allocated / want['total'] - 1):+.3f}"
+        f"% of the total), the state's tensors {held}")
     off = [f"{k}: {held[k]} vs {want[k]}" for k in held
-           if abs(held[k] - want[k]) > 0.02 * want[k]]
-    if abs(allocated - want["total"]) > 0.02 * want["total"]:
+           if abs(held[k] - want[k]) > tol * want[k]]
+    if abs(allocated - want["total"]) > tol * want["total"]:
         off.append(f"memory_allocated {allocated} vs the total "
                    f"{want['total']} (unaccounted "
                    f"{allocated - sum(held.values())} B)")
     if off:
-        raise AssertionError("dry-run bytes off by more than 2%: "
+        raise AssertionError(f"dry-run bytes off by more than {tol:.0%}: "
                              + "; ".join(off))
     return want, allocated
 
@@ -3106,6 +3180,339 @@ def bf16_phase(ops):
                          ("whisper-large-v3", ("flash_attention",
                                                "flash_decode"))):
         paths.update(bf16_small_phase(name, ops, needed))
+    return paths
+
+
+# --------------------------------------------------------------- phase 19 --
+# bf16 training: qwen3-8b's cut (of 36 layers), batch, sequence, steps
+BT_CUT, BT_B, BT_S, BT_STEPS = 4, 4, 256, 3
+BT_TOL = 0.01           # the dry run's per-rank bytes vs the card's
+BF16_MARGIN = 0.125     # a bf16 top-2 logit margin: 8 steps at 2-4
+BF16_TRAIN = ("rwkv6-3b", "zamba2-1.2b")   # full depth, float32 moments
+
+
+@contextlib.contextmanager
+def nccl_1x1():
+    """A one-rank NCCL process group and its 1x1 ("data", "model") mesh,
+    destroyed on exit."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=60))
+        try:
+            yield make_host_mesh((1, 1), ("data", "model"), "cuda")
+        finally:
+            dist.destroy_process_group()
+
+
+def bf16_sharded_serving(name, ops, mesh, rng):
+    """``name`` whole in bf16 (seed 0) through ``make_sharded_session`` on
+    the 1x1 NCCL mesh (``tp``: every attention layer decodes through
+    ``attn_decode_seq_sharded``, the bf16 stats kernel and its float32
+    merge): a ragged B=8 ``generate_with_lengths`` of 16 tokens and 12
+    prompts through a slot table of 8, each kernel call held against its
+    plain version (``checked_kernels``: the stats call's output, m and
+    l), the tokens against the unsharded bf16 sessions on the same
+    weights (bitwise, else behind the margin); both attention kernels
+    launched; the eager B=8 decode step, sharded beside unsharded, in
+    turns."""
+    from repro_torch.models.registry import resolve
+    from repro_torch.runtime.serving import (ContinuousGenerationSession,
+                                             GenerationSession)
+    from repro_torch.runtime.sharded import make_sharded_session
+
+    empty_cache()
+    r = resolve(name, size="full", device="cuda", seed=0, param_dtype=BF16)
+    model = r.model
+    n_bytes = sum(p.nbytes for p in model.parameters())
+    vocab = model.cfg.vocab_size
+    toks = rng.integers(4, vocab, (8, 64)).astype(np.int32)
+    lens = np.concatenate([[64], rng.integers(5, 65, 7)]).astype(np.int32)
+    prompts = [rng.integers(4, vocab, int(n)).astype(np.int32)
+               for n in rng.integers(5, 61, 12)]
+    rows = [t[:n] for t, n in zip(toks, lens)]
+    ref = GenerationSession(model, max_len=QW_T).generate_with_lengths(
+        toks, max_new=SH_NEW, lengths=lens)
+    cont_ref = ContinuousGenerationSession(
+        model, max_slots=SH_SLOTS, max_len=QW_T).serve(prompts,
+                                                       max_new=SH_NEW)
+    block = torch.as_tensor(toks, device="cuda")
+    plain_ms = [step_ms(model, block)]
+    sess = make_sharded_session(model, mesh, max_len=QW_T,
+                                batch_size=SH_SLOTS, layout="tp")
+    lm = sess.model
+    worst = {}
+    ops.reset_launch_counts()
+    with checked_kernels(worst):
+        got = sess.generate_with_lengths(toks, max_new=SH_NEW, lengths=lens)
+        cont = ContinuousGenerationSession(
+            lm, max_slots=SH_SLOTS, max_len=QW_T).serve(prompts,
+                                                        max_new=SH_NEW)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    sharded_ms = [step_ms(lm, block), step_ms(lm, block)]
+    plain_ms.append(step_ms(model, block))
+    same = (all(np.array_equal(a, b) for a, b in zip(ref, got))
+            and all(m1 == m2 and np.array_equal(a, b)
+                    for (m1, a), (m2, b) in zip(cont_ref, cont)))
+    log(f"  {name} bf16 whole ({n_bytes / 1e9:.2f} GB), {sess.layout} on "
+        f"the 1x1 NCCL mesh ({lm.local_bytes()} parameter bytes on the "
+        f"rank); launches, sharded generate + slot table: {launches}; "
+        f"tokens vs the unsharded bf16 sessions: "
+        f"{'bitwise equal' if same else 'not all equal'}; each kernel call "
+        f"vs its plain version: {checked_line(worst)}")
+    for k in ("flash_attention", "flash_decode"):
+        if launches[k] == 0:
+            raise AssertionError(f"{name} bf16 sharded: {k} never launched")
+    if not same:       # bf16's margin (tests/test_torch_bf16.py)
+        held_rows(f"{name} bf16 sharded GenerationSession vs unsharded",
+                  model, rows, list(zip(*ref)), list(zip(*got)),
+                  BF16_MARGIN)
+        held_rows(f"{name} bf16 sharded slot table vs unsharded", model,
+                  prompts, cont_ref, cont, BF16_MARGIN)
+    log(f"  {name} bf16 eager B=8 decode step at 64-73 positions: unsharded "
+        f"{plain_ms[0]:.2f} / {plain_ms[1]:.2f} ms, sharded 1x1 "
+        f"{sharded_ms[0]:.2f} / {sharded_ms[1]:.2f} ms (in turns)")
+    del model, r, sess, lm
+    empty_cache()
+    return {f"{name} bf16 sharded": launches}
+
+
+def bf16_train_run(cfg, batches, *, mesh=None, remat=False,
+                   moments=BF16, dtype=BF16):
+    """``make_train_step`` over ``batches`` on ``cfg``'s LM from seed 0
+    (a ``ShardedLM`` under ``tp`` on ``mesh`` if given): its losses,
+    grad norms, ms each, state, model, policy, peak bytes over what was
+    allocated before the model, and that base."""
+    from repro_torch.models.model import LM
+    from repro_torch.runtime.sharded import shard_lm
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+
+    empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = LM(cfg, device="cuda", seed=0, param_dtype=dtype, remat=remat)
+    pol = None
+    if mesh is not None:
+        model, pol = shard_lm(model, mesh, batch_size=batches[0][
+            "tokens"].shape[0], layout="tp")
+    state = init_train_state(model, moments_dtype=moments)
+    state, losses, norms, times = train_steps(make_train_step(model), state,
+                                              batches)
+    torch.cuda.synchronize()
+    return types.SimpleNamespace(
+        losses=losses, norms=norms, times=times, state=state, model=model,
+        pol=pol, peak=torch.cuda.max_memory_allocated() - base, base=base)
+
+
+def bf16_cut_training(ops):
+    """qwen3-8b at full width cut to ``BT_CUT`` layers in bf16 (seed 0;
+    the bf16 draw is the float32 one cast), ``BT_STEPS`` steps at
+    B=``BT_B`` S=``BT_S`` from ``launch/train.py``'s token stream: the
+    1x1-mesh step and the unsharded one bitwise, ``LM(remat=True)`` and
+    ``remat=False`` bitwise (the peak memory of each), the loss falling
+    and its gap to the float32 twin's; the dry run's per-rank bytes
+    against ``memory_allocated`` within 1% with bf16 and with float32
+    moments.  Returns the remat run's peak over its state's bytes (the
+    temporaries a step adds)."""
+    from repro_torch.data.pipeline import lm_batches
+
+    cfg = cut_config("qwen3-8b", (BT_CUT,))
+    stream = np.random.default_rng(0).integers(
+        1, cfg.vocab_size, BT_STEPS * BT_B * (BT_S + 1) * 2).astype(np.int32)
+    batches = list(lm_batches(stream, batch_size=BT_B,
+                              seq_len=BT_S))[:BT_STEPS]
+    ops.reset_launch_counts()
+    with nccl_1x1() as mesh:
+        for moments, steps in ((BF16, batches), (torch.float32, batches[:1])):
+            run = bf16_train_run(cfg, steps, mesh=mesh, moments=moments)
+            dryrun_bytes_check(run.model, run.pol, run.state, run.base,
+                               tol=BT_TOL, moments=moments, b=BT_B, s=BT_S)
+            if moments == BF16:
+                sharded = (run.losses, run.norms, state_cpu(run.state))
+            del run
+    plain = bf16_train_run(cfg, batches)
+    remat = bf16_train_run(cfg, batches, remat=True)
+    if any(ops.launch_counts().values()):
+        raise AssertionError("a kernel launched while training")
+    want = state_cpu(plain.state, copy=False)
+    got = state_cpu(remat.state, copy=False)
+    sharded_same = (sharded[0] == plain.losses and sharded[1] == plain.norms
+                    and all(torch.equal(sharded[2][k][n], t.cpu())
+                            for k, d in want.items() for n, t in d.items()))
+    remat_same = (remat.losses == plain.losses and remat.norms == plain.norms
+                  and all(torch.equal(got[k][n], t)
+                          for k, d in want.items() for n, t in d.items()))
+    grads_peak = [backward_peak(r.model, batches[0]) for r in (plain, remat)]
+    state_bytes = sum(t.nbytes for d in got.values() for t in d.values())
+    del want, got
+    log(f"  qwen3-8b, {BT_CUT} of 36 layers, bf16 with bf16 moments, "
+        f"{BT_STEPS} steps at B={BT_B} S={BT_S}: losses {plain.losses}, "
+        f"grad norms {plain.norms}; ms {[round(t, 1) for t in plain.times]} "
+        f"(remat {[round(t, 1) for t in remat.times]}); the 1x1-mesh steps "
+        f"vs unsharded: {'bitwise equal' if sharded_same else 'NOT equal'};"
+        f" remat=True vs remat=False: "
+        f"{'bitwise equal' if remat_same else 'NOT equal'}; peak memory "
+        f"over the base {plain.peak / 2**30:.2f} GiB without remat, "
+        f"{remat.peak / 2**30:.2f} GiB with (state {state_bytes / 2**30:.2f} "
+        f"GiB); the loss and its gradients alone (no AdamW) peak "
+        f"{grads_peak[0] / 2**30:.2f} GiB over the state without remat, "
+        f"{grads_peak[1] / 2**30:.2f} GiB with")
+    if not (sharded_same and remat_same):
+        raise AssertionError(f"bf16 training: sharded {sharded_same}, "
+                             f"remat {remat_same}")
+    if not (np.all(np.isfinite(plain.losses))
+            and plain.losses[-1] < plain.losses[0]):
+        raise AssertionError(f"the bf16 loss did not fall: {plain.losses}")
+    # the step's bytes past its state and gradients: AdamW's float32
+    # temporaries of the largest leaves and the activations
+    grad_bytes = sum(p.nbytes for p in remat.state.params.values())
+    overhead = remat.peak - state_bytes - grad_bytes
+    losses = plain.losses
+    del plain, remat
+    twin = bf16_train_run(cfg, batches, moments=torch.float32,
+                          dtype=torch.float32)
+    log(f"  the float32 twin (the same draw, float32 moments): losses "
+        f"{twin.losses}, grad norms {twin.norms}; bf16 - float32 loss per "
+        f"step {[a - b for a, b in zip(losses, twin.losses)]}")
+    del twin
+    empty_cache()
+    return overhead
+
+
+def state_cpu(state, copy=True):
+    """A train state's parameters and moments by kind (host copies, or
+    the tensors themselves)."""
+    move = (lambda t: t.cpu()) if copy else (lambda t: t)
+    return {k: {n: move(t) for n, t in d.items()} for k, d in (
+        ("params", state.params), ("mu", state.opt.mu),
+        ("nu", state.opt.nu))}
+
+
+def backward_peak(model, batch) -> int:
+    """Peak bytes of one loss and its gradients (no optimizer) over what
+    was allocated before."""
+    from repro_torch.training.losses import lm_loss
+
+    tensors = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = [p for _, p in model.named_parameters()]
+    with torch.enable_grad():
+        grads = torch.autograd.grad(lm_loss(model, tensors)[0], params,
+                                    allow_unused=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del grads
+    return peak
+
+
+def bf16_depth_training(cfg, what, ops, *, moments, remat, steps=3):
+    """``cfg``'s LM in bf16 (seed 0, ``remat``) trained ``steps`` times on
+    one B=1 S=64 batch from ``launch/train.py``'s token stream with
+    ``moments`` moments: finite losses that fall, no kernel launched;
+    prints ms a step, the device busy share of one more step
+    (profiler), and the peak memory."""
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.training.train_loop import make_train_step
+
+    stream = np.random.default_rng(0).integers(
+        1, cfg.vocab_size, 4 * 65).astype(np.int32)
+    batch = next(lm_batches(stream, batch_size=1, seq_len=64))
+    ops.reset_launch_counts()
+    run = bf16_train_run(cfg, [batch] * steps, remat=remat, moments=moments)
+    losses, times, state, model = run.losses, run.times, run.state, run.model
+    peak = run.peak
+    del run
+    step = make_train_step(model)
+    busy, kernels = profiled_busy_ms(lambda: step(state, batch))
+    wall = float(np.median(times[1:]))
+    n = sum(p.numel() for p in model.parameters())
+    log(f"  {what}: {n / 1e9:.3f}B parameters in bf16, {_dname(moments)} "
+        f"moments, remat={remat}, {steps} steps at B=1 S=64: losses "
+        f"{[round(x, 4) for x in losses]}; ms a step "
+        f"{[round(t, 1) for t in times]}; one more step's device time "
+        f"(profiler) {busy:.1f} ms in {kernels} kernels, busy "
+        f"{100 * busy / wall:.1f}% of the median step after the first; "
+        f"peak memory {peak / 2**30:.2f} GiB (card total "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} "
+        f"GiB)")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{what}: the bf16 loss did not fall: {losses}")
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"{what}: a kernel launched while training")
+    del state, model, step
+    empty_cache()
+    return peak
+
+
+def qwen3_depth_plan(overhead):
+    """The deepest qwen3-8b cut (all 36 layers if it fits) whose bf16
+    train state with bf16 moments (the dry run's per-rank bytes at B=1
+    S=64 on a 1x1 mesh), its gradients (the parameters' bytes again,
+    all alive while AdamW runs) and ``overhead`` (the 4-layer remat
+    run's peak past its state and gradients: the embedding's and head's
+    AdamW float32 temporaries, which every cut shares, and activations
+    at B=4 S=256) fit on the card with 2 GiB to spare.  Returns (layers,
+    the bytes expected)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import LM
+    from repro_torch.sharding.policy import MeshShape, make_policy
+
+    limit = torch.cuda.get_device_properties(0).total_memory - 2 * 2**30
+    pol = make_policy(MeshShape(("data", "model"), (1, 1)), batch_size=1,
+                      layout="tp")
+    inputs = {k: torch.empty((1, 64), dtype=torch.int32, device="meta")
+              for k in ("tokens", "targets")}
+    for layers in range(36, 0, -1):
+        meta = LM(cut_config("qwen3-8b", (layers,)), device="meta",
+                  param_dtype=BF16)
+        args = dryrun.argument_bytes(meta, "train", inputs, pol,
+                                     moments_dtype=BF16)
+        want = args["total"] + args["parameters"] + overhead
+        if want <= limit:
+            return layers, want
+    raise AssertionError("not even one qwen3-8b layer fits")
+
+
+def bf16_training_phase(ops):
+    """Phase 19's training: the 4-layer qwen3-8b checks, then bf16 steps at
+    full depth: rwkv6-3b and zamba2-1.2b (float32 moments), qwen3-8b
+    with ``remat=True`` and bf16 moments at the depth the dry run and
+    the 4-layer peak say fits."""
+    from repro_torch.configs import get_config
+
+    overhead = bf16_cut_training(ops)
+    for name in BF16_TRAIN:
+        bf16_depth_training(get_config(name), name, ops,
+                            moments=torch.float32, remat=False)
+    layers, want = qwen3_depth_plan(overhead)
+    log(f"  qwen3-8b: the dry run's bf16 state (bf16 moments), its "
+        f"gradients and the 4-layer peak's {overhead / 2**30:.2f} GiB of "
+        f"temporaries: {want / 2**30:.2f} GiB at {layers} of 36 layers")
+    peak = bf16_depth_training(cut_config("qwen3-8b", (layers,)),
+                               f"qwen3-8b ({layers} of 36 layers)", ops,
+                               moments=BF16, remat=True)
+    log(f"  qwen3-8b ({layers} layers): peak {peak / 2**30:.2f} GiB against "
+        f"the {want / 2**30:.2f} GiB expected")
+
+
+def phase19(ops):
+    """bf16 serving on the 1x1 NCCL mesh (qwen3-8b and qwen3-moe-30b-a3b
+    whole), then bf16 training."""
+    rng = np.random.default_rng(19)
+    paths = {}
+    with nccl_1x1() as mesh:
+        for name in ("qwen3-8b", "qwen3-moe-30b-a3b"):
+            paths.update(bf16_sharded_serving(name, ops, mesh, rng))
+    bf16_training_phase(ops)
     return paths
 
 
@@ -3649,7 +4056,8 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     log("== phase 3: kernels vs plain versions on the card")
-    n_cases = check_kernels(fa, da, gen) + check_scan_kernels(wkv, ssd, gen)
+    n_cases = (check_kernels(fa, da, gen) + check_scan_kernels(wkv, ssd, gen)
+               + check_bf16_stats_cases(da, gen))
     log(f"  {n_cases} cases within tolerance")
 
     log("== phase 4: Marian en-zh at full width, kernels vs plain versions")
@@ -3742,6 +4150,12 @@ def main() -> int:
         "in bfloat16 at full depth on one card; zamba2-1.2b, rwkv6-3b and "
         "whisper-large-v3 in bfloat16")
     paths.update(bf16_phase(ops))
+
+    log("== phase 19: bfloat16 on the 1x1 NCCL mesh: qwen3-8b and "
+        "qwen3-moe-30b-a3b served whole; bf16 training (the 1x1 mesh and "
+        "remat bitwise, the dry run's bytes within 1%, rwkv6-3b, zamba2-1.2b "
+        "and qwen3-8b at depth)")
+    paths.update(phase19(ops))
 
     log("== phase 11: training the paper's three NMT models at full width")
     model, _ = nmt_training("marian", "en-zh", ops, 200, smi)

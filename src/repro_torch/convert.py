@@ -31,23 +31,37 @@ def _t(a) -> torch.Tensor:
 def _t_keep(a) -> torch.Tensor:
     """A leaf as a tensor of its own dtype: float32, or JAX's bfloat16,
     which reaches numpy as ``ml_dtypes.bfloat16`` (``torch.from_numpy``
-    refuses it) and crosses as its 16-bit pattern, bit for bit."""
+    refuses it) and crosses as its 16-bit pattern, bit for bit, as does a
+    checkpoint's bf16 leaf (:data:`BF16_BITS`)."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(np.array(a).view(np.int16)).view(
-            torch.bfloat16)
+    if a.dtype.name == "bfloat16" or a.dtype == BF16_BITS:
+        return bf16_tensor(a)
     return _t(a)
 
 
-def _numpy(tensor: torch.Tensor) -> np.ndarray:
+# numpy has no bfloat16: a bf16 leaf kept as its raw 16-bit patterns
+BF16_BITS = np.dtype("V2")
+
+
+def _numpy(tensor: torch.Tensor, *, raw_bf16: bool = False) -> np.ndarray:
     """A host copy of ``tensor`` as numpy, a bfloat16 one as
     ``ml_dtypes.bfloat16`` (what ``np.asarray`` of a JAX bf16 array
-    gives), bit for bit."""
+    gives) or, with ``raw_bf16``, as :data:`BF16_BITS` (no ``ml_dtypes``
+    needed: the checkpoints' route), bit for bit."""
     t = tensor.detach().to("cpu", copy=True)
     if t.dtype != torch.bfloat16:
         return t.numpy()
+    bits = t.view(torch.int16).numpy()
+    if raw_bf16:
+        return bits.view(BF16_BITS)
     import ml_dtypes     # JAX's own numpy dtypes; needed only to go there
-    return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return bits.view(ml_dtypes.bfloat16)
+
+
+def bf16_tensor(a: np.ndarray) -> torch.Tensor:
+    """The bfloat16 tensor of an array of bf16 bit patterns
+    (:data:`BF16_BITS`, or ``ml_dtypes.bfloat16``), bit for bit."""
+    return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
 
 
 def _dense(sd, prefix, p) -> None:
@@ -290,12 +304,13 @@ def _put(tree, path, value) -> None:
     node[path[-1]] = value
 
 
-def _to_jax(sd, leaf_of, tree) -> Tuple[dict, Dict[str, str]]:
+def _to_jax(sd, leaf_of, tree, raw_bf16: bool = False
+            ) -> Tuple[dict, Dict[str, str]]:
     stacks: Dict[Tuple, Dict[int, np.ndarray]] = {}
     paths: Dict[str, str] = {}
     for name, tensor in sd.items():
         leaf = leaf_of(name)
-        a = _numpy(tensor)
+        a = _numpy(tensor, raw_bf16=raw_bf16)
         if leaf.transpose:
             a = np.ascontiguousarray(a.T)
         if leaf.layer is None:
@@ -329,17 +344,28 @@ def lm_params_to_jax(sd, cfg) -> Tuple[dict, Dict[str, str]]:
     """The inverse of :func:`lm_params_from_jax`: each group's layers
     stacked along a leading ``count`` axis again, a shared-attention
     group's place in ``groups`` an empty dict, as the reference's."""
+    return _lm_to_jax(sd, cfg)
+
+
+def _lm_to_jax(sd, cfg, raw_bf16: bool = False):
     return _to_jax(sd, _lm_leaf,
-                   {"groups": [{} for _ in cfg.layer_plan]})
+                   {"groups": [{} for _ in cfg.layer_plan]}, raw_bf16)
 
 
 def params_to_jax(model, sd=None) -> Tuple[dict, Dict[str, str]]:
     """The reference pytree of ``sd`` (default: ``model``'s parameters),
-    by ``model``'s family."""
+    by ``model``'s family; bfloat16 leaves as ``ml_dtypes.bfloat16``."""
+    return _params_to_jax(model, sd)
+
+
+def _params_to_jax(model, sd=None, raw_bf16: bool = False
+                   ) -> Tuple[dict, Dict[str, str]]:
+    """:func:`params_to_jax`; with ``raw_bf16`` the bfloat16 leaves as
+    :data:`BF16_BITS` (no ``ml_dtypes``: the checkpoints' route)."""
     sd = dict(model.named_parameters()) if sd is None else sd
     if _is_lm(model):
-        return lm_params_to_jax(sd, model.cfg)
-    return _to_jax(sd, _nmt_leaf, {})
+        return _lm_to_jax(sd, model.cfg, raw_bf16)
+    return _to_jax(sd, _nmt_leaf, {}, raw_bf16)
 
 
 def params_from_jax(model, tree) -> Dict[str, torch.Tensor]:

@@ -25,10 +25,13 @@ group), the LM built on the ``meta`` device, and the port's own design:
   HBM bandwidth (``launch/mesh.py``).
 * **Collectives** (``collectives``): the bytes the port's
   ``runtime/sharded.py`` moves per step, labelled as the port's: one
-  all_gather of each module's blocks over the world (a flat buffer, in
-  the blocks' promoted dtype), for training the gradients' reduce_scatter
-  over the batch ranks, the replicated gradients' all_reduce, the
-  norm's and the MoE load-balance means' all_reduces, and the loss's
+  all_gather of each module's blocks over the world per dtype among
+  them (a flat buffer each: a bf16 block at 2 bytes a value), for
+  training the gradients' reduce_scatter over the batch ranks (per
+  dtype too), with ``remat`` each checkpointed layer's gather once more
+  for its recompute, the replicated gradients' all_reduce (one per
+  dtype), the norm's and the MoE load-balance means' all_reduces, and
+  the loss's
   all_reduce of each cross entropy's token count and sum (each rank's
   logits stay its rows'); in serving, the last logits' gather over the
   batch axes; in decode, the gather of every split state
@@ -38,11 +41,13 @@ group), the LM built on the ``meta`` device, and the port's own design:
   the HLO result shapes).  The reference's HLO text parsers
   (``collective_stats`` and its helpers) are not ported: there is no HLO.
 
-``--seq-parallel`` and ``--no-remat`` steer XLA only; they are accepted
-and recorded, and change none of these numbers.  ``--flash-decode-sp``
-is recorded too: the port's only decode path for a linear cache split
-over its slots is the sequence-sharded one.  ``--auto`` keeps the
-reference's rule (its TPU tuning).
+``--seq-parallel`` steers XLA only; it is accepted and recorded, and
+changes none of these numbers.  ``remat`` (on unless ``--no-remat``) is
+the port's ``LM(remat=True)``: a train record counts each checkpointed
+layer's second weight gather; the argument bytes do not change.
+``--flash-decode-sp`` is recorded too: the port's only decode path for
+a linear cache split over its slots is the sequence-sharded one.
+``--auto`` keeps the reference's rule (its TPU tuning).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k \\
@@ -198,6 +203,17 @@ def _gather_units(model: LM, kind: str) -> List[List]:
     return units
 
 
+def _remat_units(model: LM) -> List[List]:
+    """The units ``LM(remat=True)`` checkpoints, each re-gathered in the
+    backward: every layer of a group but zamba2's shared block (not the
+    encoder, the embedding, the head or the MTP block); none without
+    ``remat``."""
+    if not model.remat:
+        return []
+    return [[p] for gi, g in enumerate(model.cfg.layer_plan)
+            if g.mixer != "shared_attn" for p in model.groups[gi]]
+
+
 def _add(stats, op: str, nbytes: int, count: int = 1) -> None:
     stats[op]["bytes"] += nbytes
     stats[op]["count"] += count
@@ -224,19 +240,30 @@ def collective_bytes(model: LM, kind: str, inputs: Dict,
     batch_in = inputs["tokens"].shape[0]
     rows = pol.batch(batch_in)
     split = rows is not None and pol.axis_size(spec_axes(rows)) > 1
+
+    def by_dtype(unit):
+        """The bytes of a unit's cut blocks, one entry per dtype: one
+        flat buffer (and collective) each."""
+        unit_names = dict.fromkeys(
+            names[id(p)] for mod in unit for p in mod.parameters())
+        own: Dict[torch.dtype, int] = {}
+        for n in unit_names:
+            if n in cut:
+                dt = params[n].dtype
+                own[dt] = own.get(dt, 0) + block_bytes([n])
+        return list(own.values())
+
     for unit in _gather_units(model, kind):
-        unit_names = list(dict.fromkeys(
-            names[id(p)] for mod in unit for p in mod.parameters()))
-        mine = [n for n in unit_names if n in cut]
-        if not mine:
-            continue
-        flat_dtype = params[mine[0]].dtype
-        for n in mine[1:]:
-            flat_dtype = torch.promote_types(flat_dtype, params[n].dtype)
-        own = block_bytes(mine, flat_dtype)
-        _add(stats, "all-gather", world * own)
-        if kind == "train" and split:
-            _add(stats, "reduce-scatter", own)
+        for own in by_dtype(unit):
+            _add(stats, "all-gather", world * own)
+            if kind == "train" and split:
+                _add(stats, "reduce-scatter", own)
+    if kind == "train":
+        # LM(remat=True): each checkpointed layer gathers its weights
+        # again for its recompute in the backward
+        for unit in _remat_units(model):
+            for own in by_dtype(unit):
+                _add(stats, "all-gather", world * own)
     b_loc = batch_in // (pol.axis_size(spec_axes(rows)) if split else 1)
     if split and kind != "train":
         _add(stats, "all-gather",
@@ -248,8 +275,9 @@ def collective_bytes(model: LM, kind: str, inputs: Dict,
             n_ce = 2 if cfg.mtp_depth else 1
             _add(stats, "all-reduce", 2 * n_ce * 4)
             rep = [n for n in specs if n not in cut]
-            if rep:
-                _add(stats, "all-reduce", block_bytes(rep))
+            for dt in dict.fromkeys(params[n].dtype for n in rep):
+                _add(stats, "all-reduce", block_bytes(
+                    [n for n in rep if params[n].dtype == dt]))
             n_moe = sum(g.count for g in cfg.layer_plan if g.ffn == "moe")
             if n_moe:       # f_e and P_e, E float32 each, per MoE layer
                 _add(stats, "all-reduce",
@@ -318,7 +346,7 @@ def analyze(arch: str, shape_name: str, mesh_name: str, *, remat=True,
     cfg = get_config(arch, shape=shape_name)
     seq, batch, kind = INPUT_SHAPES[shape_name]
     pol = make_policy(mesh, batch_size=batch, layout=layout, fsdp=fsdp)
-    model = LM(cfg, device="meta", param_dtype=PARAM_DTYPE)
+    model = LM(cfg, device="meta", param_dtype=PARAM_DTYPE, remat=remat)
     inputs = input_specs(cfg, shape_name, model=model)
     moments = moments_dtype(cfg)
     args = argument_bytes(model, kind, inputs, pol, moments_dtype=moments)
@@ -336,8 +364,8 @@ def analyze(arch: str, shape_name: str, mesh_name: str, *, remat=True,
     rec["collectives"]["source"] = (
         "the port's runtime/sharded.py design (result bytes per rank), "
         "not the reference's partitioned HLO")
-    rec["xla_only_flags"] = ("seq_parallel and remat steer XLA; they "
-                             "change none of these numbers")
+    rec["xla_only_flags"] = ("seq_parallel steers XLA; it changes none "
+                             "of these numbers")
 
     pc = cfg.param_counts()
     tokens = batch * seq if kind != "decode" else batch

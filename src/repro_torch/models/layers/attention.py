@@ -241,7 +241,11 @@ def attn_decode_seq_sharded(p: GQA, cfg: ModelConfig, x, cache_k, cache_v,
     are not cut at ``s_loc``: the kernel reads at most its slots anyway,
     and a ``window`` (slots below ``lengths - window`` masked) stays
     right only on the uncut length.  The reference's shard_map body
-    (``attn_decode_seq_sharded``) attends with jnp ops and no window."""
+    (``attn_decode_seq_sharded``) attends with jnp ops and no window.
+    In bf16 each rank's output arrives rounded to bf16 and the merge,
+    in float32, is rounded once more: on a group of one rank that is the
+    kernel's output exactly, across ranks one more rounding than the
+    unsharded kernel's."""
     b, s_loc = x.shape[0], cache_k.shape[1]
     q, k, v = _qkv(p, cfg, x, pos[:, None])
     local = pos - dist.get_rank(group) * s_loc

@@ -92,14 +92,18 @@ def _split_proj(cfg: ModelConfig, zxbcdt):
 
 
 def _causal_conv_full(p: Mamba2Mixer, xbc):
-    """Depthwise causal conv over (B,S,C) with window W; silu activation."""
-    w = p.conv_w.to(xbc.dtype)                         # (W, C)
+    """Depthwise causal conv over (B,S,C) with window W; silu activation.
+    The W taps are summed in float32 and rounded to xbc's dtype once, as
+    the decode step's einsum sums them (in bf16, rounding each product
+    and partial sum cost the smoke zamba2's first layer 1.8% of its
+    gradient's norm)."""
+    w = p.conv_w.to(xbc.dtype).float()                 # (W, C)
     width = w.shape[0]
-    pads = F.pad(xbc, (0, 0, width - 1, 0))
+    pads = F.pad(xbc, (0, 0, width - 1, 0)).float()
     out = pads[:, 0:xbc.shape[1], :] * w[0]
     for k in range(1, width):
         out = out + pads[:, k:k + xbc.shape[1], :] * w[k]
-    return F.silu(out + p.conv_b.to(xbc.dtype))
+    return F.silu(out.to(xbc.dtype) + p.conv_b.to(xbc.dtype))
 
 
 def _heads(cfg: ModelConfig, x_in, b_in, c_in):

@@ -34,6 +34,17 @@ C).
 Weights are drawn in float32 and each is cast as it is drawn, so the
 bf16 model from a seed is the float32 model from that seed, cast.
 
+``remat=True`` is the reference's ``LM(remat=)``: under autograd each
+layer of a group runs under ``torch.utils.checkpoint`` (non-reentrant),
+so the backward recomputes the layer's internals and the forward keeps
+only the residual stream between layers.  As in the reference (which
+checkpoints its scanned groups' bodies), zamba2's shared block, whisper's
+encoder and the MTP block are not checkpointed.  The recompute runs in
+the backward, outside the forward's contexts: it re-enters the batch
+shard a sharded forward installed (``sharding.ctx.recompute_context``),
+and under the sharded runtime it gathers the layer's weights again, as
+FSDP does.  Gradients equal ``remat=False``'s bitwise.
+
 Entry points:
 
 * ``train_logits(tokens)`` — the full causal forward with no cache, for
@@ -90,6 +101,7 @@ import contextlib
 from typing import Dict, List, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.device import resolve_device
@@ -152,13 +164,14 @@ def _stack(entries: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
 
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
-                 param_dtype=torch.float32):
+                 param_dtype=torch.float32, remat: bool = False):
         super().__init__()
         if param_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"param_dtype must be float32 or bfloat16, "
                              f"got {param_dtype}")
         self.cfg = cfg.validate()
         self.param_dtype = param_dtype
+        self.remat = remat
         self.unshard = None      # the sharded runtime's per-module gather
         dev = resolve_device(device)
         gen = (None if dev.type == "meta"
@@ -366,20 +379,34 @@ class LM(nn.Module):
         enc_out, mask = self.encode(frames, frame_mask, kernels=kernels)
         return (enc_out, att.mask_lengths(mask)), mask
 
+    def _layer_full(self, p: Block, g: LayerGroup, x, kernels: bool,
+                    window, enc):
+        """One layer with its weights whole: ``_block_full``'s result."""
+        with self._whole(p):
+            return self._block_full(p, g, x, kernels=kernels, window=window,
+                                    enc=enc)
+
     def _run_full(self, x, *, kernels: bool, window=None, enc=None,
                   with_cache: bool):
         """Every group over the full sequence; returns (x, caches or None,
-        MoE aux total)."""
+        MoE aux total).  With ``remat`` and autograd on, each layer of a
+        group but the shared block is checkpointed."""
         w = window if window is not None else self.cfg.sliding_window
         caches: List[Dict[str, torch.Tensor]] = []
         aux_total = torch.zeros((), device=x.device)
         for gi, g in enumerate(self.cfg.layer_plan):
+            remat = (self.remat and torch.is_grad_enabled()
+                     and g.mixer != "shared_attn")
             entries = []
             for p in self._layers(gi, g):
-                with self._whole(p):
-                    x, cache, aux = self._block_full(p, g, x,
-                                                     kernels=kernels,
-                                                     window=w, enc=enc)
+                if remat:
+                    x, cache, aux = torch.utils.checkpoint.checkpoint(
+                        self._layer_full, p, g, x, kernels, w, enc,
+                        use_reentrant=False,
+                        context_fn=shard_ctx.recompute_context)
+                else:
+                    x, cache, aux = self._layer_full(p, g, x, kernels, w,
+                                                     enc)
                 if with_cache:
                     entries.append(cache)
                 if aux is not None:

@@ -15,9 +15,10 @@ port's unchanged layer code on its own part of the work:
 * **Parameters.**  Each is held as a ``DTensor`` under
   ``to_placements(param_specs(...))``: the module keeps only this rank's
   block, and a layer's weights are gathered whole just before it runs
-  (one all_gather of all its blocks) and freed after it (``LM.unshard``),
-  as FSDP does.  A weight whose spec splits nothing (or only over size-1
-  axes) is never gathered.
+  (one all_gather of its blocks per dtype: a bf16 layer's matrices as
+  bf16, its float32 norms or router in a second buffer) and freed after
+  it (``LM.unshard``), as FSDP does.  A weight whose spec splits nothing
+  (or only over size-1 axes) is never gathered.
 * **Batch.**  Each rank runs the rows ``batch_specs`` gives it; logits are
   gathered over the batch axes, so every rank returns the whole batch
   and the sessions' token loops run the same on every rank.
@@ -34,9 +35,12 @@ port's unchanged layer code on its own part of the work:
   takes an LM; the state holds this rank's blocks and their moments).
   The weight gather is differentiable (:class:`_Gather`): its backward
   sums each whole-size gradient over the ranks that split the batch and
-  cuts it to the rank's block, in ONE reduce_scatter a module, as FSDP
-  does.  Every rank computes the same whole-batch loss on the gathered
-  logits, so the logits' gather only slices its gradient.  A weight no
+  cuts it to the rank's block, in one reduce_scatter a module per dtype,
+  as FSDP does.  A gradient is reduced in its parameter's dtype: a bf16
+  matrix's in bf16, as the reference's partitioned bf16 step reduces it
+  (its AdamW then computes in float32 on the bf16 sum).  Every rank
+  computes the same whole-batch loss on the gathered logits, so the
+  logits' gather only slices its gradient.  A weight no
   spec cuts has its gradient all-reduced over the batch ranks
   (:meth:`ShardedLM.sync_grads`); ranks that share rows compute it
   redundantly and are not added.  The global norm sums each block's
@@ -44,12 +48,19 @@ port's unchanged layer code on its own part of the work:
   (:meth:`ShardedLM.grad_square_sum`).  The MoE load-balance loss, a
   product of two token means, takes both means over the whole batch
   (a :class:`~repro_torch.sharding.ctx.BatchShard` installed for the
-  forward).
+  forward; a layer checkpointed by ``LM(remat=True)`` re-enters it for
+  its recompute and gathers its weights again there).
 
 Tokens equal the unsharded session's only behind a top-2 logit margin: a
 rank computes B/|batch axes| rows, so a GEMM's kernel and
 ``flash_decode``'s split plan change with the batch shape, and the
-sequence-sharded merge sums in another order (ROADMAP C).  MoE decode
+sequence-sharded merge sums in another order (ROADMAP C).  In bfloat16
+the merge takes each rank's partial output as the kernel rounded it to
+bf16 and rounds the float32 merge once more (the unsharded kernel rounds
+once): on one rank that gives back the kernel's output exactly (the
+merge moves a float32 value by less than half a bf16 step), so a 1x1
+mesh decodes bitwise as the unsharded model; across ranks the tokens are
+held behind bf16's wider margin.  MoE decode
 dispatches the rank's rows as one group, so with a capacity factor that
 drops assignments a row's output depends on which rows share its rank.
 """
@@ -154,12 +165,9 @@ class ShardedLM:
     blocks)."""
 
     def __init__(self, model, mesh, policy: ShardingPolicy):
-        if model.param_dtype != torch.float32:
-            # a module's blocks are gathered as one flat buffer of one
-            # dtype (_gather_blocks); bf16 matrices beside float32 norms
-            # need one buffer per dtype, which is not built yet
-            raise ValueError(f"a sharded LM must be float32, not "
-                             f"{model.param_dtype}")
+        if model.param_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"a sharded LM must be float32 or bfloat16, "
+                             f"not {model.param_dtype}")
         backend = dist.get_backend()
         if model.device.type != mesh.device_type:
             raise ValueError(f"the model lies on {model.device.type}, the "
@@ -306,28 +314,31 @@ class ShardedLM:
     def _gather_blocks(self, params, blocks):
         """The whole tensors of ``params`` from each rank's ``blocks`` of
         them (the blocks themselves, or tensors laid out alike: AdamW's
-        moments) in ONE all_gather over the world: a flat buffer of every
-        block, as FSDP gathers a layer."""
-        if not params:
-            return []
-        flat = torch.cat([b.reshape(-1) for b in blocks])
-        parts = [torch.empty_like(flat) for _ in self._coords]
-        dist.all_gather(parts, flat)
-        out, off = [], 0
-        for p, b in zip(params, blocks):
-            whole = b.new_empty(self._dtensors[id(p)].shape)
-            for part, coord in zip(parts, self._coords):
-                whole[self._region(p, coord)] = \
-                    part[off:off + b.numel()].view(b.shape)
-            out.append(whole)
-            off += b.numel()
+        moments) in one all_gather over the world per dtype among the
+        blocks: a flat buffer of every block of that dtype, as FSDP
+        gathers a layer (a bf16 block crosses as 2 bytes a value)."""
+        out = [None] * len(params)
+        for idx in _by_dtype(blocks):
+            flat = torch.cat([blocks[i].reshape(-1) for i in idx])
+            parts = [torch.empty_like(flat) for _ in self._coords]
+            dist.all_gather(parts, flat)
+            off = 0
+            for i in idx:
+                p, b = params[i], blocks[i]
+                whole = b.new_empty(self._dtensors[id(p)].shape)
+                for part, coord in zip(parts, self._coords):
+                    whole[self._region(p, coord)] = \
+                        part[off:off + b.numel()].view(b.shape)
+                out[i] = whole
+                off += b.numel()
         return out
 
     def _reduce_blocks(self, params, grads, group):
         """This rank's block of each whole-size gradient in ``grads``
-        (None: zeros), summed over ``group`` in ONE reduce_scatter of a
-        flat buffer holding each member's blocks in turn; only cut to the
-        block where ``group`` is None (every rank saw every row)."""
+        (None: zeros), summed over ``group`` in one reduce_scatter per
+        dtype of a flat buffer holding each member's blocks in turn (a
+        bf16 gradient is summed in bf16); only cut to the block where
+        ``group`` is None (every rank saw every row)."""
         grads = [torch.zeros(self._dtensors[id(p)].shape, dtype=p.dtype,
                              device=p.device) if g is None else g
                  for p, g in zip(params, grads)]
@@ -335,34 +346,38 @@ class ShardedLM:
             return [g[self._region(p, self._coord)].clone()
                     for p, g in zip(params, grads)]
         members = dist.get_process_group_ranks(group)
-        chunks = [torch.cat([g[self._region(p, self._coords[q])].reshape(-1)
-                             for p, g in zip(params, grads)])
-                  for q in members]
-        flat = torch.empty_like(chunks[0])
-        dist.reduce_scatter(flat, chunks, group=group)
-        out, off = [], 0
-        for p in params:
-            out.append(flat[off:off + p.numel()].view(p.shape).to(p.dtype))
-            off += p.numel()
+        out = [None] * len(params)
+        for idx in _by_dtype(grads):
+            chunks = [torch.cat([
+                grads[i][self._region(params[i], self._coords[q])]
+                .reshape(-1) for i in idx]) for q in members]
+            flat = torch.empty_like(chunks[0])
+            dist.reduce_scatter(flat, chunks, group=group)
+            off = 0
+            for i in idx:
+                p = params[i]
+                out[i] = flat[off:off + p.numel()].view(p.shape).to(p.dtype)
+                off += p.numel()
         return out
 
     # -------------------------------------------------------- training --
     def sync_grads(self, grads: Dict[str, torch.Tensor]) -> None:
         """All-reduce (sum, in place) the gradients of the parameters no
-        spec cuts over the ranks that split the last forward's rows; the
-        cut ones arrive summed from :class:`_Gather`'s backward."""
+        spec cuts over the ranks that split the last forward's rows, one
+        all_reduce per dtype (bf16 gradients summed in bf16); the cut
+        ones arrive summed from :class:`_Gather`'s backward."""
         if self._grad_group is None:
             return
         names = [n for n in grads if not self._splits(self.specs[n])]
-        if not names:
-            return
-        flat = torch.cat([grads[n].reshape(-1) for n in names])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self._grad_group)
-        off = 0
-        for n in names:
-            g = grads[n]
-            g.copy_(flat[off:off + g.numel()].view(g.shape))
-            off += g.numel()
+        for idx in _by_dtype([grads[n] for n in names]):
+            flat = torch.cat([grads[names[i]].reshape(-1) for i in idx])
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM,
+                            group=self._grad_group)
+            off = 0
+            for i in idx:
+                g = grads[names[i]]
+                g.copy_(flat[off:off + g.numel()].view(g.shape))
+                off += g.numel()
 
     def grad_square_sum(self, grads: Dict[str, torch.Tensor]):
         """The sum of squares of the whole gradients whose blocks are
@@ -386,7 +401,7 @@ class ShardedLM:
                       ) -> Dict[str, torch.Tensor]:
         """The whole tensors of ``blocks`` (keyed by parameter name, laid
         out as the parameters' blocks: the parameters or their moments),
-        in one all_gather.  A collective."""
+        in one all_gather per dtype.  A collective."""
         names = [n for n in blocks if self._splits(self.specs[n])]
         params = dict(self.model.named_parameters())
         out = dict(blocks)
@@ -533,6 +548,17 @@ class ShardedLM:
         finally:
             set_batch_shard(None)
         return out
+
+
+def _by_dtype(tensors):
+    """The indices of ``tensors`` grouped by dtype, each group in order
+    and the groups in order of first appearance: one flat buffer and one
+    collective per group (``torch.cat`` would promote bf16 blocks beside
+    float32 ones to float32, twice the bytes on the wire)."""
+    groups: Dict[torch.dtype, list] = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.dtype, []).append(i)
+    return list(groups.values())
 
 
 def _meta(t, axis: int, n: int):

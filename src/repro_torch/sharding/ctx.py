@@ -15,7 +15,10 @@ around the calls that need one:
   ranks that split the batch, so the MoE load-balance loss, a product of
   two means over the tokens, is the whole batch's (the reference's
   ``set_batch_constrainer`` hook serves GSPMD the same way: one place
-  where a layer learns how the batch is split).
+  where a layer learns how the batch is split).  A layer checkpointed
+  with ``torch.utils.checkpoint`` recomputes in the backward, after the
+  forward removed its :class:`BatchShard`: :func:`recompute_context`
+  puts the forward's back for the recompute.
 
 Unset, nothing changes: single-device runs never touch
 ``torch.distributed``.
@@ -23,6 +26,7 @@ Unset, nothing changes: single-device runs never touch
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
@@ -89,3 +93,22 @@ def batch_mean(x):
     if _BATCH_SHARD is None:
         return x
     return _BatchMean.apply(x, _BATCH_SHARD.group, _BATCH_SHARD.size)
+
+
+@contextlib.contextmanager
+def _batch_shard_as(info: Optional[BatchShard]):
+    global _BATCH_SHARD
+    saved, _BATCH_SHARD = _BATCH_SHARD, info
+    try:
+        yield
+    finally:
+        _BATCH_SHARD = saved
+
+
+def recompute_context():
+    """``torch.utils.checkpoint``'s ``context_fn``: (the forward's
+    context, the recompute's), the recompute under the
+    :class:`BatchShard` installed when the forward ran (so a recomputed
+    MoE layer takes its means over the whole batch again, with the same
+    collectives)."""
+    return contextlib.nullcontext(), _batch_shard_as(_BATCH_SHARD)

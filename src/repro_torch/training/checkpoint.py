@@ -16,6 +16,16 @@ The write is atomic (a temporary file, then ``os.replace``); loading
 restores exact dtypes and shapes and raises ``KeyError`` on a missing
 leaf and ``ValueError`` on a shape mismatch.
 
+A bfloat16 leaf is written as the reference writes its
+``ml_dtypes.bfloat16`` arrays: an ``.npy`` member of descr ``'<V2'``
+holding the raw 16-bit patterns, and ``"dtype": "bfloat16"`` in the
+manifest, byte for byte, with no ``ml_dtypes`` (numpy has no bfloat16;
+the bits cross through an ``int16`` view).  Loading gives such a leaf
+back as those bit patterns (``convert.BF16_BITS``), which the converters
+and :func:`load_train_state` turn into ``torch.bfloat16`` tensors.
+(The reference's own ``load_checkpoint`` cannot restore such a file:
+``jax.numpy.asarray`` refuses a ``'|V2'`` array, ROADMAP C.)
+
 :func:`save_train_state` / :func:`load_train_state` write and read a
 model's ``TrainState`` in the reference's layout, and take a
 :class:`~repro_torch.runtime.sharded.ShardedLM`'s state as well: saving
@@ -28,6 +38,7 @@ from __future__ import annotations
 import json
 import os
 import tempfile
+import zipfile
 from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
@@ -35,8 +46,10 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.convert import (
+    BF16_BITS,
+    _params_to_jax,
+    bf16_tensor,
     params_from_jax,
-    params_to_jax,
     reference_leaves,
 )
 from repro_torch.training.optimizer import AdamWState
@@ -65,10 +78,42 @@ def _leaves(node, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield prefix, node
 
 
-def _numpy(leaf) -> np.ndarray:
+# the descr ``np.save`` writes for ``ml_dtypes.bfloat16``; a plain
+# ``np.dtype("V2")`` would write ``'|V2'``
+_BF16_DESCR = "<V2"
+
+
+def _numpy(leaf) -> Tuple[np.ndarray, str]:
+    """(the leaf as numpy, its manifest dtype): a bfloat16 tensor, an
+    ``ml_dtypes.bfloat16`` array or bf16 bit patterns (``BF16_BITS``, as
+    :func:`state_to_jax` gives them) as its bit patterns."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view(BF16_BITS), "bfloat16"
+        leaf = leaf.numpy()
+    a = np.asarray(leaf)
+    if a.dtype.name == "bfloat16" or a.dtype == BF16_BITS:
+        return a.view(BF16_BITS), "bfloat16"
+    return a, str(a.dtype)
+
+
+def _write_npz(path: str, members: Dict[str, Tuple[np.ndarray, str]]
+               ) -> None:
+    """``np.savez(path, **members)``'s bytes, a bfloat16 member's header
+    with the descr ``ml_dtypes.bfloat16`` gives."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, (arr, dtype) in members.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                if dtype != "bfloat16":
+                    np.lib.format.write_array(fid, np.asanyarray(arr),
+                                              allow_pickle=False)
+                    continue
+                np.lib.format.write_array_header_1_0(fid, {
+                    "descr": _BF16_DESCR, "fortran_order": False,
+                    "shape": arr.shape})
+                fid.write(np.ascontiguousarray(arr).tobytes())
 
 
 def _rebuild(node, leaves: Iterator):
@@ -92,17 +137,17 @@ def save_checkpoint(path: str, tree, *, step: int | None = None) -> str:
     manifest = {
         "step": step,
         "num_leaves": len(flat),
-        "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
-                   for k, v in flat.items()},
+        "leaves": {k: {"shape": list(v.shape), "dtype": dtype}
+                   for k, (v, dtype) in flat.items()},
     }
     folder = os.path.dirname(os.path.abspath(path))
     os.makedirs(folder, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=folder, suffix=".tmp")
     os.close(fd)
     try:
-        np.savez(tmp, __manifest__=json.dumps(manifest), **flat)
-        # np.savez appends .npz to the filename it writes
-        os.replace(tmp + ".npz", path)
+        _write_npz(tmp, {"__manifest__": (np.asarray(json.dumps(manifest)),
+                                          "str"), **flat})
+        os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -111,7 +156,7 @@ def save_checkpoint(path: str, tree, *, step: int | None = None) -> str:
 
 def load_checkpoint(path: str, like) -> Any:
     """Restore into the structure of ``like``; the leaves come back as
-    numpy arrays."""
+    numpy arrays, a bfloat16 leaf as its bit patterns (``BF16_BITS``)."""
     with np.load(path, allow_pickle=False) as z:
         flat = {k: z[k] for k in z.files if k != "__manifest__"}
     leaves = []
@@ -136,9 +181,10 @@ def state_to_jax(model, params: Dict[str, torch.Tensor],
                  opt: AdamWState) -> Tuple[dict, AdamWState]:
     """The reference's pytrees of a training state: the parameters, and
     an ``AdamWState`` whose moments are keyed, shaped and transposed as
-    the parameters' leaves (numpy leaves throughout)."""
-    to_jax = lambda sd: params_to_jax(model, sd)[0]
-    return to_jax(params), AdamWState(step=_numpy(opt.step),
+    the parameters' leaves (numpy leaves throughout, a bfloat16 one as
+    its bit patterns, ``convert.BF16_BITS``)."""
+    to_jax = lambda sd: _params_to_jax(model, sd, raw_bf16=True)[0]
+    return to_jax(params), AdamWState(step=_numpy(opt.step)[0],
                                       mu=to_jax(opt.mu), nu=to_jax(opt.nu))
 
 
@@ -194,8 +240,9 @@ def load_train_state(path: str, model, state: TrainState) -> TrainState:
             if key not in flat:
                 raise KeyError(f"checkpoint missing leaf {key}")
             arr = flat[key] if leaf.layer is None else flat[key][leaf.layer]
-            whole = torch.as_tensor(np.ascontiguousarray(
-                arr.T if leaf.transpose else arr))
+            arr = arr.T if leaf.transpose else arr
+            whole = (bf16_tensor(arr) if arr.dtype == BF16_BITS
+                     else torch.as_tensor(arr)).contiguous()
             got = whole if cut is None else cut(name, whole)
             if tuple(got.shape) != tuple(t.shape):
                 raise ValueError(f"shape mismatch for {key}: "

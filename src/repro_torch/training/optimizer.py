@@ -1,8 +1,11 @@
 """AdamW, gradient clipping and the cosine schedule, on named tensors.
 
 Port of ``repro/training/optimizer.py``: decoupled weight decay
-(Loshchilov & Hutter) with bias correction, moments kept in float32
-whatever the parameters' dtype.  It is not ``torch.optim.AdamW``, which
+(Loshchilov & Hutter) with bias correction, computed in float32
+whatever the parameters' and moments' dtypes: each moment is stored in
+its own dtype (float32, or bfloat16 with ``adamw_init(moments_dtype=)``)
+and read back from what was stored, each parameter rounded to its
+own.  It is not ``torch.optim.AdamW``, which
 decays every tensor and orders its arithmetic differently: each step
 here is the reference's expression for expression, so one update agrees
 with it to float32 rounding.

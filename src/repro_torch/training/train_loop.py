@@ -40,9 +40,12 @@ class TrainState(NamedTuple):
 
 def init_train_state(model, moments_dtype=torch.float32) -> TrainState:
     """The model's parameters, unfrozen (the port's models are built
-    frozen), and zero AdamW moments.  The weights are the model's own,
-    drawn at construction (the reference draws them here from a key); a
-    sharded LM's are this rank's blocks, and so are its moments."""
+    frozen), and zero AdamW moments in ``moments_dtype`` (the caller's
+    choice, as in the reference: float32 by default, bfloat16 halves
+    them; the dry run picks bf16 at or above 100 B parameters).  The
+    weights are the model's own, drawn at construction (the reference
+    draws them here from a key); a sharded LM's are this rank's blocks,
+    and so are its moments."""
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     return TrainState(params=params,
@@ -90,27 +93,34 @@ def make_train_step(model, *, lr_schedule: Optional[Callable] = None,
     the step with the whole batch: a collective).
 
     ``batch`` holds numpy arrays or tensors ({"tokens", "targets"[,
-    "mask"]}).  ``remat=True`` wraps the loss in
-    ``torch.utils.checkpoint`` (its activations are recomputed in the
-    backward instead of kept), as ``jax.checkpoint`` does.  The model
-    must be float32: bfloat16 training (the reference's bf16 moments
-    beside bf16 matrices) is not ported."""
-    if model.param_dtype != torch.float32:
-        raise ValueError(f"make_train_step trains a float32 model, not "
-                         f"{model.param_dtype}")
+    "mask", "frames"]}: an encoder-decoder's frames go to its encoder).
+    ``remat=True`` wraps the loss in ``torch.utils.checkpoint`` (its
+    activations are recomputed in the backward instead of kept), as
+    ``jax.checkpoint`` does; the model's own ``LM(remat=True)``
+    checkpoints each layer instead.
+
+    The model is float32 or bfloat16 (``LM(param_dtype=)``), with the
+    reference's dtype rules: each gradient in its parameter's dtype, the
+    global norm in float32 and each clipped gradient rounded back to its
+    dtype, AdamW computing in float32 and storing the moments in
+    ``init_train_state``'s ``moments_dtype`` and each parameter in its
+    own, the cross entropy on float32 logits."""
+    if model.param_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"make_train_step trains a float32 or bfloat16 "
+                         f"model, not {model.param_dtype}")
     ndims = leaf_ndims(model)
 
-    def loss_fn(tokens, targets, mask):
-        batch = {"tokens": tokens, "targets": targets}
-        if mask is not None:
-            batch["mask"] = mask
+    keys = ("tokens", "targets", "mask", "frames")
+
+    def loss_fn(*args):
+        batch = {k: a for k, a in zip(keys, args) if a is not None}
         loss, metrics = lm_loss(model, batch)
         return loss, metrics
 
     def train_step(state: TrainState, batch):
         args = [None if batch.get(k) is None
                 else torch.as_tensor(batch[k], device=model.device)
-                for k in ("tokens", "targets", "mask")]
+                for k in keys]
         with torch.enable_grad():
             if remat:
                 loss, metrics = torch.utils.checkpoint.checkpoint(

@@ -7,7 +7,9 @@ model, the cases), joins the process group through ``WORKDIR/pg`` (60 s
 timeout), builds a (2, 2) ``("data", "model")`` mesh, and for each case
 shards the LM, runs three train steps through ``make_train_step`` and
 records the losses, grad norms, each rank's block shapes and (rank 0)
-the parameters and both moments gathered whole.  Then the MoE
+the parameters and both moments gathered whole; the same for bf16 models
+(bf16 or float32 moments, with and without ``LM(remat=True)``).  Then
+the MoE
 load-balance loss and this rank's logits of one sharded forward, the
 metrics of ``lm_loss`` over a masked batch, and a sharded checkpoint:
 written by ``save_train_state``, read back into a fresh sharded state.
@@ -40,9 +42,12 @@ from repro_torch.training.train_loop import (  # noqa: E402
 )
 
 
-def _lm(name, inputs, seed=0):
-    model = LM(smoke_config(name), device="cpu", seed=seed)
-    if seed == 0:
+def _lm(name, inputs, seed=0, dtype=torch.float32, remat=False):
+    """A smoke LM: float32 with the parent's weights (seed 0), or drawn
+    here from ``seed`` (bf16 from seed 0 is the parent's bf16 model)."""
+    model = LM(smoke_config(name), device="cpu", seed=seed,
+               param_dtype=dtype, remat=remat)
+    if seed == 0 and dtype == torch.float32:
         model.load_state_dict(inputs["weights"][name], strict=True)
     return model
 
@@ -59,9 +64,12 @@ def _whole(lm, state, rank):
             for key, ts in tensors.items()}
 
 
-def _train(name, layout, inputs, mesh, rank, workdir):
-    lm, pol = shard_lm(_lm(name, inputs), mesh, batch_size=4, layout=layout)
-    state = init_train_state(lm)
+def _train(name, layout, inputs, mesh, rank, workdir, *,
+           dtype=torch.float32, moments=torch.float32, remat=False,
+           ckpt=False):
+    lm, pol = shard_lm(_lm(name, inputs, dtype=dtype, remat=remat), mesh,
+                       batch_size=4, layout=layout)
+    state = init_train_state(lm, moments_dtype=moments)
     step = make_train_step(lm)
     rec = {"loss": [], "grad_norm": [], "aux": [],
            "layout": "tp" if pol.model_axes else "ddp",
@@ -76,12 +84,14 @@ def _train(name, layout, inputs, mesh, rank, workdir):
         rec["aux"].append(float(m["aux"]))
     rec["step"] = int(state.opt.step)
     rec["whole"] = _whole(lm, state, rank)
-    if (name, layout) == inputs["ckpt_case"]:
-        path = os.path.join(workdir, "sharded.npz")
+    if ckpt:
+        path = os.path.join(workdir, "sharded.npz" if dtype == torch.float32
+                            else "sharded_bfloat16.npz")
         save_train_state(path, lm, state, step=rec["step"])
-        fresh, _ = shard_lm(_lm(name, inputs, seed=1), mesh, batch_size=4,
-                            layout=layout)
-        loaded = load_train_state(path, fresh, init_train_state(fresh))
+        fresh, _ = shard_lm(_lm(name, inputs, seed=1, dtype=dtype), mesh,
+                            batch_size=4, layout=layout)
+        loaded = load_train_state(path, fresh, init_train_state(
+            fresh, moments_dtype=moments))
         rec["loaded"] = _whole(fresh, loaded, rank)
         rec["loaded_step"] = int(loaded.opt.step)
     return rec
@@ -96,8 +106,17 @@ def main(rank: int, world: int, workdir: str) -> None:
     mesh = make_host_mesh((2, 2), ("data", "model"), "cpu")
     out = {"coord": tuple(mesh.get_coordinate()), "train": {}}
     for name, layout in inputs["train_cases"]:
-        out["train"][(name, layout)] = _train(name, layout, inputs, mesh,
-                                              rank, workdir)
+        out["train"][(name, layout)] = _train(
+            name, layout, inputs, mesh, rank, workdir,
+            ckpt=(name, layout) == inputs["ckpt_case"])
+    # bf16: (name, layout, moments dtype, remat); the first case also
+    # checkpoints its sharded state
+    out["bf16"] = {}
+    for i, (name, layout, moments, remat) in enumerate(
+            inputs["bf16_cases"]):
+        out["bf16"][(name, layout, remat)] = _train(
+            name, layout, inputs, mesh, rank, workdir, dtype=torch.bfloat16,
+            moments=moments, remat=remat, ckpt=i == 0)
     lm, _ = shard_lm(_lm("qwen3-moe-30b-a3b", inputs), mesh, batch_size=4,
                      layout="tp")
     with torch.no_grad():

@@ -26,7 +26,10 @@ from repro_torch.launch.mesh import (  # noqa: E402
 )
 from repro_torch.models.layers import attention as att  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
-from repro_torch.runtime.sharded import make_sharded_session  # noqa: E402
+from repro_torch.runtime.sharded import (  # noqa: E402
+    ShardedLM,
+    make_sharded_session,
+)
 from repro_torch.sharding.policy import make_policy  # noqa: E402
 
 
@@ -66,6 +69,37 @@ def _counted(*args, **kwargs):
 
 att.attn_decode_seq_sharded = _counted
 
+# each gather of a unit's blocks: the blocks' bytes by dtype, and the
+# all_gather calls it made (dtype and bytes of each flat buffer)
+GATHERS = []
+_gather_blocks = ShardedLM._gather_blocks
+_all_gather = dist.all_gather
+
+
+def _recorded_gather_blocks(self, params, blocks):
+    rec = {"blocks": {}, "calls": []}
+    for b in blocks:
+        key = str(b.dtype)
+        rec["blocks"][key] = rec["blocks"].get(key, 0) + b.nbytes
+    GATHERS.append(rec)
+    return _gather_blocks(self, params, blocks)
+
+
+def _recorded_all_gather(parts, tensor, *args, **kwargs):
+    if GATHERS:
+        GATHERS[-1]["calls"].append((str(tensor.dtype), tensor.nbytes))
+    return _all_gather(parts, tensor, *args, **kwargs)
+
+
+ShardedLM._gather_blocks = _recorded_gather_blocks
+dist.all_gather = _recorded_all_gather
+
+
+def _bf16_lm(name):
+    """The smoke LM in bf16 from seed 0 (the parent draws the same)."""
+    return LM(smoke_config(name), device="cpu", seed=0,
+              param_dtype=torch.bfloat16)
+
 
 def main(rank: int, world: int, workdir: str) -> None:
     dist.init_process_group(
@@ -92,6 +126,29 @@ def main(rank: int, world: int, workdir: str) -> None:
                              sess.model.model.named_parameters()},
             "specs": sess.model.specs}
     out["sessions"] = sessions
+
+    bf16 = {}
+    for name, layout in inputs["bf16_session_cases"]:
+        toks, lens = inputs["prompts"][name]
+        sess = make_sharded_session(_bf16_lm(name), mesh, max_len=32,
+                                    batch_size=4, layout=layout)
+        SEQ_SHARDED_CALLS[0] = 0
+        m_out, tokens = sess.generate_with_lengths(toks, max_new=8,
+                                                   lengths=lens)
+        bf16[(name, layout)] = {"m": m_out, "tokens": tokens,
+                                "layout": sess.layout,
+                                "seq_sharded_calls": SEQ_SHARDED_CALLS[0]}
+    out["bf16_sessions"] = bf16
+    # a bf16 MoE model under tp: its experts bf16, its router float32,
+    # both cut: each layer gathers two buffers
+    moe16 = make_sharded_session(_bf16_lm("qwen3-moe-30b-a3b"), mesh,
+                                 batch_size=4, layout="tp")
+    GATHERS.clear()
+    with torch.no_grad():
+        moe16.model.prefill(torch.as_tensor(inputs["moe_tokens"]),
+                            max_len=24)
+    out["bf16_gathers"] = list(GATHERS)
+    GATHERS.clear()
 
     sess = make_sharded_session(_lm("qwen3-8b", inputs), mesh,
                                 continuous=True, max_slots=4, max_len=32,

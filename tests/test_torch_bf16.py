@@ -49,6 +49,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.configs import smoke_config as j_smoke_config
 from repro.models.model import LM as JLM
@@ -61,6 +62,7 @@ from repro_torch.convert import (
 )
 from repro_torch.core.latency_model import DeviceProfile, LinearLatencyModel
 from repro_torch.core.length_regressor import LinearN2M
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.serve import serve_tiered
 from repro_torch.models.layers import moe as moe_lib
 from repro_torch.models.model import LM
@@ -72,6 +74,7 @@ from repro_torch.runtime.serving import (
     greedy_margins,
 )
 from repro_torch.runtime.sharded import ShardedLM
+from repro_torch.sharding.policy import make_policy
 from repro_torch.training.train_loop import make_train_step
 from _torch_threads import cap_threads
 
@@ -363,15 +366,32 @@ def test_bf16_lm_serves_through_the_engine():
     assert all(0 <= r.m_out <= 4 for r in results)
 
 
-def test_sharding_and_training_refuse_bf16():
-    """``ShardedLM`` (one flat gather buffer per module) and
-    ``make_train_step`` take a float32 LM only, for now: a clear
-    ``ValueError`` before any process group is needed."""
-    model = LM(smoke_config("qwen3-8b"), device="cpu", param_dtype=BF16)
-    with pytest.raises(ValueError, match="float32"):
-        ShardedLM(model, None, None)
-    with pytest.raises(ValueError, match="float32"):
-        make_train_step(model)
+@pytest.mark.parametrize("dtype", [torch.float32, BF16, torch.float16])
+def test_sharding_and_training_take_float32_and_bf16_only(dtype, tmp_path):
+    """``make_train_step`` and ``ShardedLM`` (on a one-rank gloo mesh)
+    take a float32 or bf16 LM; an LM whose ``param_dtype`` is neither
+    (set past the constructor, which refuses it itself) gets a clear
+    ``ValueError`` from both, before any process group is needed."""
+    model = LM(smoke_config("qwen3-8b"), device="cpu",
+               param_dtype=BF16 if dtype == BF16 else torch.float32)
+    if dtype == torch.float16:
+        model.param_dtype = dtype
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            ShardedLM(model, None, None)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            make_train_step(model)
+        return
+    assert callable(make_train_step(model))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh((1, 1), ("data", "model"), "cpu")
+        lm = ShardedLM(model, mesh, make_policy(mesh, batch_size=2,
+                                                layout="tp"))
+        assert lm.param_dtype == dtype
+        assert {p.dtype for _, p in lm.named_parameters()} >= {dtype}
+    finally:
+        dist.destroy_process_group()
 
 
 def test_init_decode_state_defaults_to_the_param_dtype():

@@ -59,7 +59,11 @@ from repro_torch.runtime.serving import (  # noqa: E402
     make_prefill_step,
     make_serve_step,
 )
-from repro_torch.sharding.policy import make_policy  # noqa: E402
+from repro_torch.sharding.policy import (  # noqa: E402
+    make_policy,
+    param_specs,
+    spec_axes,
+)
 from _torch_threads import cap_threads  # noqa: E402
 
 cap_threads()
@@ -251,13 +255,14 @@ def test_port_collectives_follow_its_design(records):
 
 def test_train_step_gathers_no_logits(records):
     """qwen3-8b train_4k on pod1: the gathers are the modules' blocks
-    only; the loss moves each cross entropy's token count and sum
+    only (each layer's twice: ``remat`` is on, and its recompute gathers
+    again); the loss moves each cross entropy's token count and sum
     (8 bytes, one all_reduce), not the (256, 4096, 151936) bfloat16
     logits (318.6 GB a rank) that an all_gather would make whole."""
     cfg = get_config("qwen3-8b")
     train = records["pod1"]["qwen3-8b", "train_4k"]["collectives"]
     units = cfg.num_layers + 2           # embedding, layers, norm + head
-    assert train["all-gather"]["count"] == units
+    assert train["all-gather"]["count"] == units + cfg.num_layers
     logits = 256 * 4096 * cfg.padded_vocab * 2
     assert logits == 318_632_886_272
     assert train["total_bytes"] < logits / 10
@@ -275,12 +280,89 @@ def test_train_step_gathers_no_logits(records):
 
 
 def test_xla_only_flags_change_no_number():
+    """``seq_parallel`` changes no number; ``remat`` (the port's
+    ``LM(remat=True)``) adds exactly the train step's re-gathers: each
+    checkpointed layer's all_gathers once more (zamba2's shared block is
+    not checkpointed), and moves no byte of memory."""
     base = dr.analyze("zamba2-1.2b", "train_4k", "pod1")
-    other = dr.analyze("zamba2-1.2b", "train_4k", "pod1", remat=False,
-                       seq_parallel=True)
+    other = dr.analyze("zamba2-1.2b", "train_4k", "pod1", seq_parallel=True)
     for key in ("memory", "collectives", "analytic"):
         assert base[key] == other[key]
-    assert (other["remat"], other["seq_parallel"]) == (False, True)
+    assert (other["remat"], other["seq_parallel"]) == (True, True)
+    plain = dr.analyze("zamba2-1.2b", "train_4k", "pod1", remat=False)
+    assert plain["remat"] is False
+    assert plain["memory"] == base["memory"]
+    assert plain["analytic"] == base["analytic"]
+    model = LM(get_config("zamba2-1.2b"), device="meta",
+               param_dtype=torch.bfloat16)
+    batch = dr.INPUT_SHAPES["train_4k"][1]
+    pol = make_policy(dr.MESHES["pod1"], batch_size=batch, layout="tp")
+    layers = [p for gi, g in enumerate(model.cfg.layer_plan)
+              if g.mixer != "shared_attn" for p in model.groups[gi]]
+    assert len(layers) == 32              # the 32 mamba2 layers
+    regather = {"bytes": 0, "count": 0}
+    for p in layers:
+        for own in _unit_bytes_by_dtype(model, [p], pol):
+            regather["bytes"] += 256 * own
+            regather["count"] += 1
+    got, want = base["collectives"], plain["collectives"]
+    assert got["all-gather"] == {
+        "bytes": want["all-gather"]["bytes"] + regather["bytes"],
+        "count": want["all-gather"]["count"] + regather["count"]}
+    for op in ("reduce-scatter", "all-reduce"):
+        assert got[op] == want[op]
+    assert regather["count"] > 0
+
+
+def _unit_bytes_by_dtype(model, unit, pol):
+    """One rank's bytes of a unit's cut blocks, one entry per dtype
+    present, from the specs alone."""
+    specs = _specs_by_id(model, pol)
+    own = {}
+    for mod in unit:
+        for name, p in mod.named_parameters():
+            spec = specs[id(p)]
+            if any(pol.axis_size(spec_axes(e)) > 1 for e in spec):
+                own[p.dtype] = own.get(p.dtype, 0) + dr._nbytes(
+                    dr.block_shape(p.shape, spec, pol), p.dtype)
+    return list(own.values())
+
+
+def _specs_by_id(model, pol):
+    """Each parameter's spec, keyed by the tensor's id."""
+    named = dict(model.named_parameters())
+    return {id(named[n]): s for n, s in param_specs(pol, model).items()}
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_bf16_collective_bytes_are_the_per_dtype_sum(shape):
+    """qwen3-moe-30b-a3b (bf16 experts beside the float32 router) on
+    pod1: a record's all_gather and reduce_scatter bytes are the sum, over
+    the units and the dtypes in each, of one buffer per dtype at that
+    dtype's bytes (no promotion to float32), and the counts one per
+    (unit, dtype): what ``ShardedLM`` sends."""
+    rec = dr.analyze("qwen3-moe-30b-a3b", shape, "pod1", remat=False)
+    cfg = get_config("qwen3-moe-30b-a3b", shape=shape)
+    seq, batch, kind = dr.INPUT_SHAPES[shape]
+    model = LM(cfg, device="meta", param_dtype=torch.bfloat16)
+    pol = make_policy(dr.MESHES["pod1"], batch_size=batch, layout="tp")
+    owns = [own for unit in dr._gather_units(model, kind)
+            for own in _unit_bytes_by_dtype(model, unit, pol)]
+    dtypes = {p.dtype for p in model.parameters()}
+    assert dtypes == {torch.bfloat16, torch.float32}
+    two = [u for u in dr._gather_units(model, kind)
+           if len(_unit_bytes_by_dtype(model, u, pol)) == 2]
+    assert two, "no unit gathers two dtypes"
+    got = rec["collectives"]
+    n_logits = 0
+    if kind != "train":     # the last logits' gather over the batch axes
+        n_logits = batch * cfg.padded_vocab * 2
+        assert got["all-gather"]["count"] == len(owns) + 1
+    else:
+        assert got["all-gather"]["count"] == len(owns)
+        assert got["reduce-scatter"] == {"bytes": sum(owns),
+                                         "count": len(owns)}
+    assert got["all-gather"]["bytes"] == 256 * sum(owns) + n_logits
 
 
 def test_auto_keeps_the_references_rule():

@@ -53,6 +53,7 @@ from repro_torch.kernels.decode_attention import (
     flash_decode_plain,
     merge_decode_stats,
 )
+from repro_torch.launch import dryrun as dr
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models.layers import attention as att
 from repro_torch.models.config import LayerGroup, ModelConfig
@@ -62,6 +63,7 @@ from repro_torch.runtime.serving import (
     GenerationSession,
     greedy_margins,
 )
+from repro_torch.sharding.policy import MeshShape, make_policy
 from _torch_threads import cap_threads
 
 cap_threads()
@@ -72,6 +74,9 @@ WORLD, JOIN_S = 4, 240
 MARGIN = 1e-4
 SESSION_CASES = (("qwen3-8b", "tp"), ("qwen3-8b", "auto"),
                  ("rwkv6-3b", "auto"), ("zamba2-1.2b", "tp"))
+# bf16 sessions against the unsharded bf16 port behind bf16's margin
+BF16_SESSION_CASES = (("qwen3-8b", "tp"), ("rwkv6-3b", "auto"))
+BF16_MARGIN = 0.125       # tests/test_torch_bf16.py's MARGIN
 ARCHS = ("qwen3-8b", "rwkv6-3b", "zamba2-1.2b", "qwen3-moe-30b-a3b")
 ATTN_CFG = dict(name="t", arch_type="dense", d_model=64, vocab_size=128,
                 num_heads=8, num_kv_heads=4, head_dim=16, d_ff=128)
@@ -176,7 +181,9 @@ def _run(workdir):
         np.int32)
     torch.save({"weights": {n: m.state_dict() for n, m in ports.items()},
                 "attn": attn, "prompts": prompts,
-                "session_cases": SESSION_CASES, "continuous_prompts": cont,
+                "session_cases": SESSION_CASES,
+                "bf16_session_cases": BF16_SESSION_CASES,
+                "continuous_prompts": cont,
                 "moe_tokens": moe_tokens}, os.path.join(workdir, "inputs.pt"))
     procs = _spawn(workdir)
 
@@ -200,6 +207,14 @@ def _run(workdir):
             ports["qwen3-moe-30b-a3b"].train_logits(
                 torch.as_tensor(moe_tokens))["logits"].numpy(),
             np.asarray(jm.train_logits(params, moe_tokens)["logits"]))
+    ref["bf16"] = {}
+    for name, _ in BF16_SESSION_CASES:
+        half = LM(smoke_config(name), device="cpu", seed=0,
+                  param_dtype=torch.bfloat16)
+        toks, lens = prompts[name]
+        ref["bf16"][name] = (half, GenerationSession(
+            half, max_len=32).generate_with_lengths(toks, max_new=8,
+                                                    lengths=lens))
     # the margin cuts of the reference rows, while the ranks still run
     for name, (toks, lens) in prompts.items():
         for t, n, out in zip(toks, lens if lens is not None
@@ -383,3 +398,65 @@ def test_serve_mesh_refuses_to_run_outside_torchrun(monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     with pytest.raises(RuntimeError, match="torchrun"):
         serve_cli.main(["--smoke", "--device", "cpu", "--mesh", "2x2"])
+
+
+# ---------------------------------------------------------------- bf16 --
+@pytest.mark.parametrize("name,layout", BF16_SESSION_CASES)
+def test_sharded_bf16_session_serves_the_unsharded_bf16_tokens(run, name,
+                                                               layout):
+    """A bf16 model on the mesh (qwen3-8b tp: the caches' slots over
+    model, each rank's partial decode output rounded to bf16 before the
+    float32 merge; rwkv6-3b auto: rows only): every rank returns the
+    same tokens; each row equals the unsharded bf16 port's, or first
+    differs at a token whose top-2 margin there is under bf16's 0.125
+    (``tests/test_torch_bf16.py``); at least half the rows equal
+    whole."""
+    toks, lens = run["prompts"][name]
+    half, (m_ref, out_ref) = run["ref"]["bf16"][name]
+    got = [o["bf16_sessions"][(name, layout)] for o in run["outs"]]
+    for g in got[1:]:
+        np.testing.assert_array_equal(g["tokens"], got[0]["tokens"])
+    assert got[0]["layout"] == {"auto": "ddp"}.get(layout, layout)
+    assert (got[0]["seq_sharded_calls"] > 0) == (layout == "tp")
+    rows = [t[:n] for t, n in zip(toks, lens if lens is not None
+                                  else [toks.shape[1]] * len(toks))]
+    equal = 0
+    for prompt, want, g in zip(rows, out_ref, got[0]["tokens"]):
+        g = np.asarray(g)
+        if np.array_equal(g, want):
+            equal += 1
+            continue
+        first = int(np.flatnonzero(g != want)[0])
+        margins = greedy_margins(half, prompt, want[:first + 1])
+        assert margins[first] < BF16_MARGIN, (prompt, want, g, margins)
+    print(f"{name} {layout} bf16: {equal} of {len(rows)} rows equal, the "
+          f"rest part behind a top-2 margin under {BF16_MARGIN}")
+    assert equal >= len(rows) // 2, equal
+
+
+def test_bf16_units_gather_one_buffer_per_dtype(run):
+    """A bf16 qwen3-moe-30b-a3b prefill under tp: each unit's gather makes
+    one all_gather per dtype among its blocks, each of exactly those
+    blocks' bytes (a bf16 block at 2 bytes a value, never promoted); the
+    MoE layers gather two (bf16 experts, float32 router).  The dry run's
+    all-gather count and bytes for this prefill on a (2, 2) mesh are
+    these calls' (each result buffer: 4 ranks' blocks), plus the last
+    logits' gather."""
+    model = LM(smoke_config("qwen3-moe-30b-a3b"), device="meta",
+               param_dtype=torch.bfloat16)
+    tokens = torch.empty((4, 16), dtype=torch.int32, device="meta")
+    want = dr.collective_bytes(model, "prefill", {"tokens": tokens},
+                               make_policy(MeshShape(("data", "model"),
+                                                     (2, 2)),
+                                           batch_size=4, layout="tp"))
+    logits = 4 * model.cfg.padded_vocab * 2
+    for out in run["outs"]:
+        gathers = out["bf16_gathers"]
+        assert gathers
+        for g in gathers:
+            assert sorted(g["calls"]) == sorted(g["blocks"].items()), g
+        assert any(len(g["calls"]) == 2 for g in gathers)
+        assert all("torch.bfloat16" in g["blocks"] for g in gathers)
+        calls = [n for g in gathers for _, n in g["calls"]]
+        assert want["all-gather"] == {"count": len(calls) + 1,
+                                      "bytes": 4 * sum(calls) + logits}

@@ -28,6 +28,7 @@ shards' products); a sharded checkpoint, read by the reference's
 loaded into a fresh sharded state.
 """
 
+import json
 import os
 
 import jax
@@ -67,6 +68,14 @@ ARCHS = ("qwen3-8b", "qwen3-moe-30b-a3b", "zamba2-1.2b")
 CKPT_CASE = ("qwen3-8b", "tp")
 STEP_RTOL, LEAF_TOL, AUX_TOL = 1e-5, 1e-4, 1e-6
 MESH = MeshShape(("data", "model"), (2, 2))
+BF16 = torch.bfloat16
+# bf16 cases: (name, layout, moments dtype, LM(remat=)); the first one
+# also writes and reloads a sharded bf16 checkpoint
+BF16_CASES = (("qwen3-8b", "tp", BF16, False),
+              ("qwen3-8b", "auto", torch.float32, False),
+              ("qwen3-moe-30b-a3b", "tp", BF16, False),
+              ("qwen3-moe-30b-a3b", "tp", BF16, True))
+BF16_CEILING = 2.0   # sharded bf16 vs unsharded bf16, over bf16 vs f32
 
 
 def _batches(name, n=3, b=4, s=16):
@@ -82,6 +91,38 @@ def _whole(state):
     return {key: {n: t.detach().clone() for n, t in ts.items()}
             for key, ts in (("params", state.params), ("mu", state.opt.mu),
                             ("nu", state.opt.nu))}
+
+
+def _steps(model, batches, moments=torch.float32):
+    """Three unsharded steps: losses, grad norms and the whole state."""
+    state = init_train_state(model, moments_dtype=moments)
+    step = make_train_step(model)
+    rec = {"loss": [], "grad_norm": [], "aux": []}
+    for batch in batches:
+        state, m = step(state, batch)
+        rec["loss"].append(float(m["loss"]))
+        rec["grad_norm"].append(float(m["grad_norm"]))
+        rec["aux"].append(float(m["aux"]))
+    rec["whole"] = _whole(state)
+    return rec
+
+
+def _bf16_refs(batches):
+    """The unsharded port's three steps of each bf16 case's model at bf16
+    (with the case's moments) and at float32 on the same values (each
+    bf16 weight upcast; float32 moments), keyed (name, moments)."""
+    refs = {}
+    for name, _, moments, _ in BF16_CASES:
+        if (name, moments) in refs:
+            continue
+        half = LM(smoke_config(name), device="cpu", seed=0,
+                  param_dtype=BF16)
+        full = LM(smoke_config(name), device="cpu", seed=0)
+        full.load_state_dict({k: v.float()
+                              for k, v in half.state_dict().items()})
+        refs[(name, moments)] = (_steps(half, batches[name], moments),
+                                 _steps(full, batches[name]))
+    return refs
 
 
 @pytest.fixture(scope="module")
@@ -110,6 +151,7 @@ def _run(workdir):
     aux_mask[1, 5:] = aux_mask[2, 12:] = 0.0     # uneven counts per shard
     torch.save({"weights": weights, "batches": batches,
                 "train_cases": TRAIN_CASES, "ckpt_case": CKPT_CASE,
+                "bf16_cases": BF16_CASES,
                 "aux_tokens": aux_tokens, "aux_targets": aux_targets,
                 "aux_mask": aux_mask}, os.path.join(workdir, "inputs.pt"))
     procs = spawn(WORKER, workdir)
@@ -150,6 +192,7 @@ def _run(workdir):
         ref[name] = rec
         if name == CKPT_CASE[0]:
             save_train_state(ref["ckpt"], model, state, step=3)
+    ref["bf16"] = _bf16_refs(batches)
     return {"outs": join(procs, workdir), "ref": ref, "ports": ports,
             "workdir": workdir}
 
@@ -283,3 +326,82 @@ def test_checkpoint_loads_into_a_sharded_state(run):
             assert torch.equal(out["loaded"][key][n], t), (key, n)
     assert all(o["train"][CKPT_CASE]["loaded_step"] == 3
                for o in run["outs"])
+
+
+# --------------------------------------------------------------- bf16 --
+def _max_diff(a, b) -> float:
+    return max(float((a[n].float() - b[n].float()).abs().max()) for n in b)
+
+
+@pytest.mark.parametrize("name,layout,moments",
+                         [c[:3] for c in BF16_CASES if not c[3]])
+def test_sharded_bf16_steps_stay_within_the_bf16_gap(run, name, layout,
+                                                     moments):
+    """Three bf16 steps on the mesh (bf16 gradients reduced in bf16, one
+    buffer per dtype): the same loss and grad norm on every rank, the
+    loss falling, each rank's parameters and moments in their dtypes;
+    the largest error of the loss and grad norm over the steps and of
+    the parameters and both moments after them, against the unsharded
+    bf16 steps, within ``BF16_CEILING`` x the unsharded bf16-vs-f32 gap
+    of the same quantity."""
+    got = [o["bf16"][(name, layout, False)] for o in run["outs"]]
+    for g in got[1:]:
+        assert g["loss"] == got[0]["loss"]
+        assert g["grad_norm"] == got[0]["grad_norm"]
+    assert got[0]["loss"][-1] < got[0]["loss"][0]
+    half, full = run["ref"]["bf16"][(name, moments)]
+    ratios = {}
+    for key in ("loss", "grad_norm"):
+        err = max(abs(a - b) for a, b in zip(got[0][key], half[key]))
+        gap = max(abs(a - b) for a, b in zip(half[key], full[key]))
+        ratios[key] = err / gap
+    whole = got[0]["whole"]
+    for key in ("params", "mu", "nu"):
+        assert {n: t.dtype for n, t in whole[key].items()} == \
+            {n: t.dtype for n, t in half["whole"][key].items()}, key
+        ratios[key] = (_max_diff(whole[key], half["whole"][key])
+                       / _max_diff(full["whole"][key], half["whole"][key]))
+    print(f"{name} {layout} (moments {moments}): sharded bf16 vs "
+          f"unsharded bf16 over unsharded bf16 vs f32: " + ", ".join(
+              f"{k} {v:.2f}x" for k, v in ratios.items()))
+    assert all(v <= BF16_CEILING for v in ratios.values()), ratios
+    assert any(t.dtype == BF16 for t in whole["params"].values())
+    assert all(t.dtype == moments for t in whole["mu"].values())
+
+
+def test_sharded_remat_equals_the_plain_sharded_step_bitwise(run):
+    """qwen3-moe-30b-a3b in bf16 under tp, rows over data: ``LM(remat=
+    True)``'s three steps equal ``remat=False``'s bitwise (losses, grad
+    norms, every parameter and moment gathered whole).  The recompute
+    runs in the backward, after the forward removed its batch shard: it
+    must take the MoE load-balance means over the whole batch again."""
+    for out in run["outs"]:
+        plain = out["bf16"][("qwen3-moe-30b-a3b", "tp", False)]
+        remat = out["bf16"][("qwen3-moe-30b-a3b", "tp", True)]
+        assert remat["loss"] == plain["loss"]
+        assert remat["grad_norm"] == plain["grad_norm"]
+        assert remat["aux"] == plain["aux"]
+    plain = run["outs"][0]["bf16"][("qwen3-moe-30b-a3b", "tp", False)]
+    remat = run["outs"][0]["bf16"][("qwen3-moe-30b-a3b", "tp", True)]
+    for key in ("params", "mu", "nu"):
+        for n, t in plain["whole"][key].items():
+            assert torch.equal(remat["whole"][key][n], t), (key, n)
+
+
+def test_sharded_bf16_checkpoint_loads_back_bitwise(run):
+    """The sharded bf16 state (qwen3-8b tp, bf16 moments) written by
+    ``save_train_state`` (blocks gathered one buffer per dtype) and
+    loaded into a fresh sharded bf16 state: every tensor gathered whole
+    bitwise the saved one, in its dtype; the file's manifest names
+    bfloat16 and float32 leaves."""
+    name, layout = BF16_CASES[0][:2]
+    out = run["outs"][0]["bf16"][(name, layout, False)]
+    for key in ("params", "mu", "nu"):
+        for n, t in out["whole"][key].items():
+            got = out["loaded"][key][n]
+            assert got.dtype == t.dtype and torch.equal(got, t), (key, n)
+    assert all(o["bf16"][(name, layout, False)]["loaded_step"] == 3
+               for o in run["outs"])
+    with np.load(os.path.join(run["workdir"], "sharded_bfloat16.npz")) as z:
+        leaves = json.loads(str(z["__manifest__"]))["leaves"]
+    assert {"bfloat16", "float32"} <= {v["dtype"] for v in leaves.values()}
