@@ -371,6 +371,20 @@ def device_ms(fn, per_graph: int = 50, replays: int = 10) -> float:
 
 
 # --------------------------------------------------------------- phase 3 --
+def within_paths(what: str, kernel, want, tol: float, mod) -> None:
+    """``kernel(path)`` within ``tol`` of ``want`` on the plan's own path
+    and on every path the attention kernel module ``mod`` can be forced
+    to at this head dim: ``flash_attention``'s wgmma and mma.sync kernels,
+    ``flash_decode``'s tensor-core and CUDA-core paths."""
+    d = _outputs(want)[0].shape[-1]
+    if hasattr(mod, "attention_plan"):
+        paths = ["mma"] + (["wgmma"] if d in mod.WGMMA_HEAD_DIMS else [])
+    else:
+        paths = ["cores"] + (["mma"] if d in mod.MMA_HEAD_DIMS else [])
+    for path in (None, *paths):
+        within(f"{what} [{path or 'plan'}]", kernel(path), want, tol)
+
+
 def check_kernels(fa, da, gen):
     """Kernel vs plain version at the main path's shapes."""
     cases = 0
@@ -386,9 +400,10 @@ def check_kernels(fa, da, gen):
             for length in (1, 37, 256):
                 lens = torch.full((b,), length, dtype=torch.int32,
                                   device="cuda")
-                within(f"flash_decode {name} B={b} T=256 self len={length}",
-                       da.flash_decode_cuda(q, *kv, lens),
-                       da.flash_decode_plain(q, *kv, lens), tol)
+                within_paths(
+                    f"flash_decode {name} B={b} T=256 self len={length}",
+                    lambda p: da.flash_decode_cuda(q, *kv, lens, path=p),
+                    da.flash_decode_plain(q, *kv, lens), tol, da)
                 cases += 1
             # cross-attention: encoder K/V of a ragged source batch
             src = 40
@@ -396,9 +411,10 @@ def check_kernels(fa, da, gen):
             xv = randn(gen, (b, src, D), dtype).view(b, src, H, DH)
             lens = torch.tensor([40, 3, 17, 1, 39, 22, 8, 40][:b],
                                 dtype=torch.int32, device="cuda")
-            within(f"flash_decode {name} B={b} S_src=40 cross ragged",
-                   da.flash_decode_cuda(q, xk, xv, lens),
-                   da.flash_decode_plain(q, xk, xv, lens), tol)
+            within_paths(
+                f"flash_decode {name} B={b} S_src=40 cross ragged",
+                lambda p: da.flash_decode_cuda(q, xk, xv, lens, path=p),
+                da.flash_decode_plain(q, xk, xv, lens), tol, da)
             cases += 1
         for s, causal in ((40, False), (128, False), (512, False), (64, True)):
             b = 2 if causal else 8
@@ -407,26 +423,31 @@ def check_kernels(fa, da, gen):
             lens = None if causal else torch.tensor(
                 [s, s - 1, s // 2, 1, s // 3 + 1, s, 7, s - 5][:b],
                 dtype=torch.int32, device="cuda")
-            within(f"flash_attention {name} B={b} S=T={s} "
-                   f"{'causal' if causal else 'ragged'}",
-                   fa.flash_attention_cuda(q, k, v, lens, causal=causal),
-                   fa.flash_attention_plain(q, k, v, lens, causal=causal),
-                   tol)
+            within_paths(
+                f"flash_attention {name} B={b} S=T={s} "
+                f"{'causal' if causal else 'ragged'}",
+                lambda p: fa.flash_attention_cuda(q, k, v, lens,
+                                                  causal=causal, path=p),
+                fa.flash_attention_plain(q, k, v, lens, causal=causal),
+                tol, fa)
             cases += 1
         # zamba2's shared attention: causal prefill at serving lengths and
         # decode against a max_len=64 cache
         for b, s in ((1, 37), (8, 64)):
             q, k, v = (randn(gen, (b, s, ZA_H * DH), dtype).view(
                 b, s, ZA_H, DH) for _ in range(3))
-            within(f"flash_attention {name} B={b} S=T={s} H={ZA_H} causal",
-                   fa.flash_attention_cuda(q, k, v, causal=True),
-                   fa.flash_attention_plain(q, k, v, causal=True), tol)
+            within_paths(
+                f"flash_attention {name} B={b} S=T={s} H={ZA_H} causal",
+                lambda p: fa.flash_attention_cuda(q, k, v, causal=True,
+                                                  path=p),
+                fa.flash_attention_plain(q, k, v, causal=True), tol, fa)
             lens = torch.tensor([s, 1, 40, 17, 64, 33, 2, 50][:b],
                                 dtype=torch.int32, device="cuda")
             kc, vc = (randn(gen, (b, 64, ZA_H, DH), dtype) for _ in range(2))
-            within(f"flash_decode {name} B={b} T=64 H={ZA_H}",
-                   da.flash_decode_cuda(q[:, 0], kc, vc, lens),
-                   da.flash_decode_plain(q[:, 0], kc, vc, lens), tol)
+            within_paths(
+                f"flash_decode {name} B={b} T=64 H={ZA_H}",
+                lambda p: da.flash_decode_cuda(q[:, 0], kc, vc, lens, path=p),
+                da.flash_decode_plain(q[:, 0], kc, vc, lens), tol, da)
             cases += 2
     torch.cuda.synchronize()
     return (cases + check_gqa_cases(fa, da, gen)
@@ -446,10 +467,12 @@ def check_gqa_cases(fa, da, gen):
         for model, h, hkv in GQA_SHAPES:
             q = randn(gen, (8, 64, h, QW_D), dtype)
             k, v = (randn(gen, (8, 64, hkv, QW_D), dtype) for _ in range(2))
-            within(f"{model} flash_attention {name} B=8 S=T=64 H={h} "
-                   f"Hkv={hkv} D={QW_D} causal",
-                   fa.flash_attention_cuda(q, k, v, causal=True),
-                   fa.flash_attention_plain(q, k, v, causal=True), tol)
+            within_paths(
+                f"{model} flash_attention {name} B=8 S=T=64 H={h} "
+                f"Hkv={hkv} D={QW_D} causal",
+                lambda p: fa.flash_attention_cuda(q, k, v, causal=True,
+                                                  path=p),
+                fa.flash_attention_plain(q, k, v, causal=True), tol, fa)
             q = randn(gen, (8, h, QW_D), dtype)
             kc, vc = (randn(gen, (8, QW_T, hkv, QW_D), dtype)
                       for _ in range(2))
@@ -458,10 +481,11 @@ def check_gqa_cases(fa, da, gen):
                                 (QW_T + 1, 300, QW_T, 1000, 511, 2**20, 258,
                                  1))):
                 lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
-                within(f"{model} flash_decode {name} B=8 T={QW_T} H={h} "
-                       f"Hkv={hkv} D={QW_D} {what} lens={lens}",
-                       da.flash_decode_cuda(q, kc, vc, lt),
-                       da.flash_decode_plain(q, kc, vc, lt), tol)
+                within_paths(
+                    f"{model} flash_decode {name} B=8 T={QW_T} H={h} "
+                    f"Hkv={hkv} D={QW_D} {what} lens={lens}",
+                    lambda p: da.flash_decode_cuda(q, kc, vc, lt, path=p),
+                    da.flash_decode_plain(q, kc, vc, lt), tol, da)
             cases += 3
     for model, h, hkv in GQA_SHAPES:      # phase 18's own bf16 shapes
         # check_bf16_model's B=2 S=37 prefill, the admission waves' padded
@@ -471,20 +495,23 @@ def check_gqa_cases(fa, da, gen):
             q = randn(gen, (b, s, h, QW_D), torch.bfloat16)
             k, v = (randn(gen, (b, s, hkv, QW_D), torch.bfloat16)
                     for _ in range(2))
-            within(f"{model} flash_attention bf16 B={b} S=T={s} H={h} "
-                   f"Hkv={hkv} D={QW_D} causal",
-                   fa.flash_attention_cuda(q, k, v, causal=True),
-                   fa.flash_attention_plain(q, k, v, causal=True), BF16_TOL)
+            within_paths(
+                f"{model} flash_attention bf16 B={b} S=T={s} H={h} "
+                f"Hkv={hkv} D={QW_D} causal",
+                lambda p: fa.flash_attention_cuda(q, k, v, causal=True,
+                                                  path=p),
+                fa.flash_attention_plain(q, k, v, causal=True), BF16_TOL, fa)
             cases += 1
         for t, lens in ((45, (38, 41)), (BF16_T, BF16_LENS)):
             q = randn(gen, (len(lens), h, QW_D), torch.bfloat16)
             kc, vc = (randn(gen, (len(lens), t, hkv, QW_D), torch.bfloat16)
                       for _ in range(2))
             lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
-            within(f"{model} flash_decode bf16 B={len(lens)} T={t} H={h} "
-                   f"Hkv={hkv} D={QW_D} lens={lens}",
-                   da.flash_decode_cuda(q, kc, vc, lt),
-                   da.flash_decode_plain(q, kc, vc, lt), BF16_TOL)
+            within_paths(
+                f"{model} flash_decode bf16 B={len(lens)} T={t} H={h} "
+                f"Hkv={hkv} D={QW_D} lens={lens}",
+                lambda p: da.flash_decode_cuda(q, kc, vc, lt, path=p),
+                da.flash_decode_plain(q, kc, vc, lt), BF16_TOL, da)
             cases += 1
     return cases
 
@@ -505,25 +532,36 @@ def check_tile_cases(fa, da, gen):
             q = randn(gen, (b, h, DH), dtype)
             kc, vc = (randn(gen, (b, t, hkv, DH), dtype) for _ in range(2))
             lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
-            within(f"flash_decode {name} B={b} T={t} H={h} Hkv={hkv} "
-                   f"lens={lens} splits={da.decode_splits(b, hkv, t)[0]}",
-                   da.flash_decode_cuda(q, kc, vc, lt),
-                   da.flash_decode_plain(q, kc, vc, lt), tol)
+            within_paths(
+                f"flash_decode {name} B={b} T={t} H={h} Hkv={hkv} "
+                f"lens={lens} splits={da.decode_splits(b, hkv, t)[0]}",
+                lambda p: da.flash_decode_cuda(q, kc, vc, lt, path=p),
+                da.flash_decode_plain(q, kc, vc, lt), tol, da)
             cases += 1
-        for bq in fa.BLOCK_Q:
+        # every query tile of the mma.sync kernel, then the wgmma kernel,
+        # on ragged shapes whose rows and keys straddle the tiles' edges
+        for bq in (*fa.BLOCK_Q, "wgmma"):
             for b, s, t, h, hkv, d, causal in ((2, 77, 77, 4, 4, 16, False),
                                                (2, 53, 91, 4, 2, 32, False),
                                                (1, 45, 45, 2, 2, 128, True),
                                                (1, 37, 70, 4, 4, 64, True),
-                                               (2, 100, 29, 6, 2, 64, True)):
+                                               (2, 100, 29, 6, 2, 64, True),
+                                               (1, 130, 130, 16, 2, 128,
+                                                True),
+                                               (2, 129, 200, 8, 8, 64,
+                                                False)):
+                if bq == "wgmma" and d not in fa.WGMMA_HEAD_DIMS:
+                    continue
                 q = randn(gen, (b, s, h, d), dtype)
                 k, v = (randn(gen, (b, t, hkv, d), dtype) for _ in range(2))
                 lens = torch.tensor([t, max(1, t // 3)][:b],
                                     dtype=torch.int32, device="cuda")
-                within(f"flash_attention {name} block_q={bq} B={b} S={s} "
+                force = (dict(path="wgmma") if bq == "wgmma"
+                         else dict(block_q=bq))
+                within(f"flash_attention {name} {bq=} B={b} S={s} "
                        f"T={t} H={h} Hkv={hkv} D={d} causal={causal}",
                        fa.flash_attention_cuda(q, k, v, lens, causal=causal,
-                                               block_q=bq),
+                                               **force),
                        fa.flash_attention_plain(q, k, v, lens,
                                                 causal=causal), tol)
                 cases += 1
@@ -551,7 +589,53 @@ def check_tile_cases(fa, da, gen):
     if not torch.equal(first, da.flash_decode_cuda(q, kc, vc, lens)):
         raise AssertionError("flash_decode is not bitwise repeatable")
     torch.cuda.synchronize()
-    return cases + 1
+    return cases + 1 + check_decode_graph(da, gen)
+
+
+def check_decode_graph(da, gen):
+    """The one-launch decode under a CUDA graph on both paths: captured at
+    qwen3-moe-30b-a3b's group of 8 in bf16, replayed 100 times with new
+    lengths written on the device each time, every output held against
+    the plain version, bitwise repeatable, and the split counters back at
+    zero after the last replay (the last block of each head group resets
+    its own)."""
+    cases = 0
+    q = randn(gen, (8, 32, QW_D), torch.bfloat16)
+    kc, vc = (randn(gen, (8, QW_T, 4, QW_D), torch.bfloat16)
+              for _ in range(2))
+    lens = torch.tensor(QW_LENS, dtype=torch.int32, device="cuda")
+    rng = np.random.default_rng(11)
+    for path in ("mma", "cores"):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            da.flash_decode_cuda(q, kc, vc, lens, path=path)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = da.flash_decode_cuda(q, kc, vc, lens, path=path)
+        worst = 0.0
+        for i in range(100):
+            new = rng.integers(-1, QW_T + 40, size=8)
+            lens.copy_(torch.as_tensor(new, dtype=torch.int32))
+            graph.replay()
+            got = out.clone()
+            graph.replay()
+            want = da.flash_decode_plain(q, kc, vc, lens)
+            worst = max(worst, max_err(got, want))
+            if not (torch.equal(got, out) and worst <= BF16_TOL
+                    and torch.isfinite(got.float()).all()):
+                raise AssertionError(f"flash_decode {path} graph replay {i} "
+                                     f"at lengths {new}: error {worst}")
+        torch.cuda.synchronize()
+        busy = int((da.counter_buffer("cuda") != 0).sum())
+        log(f"  flash_decode {path} bf16 B=8 H=32 Hkv=4: 100 graph replays "
+            f"over new device lengths, max_abs_err={worst:.3e}, bitwise "
+            f"repeatable, {busy} split counters left nonzero")
+        if busy:
+            raise AssertionError("split counters not reset")
+        cases += 1
+    return cases
 
 
 def check_window_cases(fa, da, gen):
@@ -567,46 +651,56 @@ def check_window_cases(fa, da, gen):
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         name = "f32" if dtype == torch.float32 else "bf16"
         q, k, v = (randn(gen, (4, WH_T, WH_H, DH), dtype) for _ in range(3))
-        within(f"whisper encoder flash_attention {name} B=4 S=T={WH_T} "
-               f"H={WH_H} non-causal",
-               fa.flash_attention_cuda(q, k, v, causal=False),
-               fa.flash_attention_plain(q, k, v, causal=False), tol)
+        within_paths(
+            f"whisper encoder flash_attention {name} B=4 S=T={WH_T} "
+            f"H={WH_H} non-causal",
+            lambda p: fa.flash_attention_cuda(q, k, v, causal=False, path=p),
+            fa.flash_attention_plain(q, k, v, causal=False), tol, fa)
         qx = randn(gen, (4, 16, WH_H, DH), dtype)
-        within(f"whisper cross prefill flash_attention {name} B=4 S=16 "
-               f"T={WH_T} lens={WH_LENS}",
-               fa.flash_attention_cuda(qx, k, v, lens, causal=False),
-               fa.flash_attention_plain(qx, k, v, lens, causal=False), tol)
+        within_paths(
+            f"whisper cross prefill flash_attention {name} B=4 S=16 "
+            f"T={WH_T} lens={WH_LENS}",
+            lambda p: fa.flash_attention_cuda(qx, k, v, lens, causal=False,
+                                              path=p),
+            fa.flash_attention_plain(qx, k, v, lens, causal=False), tol, fa)
         q1 = randn(gen, (4, WH_H, DH), dtype)
-        within(f"whisper cross decode flash_decode {name} B=4 T={WH_T} "
-               f"lens={WH_LENS}", da.flash_decode_cuda(q1, k, v, lens),
-               da.flash_decode_plain(q1, k, v, lens), tol)
+        within_paths(
+            f"whisper cross decode flash_decode {name} B=4 T={WH_T} "
+            f"lens={WH_LENS}",
+            lambda p: da.flash_decode_cuda(q1, k, v, lens, path=p),
+            da.flash_decode_plain(q1, k, v, lens), tol, da)
         cases += 3
         # the generate path's shapes: every frame valid, the prompts' causal
         # prefill, and self decode against the max_len = 448 cache
         full = torch.full((4,), WH_T, dtype=torch.int32, device="cuda")
-        within(f"whisper cross decode flash_decode {name} B=4 T={WH_T} "
-               f"lens={WH_T}", da.flash_decode_cuda(q1, k, v, full),
-               da.flash_decode_plain(q1, k, v, full), tol)
+        within_paths(
+            f"whisper cross decode flash_decode {name} B=4 T={WH_T} "
+            f"lens={WH_T}",
+            lambda p: da.flash_decode_cuda(q1, k, v, full, path=p),
+            da.flash_decode_plain(q1, k, v, full), tol, da)
         for s in (4, 16):
-            within(f"whisper cross prefill flash_attention {name} B=4 S={s} "
-                   f"T={WH_T} lens={WH_T}",
-                   fa.flash_attention_cuda(qx[:, :s], k, v, full,
-                                           causal=False),
-                   fa.flash_attention_plain(qx[:, :s], k, v, full,
-                                            causal=False), tol)
-            within(f"whisper self prefill flash_attention {name} B=4 "
-                   f"S=T={s} H={WH_H} causal",
-                   fa.flash_attention_cuda(qx[:, :s], k[:, :s], v[:, :s],
-                                           causal=True),
-                   fa.flash_attention_plain(qx[:, :s], k[:, :s], v[:, :s],
-                                            causal=True), tol)
+            within_paths(
+                f"whisper cross prefill flash_attention {name} B=4 S={s} "
+                f"T={WH_T} lens={WH_T}",
+                lambda p: fa.flash_attention_cuda(qx[:, :s], k, v, full,
+                                                  causal=False, path=p),
+                fa.flash_attention_plain(qx[:, :s], k, v, full,
+                                         causal=False), tol, fa)
+            within_paths(
+                f"whisper self prefill flash_attention {name} B=4 "
+                f"S=T={s} H={WH_H} causal",
+                lambda p: fa.flash_attention_cuda(
+                    qx[:, :s], k[:, :s], v[:, :s], causal=True, path=p),
+                fa.flash_attention_plain(qx[:, :s], k[:, :s], v[:, :s],
+                                         causal=True), tol, fa)
         kc, vc = k[:, :WH_MAX_LEN], v[:, :WH_MAX_LEN]
         for length in (5, 47):
             lt = torch.full((4,), length, dtype=torch.int32, device="cuda")
-            within(f"whisper self decode flash_decode {name} B=4 "
-                   f"T={WH_MAX_LEN} lens={length}",
-                   da.flash_decode_cuda(q1, kc, vc, lt),
-                   da.flash_decode_plain(q1, kc, vc, lt), tol)
+            within_paths(
+                f"whisper self decode flash_decode {name} B=4 "
+                f"T={WH_MAX_LEN} lens={length}",
+                lambda p: da.flash_decode_cuda(q1, kc, vc, lt, path=p),
+                da.flash_decode_plain(q1, kc, vc, lt), tol, da)
         cases += 7
     for window in (1, 64, 5000):
         for b, s, h, hkv, d, lt in ((2, 300, 8, 8, 64, None),
@@ -628,55 +722,66 @@ def check_window_cases(fa, da, gen):
         q = randn(gen, (3, H, DH))
         kc, vc = (randn(gen, (3, 512, H, DH)) for _ in range(2))
         lt = torch.tensor((300, 512, 600), dtype=torch.int32, device="cuda")
-        within(f"flash_decode f32 window={window} B=3 T=512 "
-               f"lens=(300, 512, 600)",
-               da.flash_decode_cuda(q, kc, vc, lt, window=window),
-               da.flash_decode_plain(q, kc, vc, lt, window=window), F32_TOL)
+        within_paths(
+            f"flash_decode f32 window={window} B=3 T=512 "
+            f"lens=(300, 512, 600)",
+            lambda p: da.flash_decode_cuda(q, kc, vc, lt, window=window,
+                                           path=p),
+            da.flash_decode_plain(q, kc, vc, lt, window=window), F32_TOL, da)
         cases += 1
     # qwen3-8b-swa: the windowed prefill past the window, the linear-window
     # decode at 4200 slots, the full ring
     q = randn(gen, (1, 4200, QW_H, QW_D))
     k, v = (randn(gen, (1, 4200, QW_HKV, QW_D)) for _ in range(2))
-    within(f"qwen3-8b-swa flash_attention f32 B=1 S=T=4200 H={QW_H} "
-           f"Hkv={QW_HKV} D={QW_D} window={SWA_W}",
-           fa.flash_attention_cuda(q, k, v, causal=True, window=SWA_W),
-           fa.flash_attention_plain(q, k, v, causal=True, window=SWA_W),
-           F32_TOL)
-    within(f"qwen3-8b-swa flash_attention f32 B=1 S=T=4090 H={QW_H} "
-           f"Hkv={QW_HKV} D={QW_D} window={SWA_W}",
-           fa.flash_attention_cuda(q[:, :4090], k[:, :4090], v[:, :4090],
-                                   causal=True, window=SWA_W),
-           fa.flash_attention_plain(q[:, :4090], k[:, :4090], v[:, :4090],
-                                    causal=True, window=SWA_W), F32_TOL)
+    within_paths(
+        f"qwen3-8b-swa flash_attention f32 B=1 S=T=4200 H={QW_H} "
+        f"Hkv={QW_HKV} D={QW_D} window={SWA_W}",
+        lambda p: fa.flash_attention_cuda(q, k, v, causal=True, window=SWA_W,
+                                          path=p),
+        fa.flash_attention_plain(q, k, v, causal=True, window=SWA_W),
+        F32_TOL, fa)
+    within_paths(
+        f"qwen3-8b-swa flash_attention f32 B=1 S=T=4090 H={QW_H} "
+        f"Hkv={QW_HKV} D={QW_D} window={SWA_W}",
+        lambda p: fa.flash_attention_cuda(
+            q[:, :4090], k[:, :4090], v[:, :4090], causal=True,
+            window=SWA_W, path=p),
+        fa.flash_attention_plain(q[:, :4090], k[:, :4090], v[:, :4090],
+                                 causal=True, window=SWA_W), F32_TOL, fa)
     q = randn(gen, (2, QW_H, QW_D))
     kc, vc = (randn(gen, (2, 4200, QW_HKV, QW_D)) for _ in range(2))
     for lt in ((4150, 4200), (4097, 5000), (4096, 1)):
         lt_t = torch.tensor(lt, dtype=torch.int32, device="cuda")
-        within(f"qwen3-8b-swa flash_decode f32 B=2 T=4200 lens={lt} "
-               f"window={SWA_W}",
-               da.flash_decode_cuda(q, kc, vc, lt_t, window=SWA_W),
-               da.flash_decode_plain(q, kc, vc, lt_t, window=SWA_W), F32_TOL)
+        within_paths(
+            f"qwen3-8b-swa flash_decode f32 B=2 T=4200 lens={lt} "
+            f"window={SWA_W}",
+            lambda p: da.flash_decode_cuda(q, kc, vc, lt_t, window=SWA_W,
+                                           path=p),
+            da.flash_decode_plain(q, kc, vc, lt_t, window=SWA_W), F32_TOL, da)
     # phase 15's decode at B=1: the linear cache of 4200 slots under the
     # window, and the ring of 4096 slots (lengths min(pos + 1, 4096))
     for t, length, window in ((4200, 4100, SWA_W), (SWA_W, 4091, None),
                               (SWA_W, SWA_W, None)):
         lt_t = torch.tensor((length,), dtype=torch.int32, device="cuda")
-        within(f"qwen3-8b-swa flash_decode f32 B=1 T={t} len={length} "
-               f"window={window}",
-               da.flash_decode_cuda(q[:1], kc[:1, :t], vc[:1, :t], lt_t,
-                                    window=window),
-               da.flash_decode_plain(q[:1], kc[:1, :t], vc[:1, :t], lt_t,
-                                     window=window), F32_TOL)
+        within_paths(
+            f"qwen3-8b-swa flash_decode f32 B=1 T={t} len={length} "
+            f"window={window}",
+            lambda p: da.flash_decode_cuda(q[:1], kc[:1, :t], vc[:1, :t],
+                                           lt_t, window=window, path=p),
+            da.flash_decode_plain(q[:1], kc[:1, :t], vc[:1, :t], lt_t,
+                                  window=window), F32_TOL, da)
     cases += 8
     # splits wholly before the window start: (m, l) = (-inf, 0), no NaN
     q = randn(gen, (1, H, DH))
     kc, vc = (randn(gen, (1, 2048, H, DH)) for _ in range(2))
     lt = torch.tensor((2047,), dtype=torch.int32, device="cuda")
     n_split, chunk = da.decode_splits(1, H, 2048)
-    within(f"flash_decode f32 B=1 T=2048 len=2047 window=64: "
-           f"{(2047 - 64) // chunk} of {n_split} splits before the window "
-           f"start", da.flash_decode_cuda(q, kc, vc, lt, window=64),
-           da.flash_decode_plain(q, kc, vc, lt, window=64), F32_TOL)
+    within_paths(
+        f"flash_decode f32 B=1 T=2048 len=2047 window=64: "
+        f"{(2047 - 64) // chunk} of {n_split} splits before the window "
+        f"start",
+        lambda p: da.flash_decode_cuda(q, kc, vc, lt, window=64, path=p),
+        da.flash_decode_plain(q, kc, vc, lt, window=64), F32_TOL, da)
     torch.cuda.synchronize()
     return cases + 1
 
@@ -925,23 +1030,43 @@ def main_path(model, ops):
 
 # --------------------------------------------------------------- phase 6 --
 def time_case(kernel, plain, library, nbytes, flops, *, per_graph=50,
-              plain_per_graph=10, dtype=torch.float32) -> dict:
+              plain_per_graph=10, dtype=torch.float32, sweep=None) -> dict:
     """Device time of the kernel, its plain version and the library call
     (None where no single PyTorch call computes the function) on the same
     inputs, the kernel's eager per-call time, its largest difference from
     the plain version over every output, and its bound (``flops`` at the
-    peak rate of the operands' ``dtype``)."""
+    peak rate of the operands' ``dtype``).  ``sweep`` = (call, paths,
+    plan): also the device time of ``call(path)`` for each of the
+    kernel's paths at this shape, ``plan`` the one its plan picks."""
     err = max_err(torch.cat([t.flatten() for t in _outputs(kernel())]),
                   torch.cat([t.flatten() for t in _outputs(plain())]))
     if not err < float("inf"):
         raise AssertionError(f"kernel and plain version differ by {err}")
-    return dict(ms=device_ms(kernel, per_graph=per_graph),
-                eager_ms=eager_ms(kernel, iters=4 * per_graph,
-                                  warmup=min(per_graph, 20)),
-                plain_ms=device_ms(plain, per_graph=plain_per_graph),
-                library_ms=(None if library is None
-                            else device_ms(library, per_graph=per_graph)),
-                max_abs_err=err, **bound(nbytes, flops, dtype))
+    row = dict(ms=device_ms(kernel, per_graph=per_graph),
+               eager_ms=eager_ms(kernel, iters=4 * per_graph,
+                                 warmup=min(per_graph, 20)),
+               plain_ms=device_ms(plain, per_graph=plain_per_graph),
+               library_ms=(None if library is None
+                           else device_ms(library, per_graph=per_graph)),
+               max_abs_err=err, **bound(nbytes, flops, dtype))
+    if sweep is not None:
+        call, paths, plan = sweep
+        row["paths"] = {p: device_ms(lambda p=p: call(p), per_graph=per_graph)
+                        for p in paths}
+        row["plan"] = plan
+    return row
+
+
+def fa_sweep(fa, call, b, s, h, hkv, d, dtype):
+    """``time_case``'s sweep of both flash_attention kernels."""
+    paths = ["mma"] + (["wgmma"] if d in fa.WGMMA_HEAD_DIMS else [])
+    return call, paths, fa.attention_plan(b, s, h, hkv, d, dtype)[0]
+
+
+def da_sweep(da, call, h, hkv, d, dtype=torch.float32):
+    """``time_case``'s sweep of both flash_decode paths."""
+    paths = ["cores"] + (["mma"] if d in da.MMA_HEAD_DIMS else [])
+    return call, paths, da.decode_path(h // hkv, d, dtype)
 
 
 def decode_case(da, gen, b, length):
@@ -958,11 +1083,12 @@ def decode_case(da, gen, b, length):
     ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (kc, vc))
     keymask = (torch.arange(MAX_DECODE, device="cuda")[None, :]
                < lens[:, None])[:, None, None, :]
-    row = time_case(lambda: da.flash_decode_cuda(q, kc, vc, lens),
-                    lambda: da.flash_decode_plain(q, kc, vc, lens),
+    call = lambda p=None: da.flash_decode_cuda(q, kc, vc, lens, path=p)
+    row = time_case(call, lambda: da.flash_decode_plain(q, kc, vc, lens),
                     lambda: sdpa(qs, ks, vs, attn_mask=keymask),
                     4 * (2 * b * length * D + 2 * b * D + b),
-                    4 * b * H * length * DH)
+                    4 * b * H * length * DH,
+                    sweep=da_sweep(da, call, H, H, DH))
     row["library_err"] = max_err(da.flash_decode_cuda(q, kc, vc, lens),
                                  sdpa(qs, ks, vs, attn_mask=keymask)[:, :, 0])
     row["shape"] = f"B={b} H={H} dh={DH} T={MAX_DECODE} len={length} f32"
@@ -978,11 +1104,13 @@ def attention_case(fa, gen, b, s):
     q, k, v = (randn(gen, (b, s, D)).view(b, s, H, DH) for _ in range(3))
     lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
     qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
+    call = lambda p=None: fa.flash_attention_cuda(q, k, v, lens,
+                                                  causal=False, path=p)
     row = time_case(
-        lambda: fa.flash_attention_cuda(q, k, v, lens, causal=False),
-        lambda: fa.flash_attention_plain(q, k, v, lens, causal=False),
+        call, lambda: fa.flash_attention_plain(q, k, v, lens, causal=False),
         lambda: sdpa(qs, ks, vs),
-        4 * (4 * b * s * D + b), 4 * b * H * s * s * DH)
+        4 * (4 * b * s * D + b), 4 * b * H * s * s * DH,
+        sweep=fa_sweep(fa, call, b, s, H, H, DH, torch.float32))
     row["library_err"] = max_err(
         fa.flash_attention_cuda(q, k, v, lens, causal=False),
         sdpa(qs, ks, vs).permute(0, 2, 1, 3))
@@ -1003,14 +1131,15 @@ def causal_case(fa, gen, b, s, h=ZA_H, hkv=ZA_H, d=DH, model="zamba2-1.2b",
     k, v = (randn(gen, (b, s, hkv, d), dtype) for _ in range(2))
     qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
     big = b * s > 1024
+    call = lambda p=None: fa.flash_attention_cuda(q, k, v, causal=True,
+                                                  path=p)
     row = time_case(
-        lambda: fa.flash_attention_cuda(q, k, v, causal=True),
-        lambda: fa.flash_attention_plain(q, k, v, causal=True),
+        call, lambda: fa.flash_attention_plain(q, k, v, causal=True),
         lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=h != hkv),
         q.element_size() * 2 * b * s * (h + hkv) * d,
         2 * b * h * s * (s + 1) * d,
         per_graph=5 if big else 50, plain_per_graph=1 if big else 10,
-        dtype=dtype)
+        dtype=dtype, sweep=fa_sweep(fa, call, b, s, h, hkv, d, dtype))
     row["library_err"] = max_err(
         fa.flash_attention_cuda(q, k, v, causal=True),
         sdpa(qs, ks, vs, is_causal=True,
@@ -1040,12 +1169,13 @@ def gqa_decode_case(da, gen, b, h=QW_H, hkv=QW_HKV, model="qwen3-8b",
     ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (kc, vc))
     keymask = (torch.arange(QW_T, device="cuda")[None, :]
                < lens[:, None])[:, None, None, :]
+    call = lambda p=None: da.flash_decode_cuda(q, kc, vc, lens, path=p)
     row = time_case(
-        lambda: da.flash_decode_cuda(q, kc, vc, lens),
-        lambda: da.flash_decode_plain(q, kc, vc, lens),
+        call, lambda: da.flash_decode_plain(q, kc, vc, lens),
         lambda: sdpa(qs, ks, vs, attn_mask=keymask, enable_gqa=h != hkv),
         q.element_size() * (2 * valid * hkv * QW_D + 2 * b * h * QW_D)
-        + 4 * b, 4 * valid * h * QW_D, dtype=dtype)
+        + 4 * b, 4 * valid * h * QW_D, dtype=dtype,
+        sweep=da_sweep(da, call, h, hkv, QW_D, dtype))
     row["library_err"] = max_err(
         da.flash_decode_cuda(q, kc, vc, lens),
         sdpa(qs, ks, vs, attn_mask=keymask, enable_gqa=h != hkv)[:, :, 0])
@@ -1064,11 +1194,14 @@ def gqa_decode_stats_case(da, gen, b=8, h=QW_H, hkv=QW_HKV,
     kc, vc = (randn(gen, (b, QW_T, hkv, QW_D), dtype) for _ in range(2))
     lens = torch.tensor(QW_LENS[:b], dtype=torch.int32, device="cuda")
     valid = sum(QW_LENS[:b])
+    call = lambda p=None: da.flash_decode_cuda(q, kc, vc, lens,
+                                               return_stats=True, path=p)
     row = time_case(
-        lambda: da.flash_decode_cuda(q, kc, vc, lens, return_stats=True),
+        call,
         lambda: da.flash_decode_plain(q, kc, vc, lens, return_stats=True),
         None, q.element_size() * (2 * valid * hkv * QW_D + 2 * b * h * QW_D)
-        + 4 * (b + 2 * b * h), 4 * valid * h * QW_D, dtype=dtype)
+        + 4 * (b + 2 * b * h), 4 * valid * h * QW_D, dtype=dtype,
+        sweep=da_sweep(da, call, h, hkv, QW_D, dtype))
     row["shape"] = (f"{model} return_stats B={b} H={h} Hkv={hkv} "
                     f"dh={QW_D} T={QW_T} lens={QW_LENS[:b]} {_dname(dtype)}")
     return row
@@ -1082,13 +1215,15 @@ def whisper_encoder_case(fa, gen, b=WH_B, dtype=torch.float32):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q, k, v = (randn(gen, (b, WH_T, WH_H, DH), dtype) for _ in range(3))
     qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
+    call = lambda p=None: fa.flash_attention_cuda(q, k, v, causal=False,
+                                                  path=p)
     row = time_case(
-        lambda: fa.flash_attention_cuda(q, k, v, causal=False),
-        lambda: fa.flash_attention_plain(q, k, v, causal=False),
+        call, lambda: fa.flash_attention_plain(q, k, v, causal=False),
         lambda: sdpa(qs, ks, vs),
         q.element_size() * 4 * b * WH_T * WH_H * DH,
         4 * b * WH_H * WH_T * WH_T * DH,
-        per_graph=5, plain_per_graph=1, dtype=dtype)
+        per_graph=5, plain_per_graph=1, dtype=dtype,
+        sweep=fa_sweep(fa, call, b, WH_T, WH_H, WH_H, DH, dtype))
     row["library_err"] = max_err(
         fa.flash_attention_cuda(q, k, v, causal=False),
         sdpa(qs, ks, vs).permute(0, 2, 1, 3))
@@ -1114,17 +1249,20 @@ def whisper_cross_case(fa, da, gen, decode: bool):
                < lens[:, None])[:, None, None, :]
     if decode:
         q = q[:, 0]
-        kernel = lambda: da.flash_decode_cuda(q, k, v, lens)
+        kernel = lambda p=None: da.flash_decode_cuda(q, k, v, lens, path=p)
         plain = lambda: da.flash_decode_plain(q, k, v, lens)
         ref = lambda: sdpa(qs, ks, vs, attn_mask=keymask)[:, :, 0]
+        sweep = da_sweep(da, kernel, WH_H, WH_H, DH)
     else:
-        kernel = lambda: fa.flash_attention_cuda(q, k, v, lens, causal=False)
+        kernel = lambda p=None: fa.flash_attention_cuda(q, k, v, lens,
+                                                        causal=False, path=p)
         plain = lambda: fa.flash_attention_plain(q, k, v, lens, causal=False)
         ref = lambda: sdpa(qs, ks, vs, attn_mask=keymask).permute(0, 2, 1, 3)
+        sweep = fa_sweep(fa, kernel, b, s, WH_H, WH_H, DH, torch.float32)
     row = time_case(kernel, plain,
                     lambda: sdpa(qs, ks, vs, attn_mask=keymask),
                     4 * (2 * valid * WH_H * DH + 2 * b * s * WH_H * DH + b),
-                    4 * s * valid * WH_H * DH)
+                    4 * s * valid * WH_H * DH, sweep=sweep)
     row["library_err"] = max_err(kernel(), ref())
     row["shape"] = (f"whisper cross {'decode' if decode else 'prefill'} "
                     f"B={b} S={s} T={WH_T} H={WH_H} dh={DH} "
@@ -1132,31 +1270,34 @@ def whisper_cross_case(fa, da, gen, decode: bool):
     return row
 
 
-def window_prefill_case(fa, gen, s=4200):
+def window_prefill_case(fa, gen, s=4200, dtype=torch.float32):
     """flash_attention over one qwen3-8b-swa prefill layer past the window:
     B=1, S=T=4200, 32 query heads over 8 KV heads of 128, causal, window
-    4096.  FLOP count the (query, key) pairs inside the window; the
-    yardstick is SDPA with the same boolean mask and enable_gqa."""
+    4096, in ``dtype``.  FLOP count the (query, key) pairs inside the
+    window; the yardstick is SDPA with the same boolean mask and
+    enable_gqa."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    q = randn(gen, (1, s, QW_H, QW_D))
-    k, v = (randn(gen, (1, s, QW_HKV, QW_D)) for _ in range(2))
+    q = randn(gen, (1, s, QW_H, QW_D), dtype)
+    k, v = (randn(gen, (1, s, QW_HKV, QW_D), dtype) for _ in range(2))
     qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
     pos = torch.arange(s, device="cuda")
     mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
                                              - SWA_W)
     pairs = sum(min(i + 1, SWA_W) for i in range(s))
-    kernel = lambda: fa.flash_attention_cuda(q, k, v, causal=True,
-                                             window=SWA_W)
+    kernel = lambda p=None: fa.flash_attention_cuda(q, k, v, causal=True,
+                                                    window=SWA_W, path=p)
     row = time_case(
         kernel,
         lambda: fa.flash_attention_plain(q, k, v, causal=True, window=SWA_W),
         lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True),
-        4 * 2 * s * (QW_H + QW_HKV) * QW_D, 4 * pairs * QW_H * QW_D,
-        per_graph=5, plain_per_graph=1)
+        q.element_size() * 2 * s * (QW_H + QW_HKV) * QW_D,
+        4 * pairs * QW_H * QW_D, per_graph=5, plain_per_graph=1,
+        dtype=dtype,
+        sweep=fa_sweep(fa, kernel, 1, s, QW_H, QW_HKV, QW_D, dtype))
     row["library_err"] = max_err(kernel(), sdpa(
         qs, ks, vs, attn_mask=mask, enable_gqa=True).permute(0, 2, 1, 3))
     row["shape"] = (f"qwen3-8b-swa B=1 S=T={s} H={QW_H} Hkv={QW_HKV} "
-                    f"dh={QW_D} causal window={SWA_W} f32")
+                    f"dh={QW_D} causal window={SWA_W} {_dname(dtype)}")
     return row
 
 
@@ -1177,12 +1318,14 @@ def window_decode_case(da, gen, t, length, window):
     qs = q[:, :, None, :]
     ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (kc, vc))
     keymask = keep[:, None, None, :]
-    kernel = lambda: da.flash_decode_cuda(q, kc, vc, lens, window=window)
+    kernel = lambda p=None: da.flash_decode_cuda(q, kc, vc, lens,
+                                                 window=window, path=p)
     row = time_case(
         kernel, lambda: da.flash_decode_plain(q, kc, vc, lens, window=window),
         lambda: sdpa(qs, ks, vs, attn_mask=keymask, enable_gqa=True),
         4 * (2 * valid * QW_HKV * QW_D + 2 * QW_H * QW_D + 1),
-        4 * valid * QW_H * QW_D)
+        4 * valid * QW_H * QW_D, sweep=da_sweep(da, kernel, QW_H, QW_HKV,
+                                                QW_D))
     row["library_err"] = max_err(kernel(), sdpa(
         qs, ks, vs, attn_mask=keymask, enable_gqa=True)[:, :, 0])
     kind = (f"linear T={t} len={length} window={window}" if window
@@ -1292,6 +1435,11 @@ def timings(gen):
                for model, h, hkv in GQA_SHAPES],
              ("flash_attention", whisper_encoder_case(
                  fa, gen, dtype=torch.bfloat16)),
+             # the long prefills in bf16 too (the wgmma kernel's rows)
+             ("flash_attention", causal_case(fa, gen, 8, 2048,
+                                             dtype=torch.bfloat16)),
+             ("flash_attention", window_prefill_case(
+                 fa, gen, dtype=torch.bfloat16)),
              # phase 19's bf16 sequence-sharded decode
              *[("flash_decode", gqa_decode_stats_case(
                  da, gen, 8, h, hkv, model, torch.bfloat16))
@@ -1306,10 +1454,13 @@ def timings(gen):
             (f" ({F32_PEAK_NOTE})" if r["shape"].endswith("f32")
              else " (bf16 at 989 TFLOP/s)")
             if r["bound_by"] == "operations" else "")
+        sweep = ("" if "paths" not in r else "; paths " + ", ".join(
+            f"{p} {ms:.5f}ms" for p, ms in r["paths"].items())
+            + f" (plan: {r['plan']})")
         log(f"  {name} {r['shape']}: device {r['ms']:.5f}ms, eager "
             f"{r['eager_ms']:.5f}ms, bound {r['bound_ms']:.5f}ms by {by}, "
             f"plain {r['plain_ms']:.5f}ms, {lib} "
-            f"(kernel vs plain {r['max_abs_err']:.2e})")
+            f"(kernel vs plain {r['max_abs_err']:.2e}){sweep}")
     tile_sweep(gen)
     rows, seen = [], set()
     for name, r in cases:

@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "rwkv6_wkv.cu",
            "ssd_scan.cu")
-HEADERS = ("mma_common.cuh",)   # included by the sources
+HEADERS = ("mma_common.cuh", "wgmma_common.cuh")   # included by the sources
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-Xcompiler", "-fPIC")
@@ -33,7 +33,7 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     "repro_flash_attention": [_P] * 5 + [_I] * 7 + [_I64] * 12
                              + [_F, _I, _I, _I, _P],
-    "repro_flash_decode": [_P] * 9 + [_I] * 7 + [_I64] * 10
+    "repro_flash_decode": [_P] * 10 + [_I] * 8 + [_I64] * 10
                           + [_F, _I, _I, _P],
     "repro_rwkv6_wkv": [_P] * 8 + [_I] * 6 + [_I64] * 15 + [_P],
     "repro_ssd_scan": [_P] * 8 + [_I] * 7 + [_I64] * 15 + [_P],

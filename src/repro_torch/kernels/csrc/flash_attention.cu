@@ -1,6 +1,7 @@
 // flash_attention forward for Hopper (sm_90a): blocked attention with an
-// online softmax in float32, an optional per-sequence key-prefix `lengths`
-// and an optional causal mask, with both products on the tensor cores.
+// online softmax in float32, an optional per-sequence key-prefix `lengths`,
+// an optional causal mask and sliding window, with both products on the
+// tensor cores.
 //
 // Replaces the Pallas TPU kernel `flash_attention` in
 // src/repro/kernels/flash_attention.py (function at line 97, its
@@ -30,10 +31,73 @@
 // that is 128 FLOP/byte in float32, and at zamba2's causal S = 2048 about
 // 260; both sit above the balance point of float32-accurate tensor-core
 // products (3 x TF32 at 495 TFLOP/s = 165 TFLOP/s against 3.35 TB/s is ~49
-// FLOP/byte).  At Marian's short sentences (S ~ 20-64) it is launch latency
-// and the fill of 132 SMs.
+// FLOP/byte), and bf16 at whisper's S = T = 1500 (375 FLOP/byte) above
+// bf16's (~295).  In practice what bounds the wgmma kernel is its softmax
+// on the CUDA cores: per score an FFMA, an ex2 on the MUFU unit, a max, a
+// sum and, in bf16, the hi / lo split of P; the tensor cores finish a
+// tile's products well before the warpgroup finishes its exponentials.  At
+// Marian's short sentences (S ~ 20-64) it is launch latency and the fill
+// of 132 SMs.
 //
-// Design (FlashAttention-2 style, mma.sync through inline PTX):
+// Two kernels compute the same function; the wrapper's plan
+// (kernels/flash_attention.py, attention_plan, a pure function of the
+// shape) picks one: the warp-specialised wgmma kernel at head dims 64 and
+// 128 when a kv head's flattened rows fill at least 3/4 of its blocks
+// (64, 128 or 192 rows) and the blocks number at least WGMMA_MIN_BLOCKS
+// (128: in chip_smoke.py phase 6's sweep of both kernels it won wherever
+// both held and lost at shapes that filled half or two thirds of their
+// blocks), else the mma.sync kernel.
+// Neither falls back to the other: a kernel that fails to build or launch
+// raises.
+//
+// The wgmma kernel (flash_attention_ws_kernel):
+//   * Warp-specialised.  Warpgroup 0 is the producer: one thread keeps a
+//     ring of K/V tiles filled by TMA (cp.async.bulk.tensor through 4-D
+//     tensor maps over the (B, T, Hkv, D) strides, 128-byte swizzled,
+//     zero-filled past T), each slot completing on an mbarrier; the
+//     consumers hand a slot back through a second mbarrier.  The tensor
+//     maps are __grid_constant__ parameters, so a captured CUDA graph keeps
+//     them; they are encoded per call through cuTensorMapEncodeTiled, taken
+//     from the driver by cudaGetDriverEntryPointByVersion (no -lcuda).  The
+//     producer gives its registers to the consumers (setmaxnreg).
+//   * Each consumer warpgroup owns 64 flattened (position, grouped head)
+//     rows; its Q rows sit in shared memory, 128-byte swizzled.  S = Q K^T
+//     runs on wgmma with Q and K from shared memory (K-major B128
+//     descriptors).  The softmax runs in registers on wgmma's accumulator,
+//     which is per warp the mma.sync C layout (quad shuffles for the row
+//     max and sum).  P.V runs on wgmma with P from registers: per warp the
+//     accumulator of S is the A fragment of P.V (bf16 as is; TF32 after the
+//     relabelling of the mma.sync kernel below).
+//   * bf16: V is the MN-major (transposed) B operand, read as TMA wrote it.
+//     P keeps ~16 bits as P_hi.V + P_lo.V (the reference's P is float32).
+//   * float32: 3 x TF32 as in the mma.sync kernel.  TF32 wgmma takes
+//     K-major operands only, so P.V needs V transposed (keys contiguous).
+//     Once per block and tile, the consumers split K into TF32 hi / lo and
+//     V into V^T hi / lo, in shared memory shared by both warpgroups, V^T's
+//     keys of each 8 in the order the S accumulator hands P over; each
+//     tile's P.V sums in fresh accumulators added to O in float32.
+//   * Each product is waited for before the next step.  Issuing tile n's
+//     S together with tile n - 1's P.V (so the softmax overlaps P.V), and
+//     ping-pong turns between two warpgroups, were both slower on the
+//     card at whisper's, zamba2's and qwen3-8b's long bf16 prefills.
+//   * Masks are applied per element only in tiles that straddle a
+//     boundary, as a branch around the whole tile (predicated per element,
+//     the mask cost as much as the rest of the softmax); elsewhere the scale
+//     is folded into the exponent (one FFMA a score).
+//   * Tiles and stages, (dtype, D) -> consumer warpgroups (rows), keys per
+//     tile, ring stages, shared memory:
+//       bf16    64  -> 3 (192), 64 keys, 3 stages,  73 KB
+//       bf16   128  -> 3 (192), 64 keys, 3 stages, 145 KB
+//       float32 64  -> 2 (128), 64 keys, 2 stages, 193 KB (+ the split tiles)
+//       float32 128 -> 1 (64),  32 keys, 2 stages, 193 KB (a 128-key
+//                      float32 tile of K or V is 64 KB before its split)
+//     bf16 runs three consumer warpgroups: softmax-bound, it gains from
+//     the third's warps (with 64-key tiles to fit 160 registers a thread)
+//     more than it loses on short shapes, which the plan gives the
+//     mma.sync kernel.
+//
+// The mma.sync kernel (flash_attention_kernel, every head dim;
+// FlashAttention-2 style):
 //   * Each warp owns 16 query rows.  Scores S = Q K^T stay in the mma
 //     accumulator registers; the row max and sum use quad shuffles; the
 //     running (m, l) and the output accumulator stay in registers.
@@ -60,31 +124,34 @@
 //     cp.async.cg (zero-filled past T) while the previous tile computes.
 //     Rows are padded (K: D + 8, V: D + 4 floats; bf16: D + 8) so fragment
 //     loads and ldmatrix hit distinct banks.  bf16 tiles stay bf16.
-//   * The host picks 16, 32 or 64 query rows per block so that short
-//     sentences still give >= 132 blocks.  A block is always 4 warps: with
-//     fewer than 64 rows, 2 or 4 warps share 16 rows and split each key
-//     tile between them, each with its own online softmax, and merge their
-//     (m, l, O) once at the end, in a fixed order, through shared memory.  Key tiles past
-//     lengths[b], and (causal) past the block's last query position, are
-//     skipped; a warp also skips causal tiles past its own rows.  Masks are
-//     applied per element only in tiles that straddle a boundary.
-//   * Every instantiation's dynamic shared memory limit is raised on the
-//     first call of the C entry point, whatever the shape, so a CUDA graph
-//     capture never meets an instantiation that was not set up.
+//   * 16, 32 or 64 query rows per block (pick_block_q: short sentences
+//     still give >= 132 blocks).  A block is always 4 warps: with fewer
+//     than 64 rows, 2 or 4 warps share 16 rows and split each key tile
+//     between them, each with its own online softmax, and merge their (m,
+//     l, O) once at the end, in a fixed order, through shared memory.
 //
-// What it still leaves for later: wgmma (a 64-row warpgroup product fed
-// from shared memory) and TMA with mbarriers in place of cp.async, warp
-// specialisation (a producer warp), splitting each K/V tile into TF32
-// hi/lo once per block instead of once per warp (float32 at S = 2048 runs
-// at ~3.5x its bound), registers at D = 128 in float32 (the 64-row tile
-// spills ~900 bytes beside the fresh P.V accumulators), and splitting K
-// across blocks for very long keys at small B * H.
+// Both skip key tiles past lengths[b], (causal) past the block's last
+// query position and wholly below its first position's window; a warp or
+// warpgroup also skips the tiles that lie there for all its own rows.
+// Every instantiation's dynamic shared memory limit is raised on the
+// first call of the C entry point, whatever the shape, so a CUDA graph
+// capture never meets an instantiation that was not set up.
+//
+// What it still leaves for later: the softmax bound of the wgmma kernel
+// (overlapping a warpgroup's softmax with products lost on the card as
+// tried: see above; a cheaper hi / lo split of bf16 P); float32's split
+// pass and products run in turn (the split done by the producer
+// warpgroup from a single raw stage was slower on the card); wgmma at
+// head dims 16 and 32; splitting K across blocks for very long keys at
+// small B * H.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "mma_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
@@ -125,6 +192,13 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   const float2 f = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(x0 - f.x, x1 - f.y);
+}
+
+// 2^x by the MUFU unit (inputs below -126 flush the result to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -370,7 +444,6 @@ __global__ void __launch_bounds__(kThreads)
           }
           sc[n][e] = s;
         }
-
       // online softmax: row g uses e = 0, 1; row g + 8 uses e = 2, 3
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -521,6 +594,417 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------ warp-specialised kernel --
+// Tile geometry of the wgmma kernel for (T, D): consumer warpgroups (64
+// query rows each), keys per tile and the ring of STAGES K/V slots TMA
+// fills, sized to the 227 KB of shared memory a block may have.  Byte
+// offsets from the 1024-aligned base: Q (bf16: one copy; float32: TF32 hi
+// and lo), the ring, float32's work tiles (K hi, K lo, V^T hi, V^T lo),
+// the mbarriers.
+template <typename T, int D>
+struct Ws {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int WG = kF32 ? (D == 128 ? 1 : 2) : 3;
+  static constexpr int BQ = 64 * WG;
+  static constexpr int BK = kF32 && D == 128 ? 32 : 64;
+  static constexpr int STAGES = kF32 ? 2 : 3;
+  static constexpr int ROWB = D * (int)sizeof(T);  // bytes of one row
+  static constexpr int EPB = 128 / (int)sizeof(T); // elements per 128 bytes
+  static constexpr int TILE = BK * ROWB;           // one K or V tile
+  static constexpr int QTILE = BQ * ROWB;
+  static constexpr int SLOT = 2 * TILE;            // a ring slot: [K][V]
+  static constexpr int kQ = 0;
+  static constexpr int kRing = kQ + (kF32 ? 2 : 1) * QTILE;
+  static constexpr int kWork = kRing + STAGES * SLOT;
+  static constexpr int kBar = kWork + (kF32 ? 4 * TILE : 0);
+  static constexpr int kSmem = kBar + 2 * STAGES * 8 + 1024;  // + alignment
+  static constexpr int kThreads = 128 * (WG + 1);
+  // registers a consumer thread takes from the producer warpgroup's 104
+  // (setmaxnreg): the block's 65536 shared by 128 x 24 and WG x 128 x this
+  static constexpr int kConsumerRegs = WG > 2 ? 160 : 240;
+  static_assert(ROWB % 128 == 0 && TILE % 1024 == 0, "128-byte blocks");
+  static_assert(kSmem <= 232448, "over the 227 KB of a block");
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(Ws<T, D>::kThreads, 1)
+    flash_attention_ws_kernel(const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap,
+                              int kv_order, const T* __restrict__ q,
+                              const int* __restrict__ lengths,
+                              T* __restrict__ out, int S, int T_len, int Hkv,
+                              int rep, int64_t q_sb, int64_t q_ss,
+                              int64_t q_sh, int64_t o_sb, int64_t o_ss,
+                              int64_t o_sh, float scale, int causal,
+                              int window) {
+  using C = Ws<T, D>;
+  namespace hw = repro::sm90;
+  constexpr int BK = C::BK, BQ = C::BQ, WG = C::WG, STAGES = C::STAGES;
+  constexpr int TILE = C::TILE, QTILE = C::QTILE;
+  constexpr int KSTEPS = C::ROWB / 32;  // 32-byte product steps over D
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + C::kBar);
+  uint64_t* empty = full + STAGES;
+
+  const int b = blockIdx.y / Hkv;
+  const int g = blockIdx.y % Hkv;
+  const int rows = S * rep;
+  const int row0 = blockIdx.x * BQ;
+  const int len = lengths != nullptr ? lengths[b] : T_len;
+  // the block's key range, as in the mma.sync kernel
+  const int win = causal ? window : 0;
+  const int kv_valid = len > 0 ? min(len, T_len) : 0;
+  const int block_first_pos = row0 / rep;
+  const int block_last_pos = (min(row0 + BQ, rows) - 1) / rep;
+  const bool all_rows_live =
+      len > 0 && (win <= 0 || block_last_pos - win + 1 < kv_valid);
+  int kv_begin = 0, kv_end = T_len;
+  if (all_rows_live) {
+    kv_end = causal ? min(kv_valid, block_last_pos + 1) : kv_valid;
+    if (win > 0) kv_begin = max(0, block_first_pos - win + 1);
+  }
+  const int it0 = kv_begin / BK;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], 4 * WG);  // one arrival per consumer warp
+    }
+    hw::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread keeps the K/V ring filled ----
+    if constexpr (WG > 1) hw::setmaxnreg_dec<24>();
+    if (threadIdx.x != 0) return;
+    hw::tma_prefetch_map(&kmap);
+    hw::tma_prefetch_map(&vmap);
+    for (int it = it0, n = 0; it < n_tiles; ++it, ++n) {
+      const int st = n % STAGES;
+      hw::mbar_wait(&empty[st], ((n / STAGES) & 1) ^ 1);
+      hw::mbar_expect_tx(&full[st], 2 * TILE);
+      unsigned char* kd = base + C::kRing + st * C::SLOT;
+      // coordinates innermost first: (d, t, head, b) or (d, head, t, b)
+      const int c1 = kv_order ? g : it * BK, c2 = kv_order ? it * BK : g;
+#pragma unroll
+      for (int cb = 0; cb < C::ROWB / 128; ++cb) {
+        hw::tma_load_4d(kd + cb * BK * 128, &kmap, &full[st], cb * C::EPB, c1,
+                        c2, b);
+        hw::tma_load_4d(kd + TILE + cb * BK * 128, &vmap, &full[st],
+                        cb * C::EPB, c1, c2, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: 64 query rows each ----
+  if constexpr (WG > 1) hw::setmaxnreg_inc<C::kConsumerRegs>();
+  const int ct = threadIdx.x - 128;  // consumer thread
+  const int wi = ct / 128;           // consumer warpgroup
+  const int tw = ct % 128;
+  const int warp = tw / 32, lane = tw % 32;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wrow0 = row0 + 64 * wi;  // this warpgroup's first row
+  const float scale2 = scale * kLog2e;
+
+  // Q rows of this warpgroup into shared memory, 128-byte swizzled
+  // (float32: split into TF32 hi and lo once, here)
+  for (int idx = tw; idx < 64 * (C::ROWB / 16); idx += 128) {
+    const int r = idx / (C::ROWB / 16), c16 = idx % (C::ROWB / 16);
+    const int f = wrow0 + r;
+    uint4 x = make_uint4(0, 0, 0, 0);
+    if (f < rows) {
+      const int s = f / rep, h = g * rep + f % rep;
+      x = *reinterpret_cast<const uint4*>(
+          reinterpret_cast<const unsigned char*>(
+              q + b * q_sb + (int64_t)s * q_ss + (int64_t)h * q_sh) +
+          c16 * 16);
+    }
+    const uint32_t off =
+        (c16 / 8) * BQ * 128 + hw::swz128(64 * wi + r, c16 % 8);
+    if constexpr (C::kF32) {
+      uint4 hi, lo;
+      split_tf32(__uint_as_float(x.x), hi.x, lo.x);
+      split_tf32(__uint_as_float(x.y), hi.y, lo.y);
+      split_tf32(__uint_as_float(x.z), hi.z, lo.z);
+      split_tf32(__uint_as_float(x.w), hi.w, lo.w);
+      *reinterpret_cast<uint4*>(base + C::kQ + off) = hi;
+      *reinterpret_cast<uint4*>(base + C::kQ + QTILE + off) = lo;
+    } else {
+      *reinterpret_cast<uint4*>(base + C::kQ + off) = x;
+    }
+  }
+  hw::fence_async_smem();
+  hw::named_sync(2 + wi, 128);  // the warpgroup's Q rows, before any wgmma
+
+  // this thread's two rows (g and g + 8 of its warp's 16)
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    qpos[i] = min(wrow0 + 16 * warp + gq + 8 * i, rows - 1) / rep;
+  const bool wg_live = wrow0 < rows;
+  const int wg_first_pos = min(wrow0, rows - 1) / rep;
+  const int wg_last_pos = (min(wrow0 + 64, rows) - 1) / rep;
+
+  const uint32_t q_hi = hw::smem_u32(base + C::kQ) + 64 * wi * 128;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+  // when every row has a valid key, keys past the prefix, (causal) past
+  // every row of the warpgroup, or below every row's window get weight
+  // exactly 0: a warpgroup whose keys of a tile all lie there skips it
+  auto skips = [&](int t0) {
+    return !wg_live ||
+           (all_rows_live &&
+            (t0 >= kv_valid || (causal && t0 > wg_last_pos) ||
+             (win > 0 && t0 + BK - 1 <= wg_first_pos - win)));
+  };
+  // S = Q K^T of the tile at `kop` on wgmma, Q and K from shared memory;
+  // issued and committed, not waited for
+  auto issue_s = [&](float* sc, const unsigned char* kop) {
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      const uint32_t qa = q_hi + (kk / 4) * BQ * 128 + off;
+      const uint32_t ka = hw::smem_u32(kop) + (kk / 4) * BK * 128 + off;
+      if constexpr (C::kF32) {
+        // lo.hi + hi.lo + hi.hi, small terms first
+        hw::Wgmma<BK, false>::ss(sc, hw::desc_kmajor(qa + QTILE),
+                                 hw::desc_kmajor(ka), kk > 0);
+        hw::Wgmma<BK, false>::ss(sc, hw::desc_kmajor(qa),
+                                 hw::desc_kmajor(ka + TILE), 1);
+        hw::Wgmma<BK, false>::ss(sc, hw::desc_kmajor(qa),
+                                 hw::desc_kmajor(ka), 1);
+      } else {
+        hw::Wgmma<BK, true>::ss(sc, hw::desc_kmajor(qa), hw::desc_kmajor(ka),
+                                kk > 0);
+      }
+    }
+    hw::wgmma_commit();
+  };
+  // The online softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3) over a
+  // tile's scores `sc` times `sf`, in base 2: weights in place, each row's
+  // rescale factor of O in alpha.  The max is taken on the unscaled
+  // scores and the scale folded into the exponent (one FFMA a score).
+  auto row_softmax = [&](float* sc, float sf, float* alpha) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]));
+      const float m_new = fmaxf(m[i], quad_max(mx) * sf);
+      alpha[i] = fast_exp2(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          const float p = fast_exp2(fmaf(sc[4 * j + e], sf, -m_new));
+          sc[4 * j + e] = p;
+          sum += p;
+        }
+      l[i] = alpha[i] * l[i] + sum;
+      m[i] = m_new;
+    }
+  };
+  // The tile's scores to weights: where its keys straddle a boundary (a
+  // branch around the whole tile: masking every element unconditionally
+  // costs as much as the softmax), scaled first and masked (-1e30, or
+  // -inf past the keys), else scaled inside the exponent.
+  auto softmax = [&](float* sc, int t0, float* alpha) {
+    const bool edge = !all_rows_live || t0 + BK > kv_valid ||
+                      (causal && t0 + BK - 1 > wg_first_pos) ||
+                      (win > 0 && t0 <= wg_last_pos - win);
+    if (__builtin_expect(edge, 0)) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = t0 + 8 * j + 2 * tq + (e & 1);
+          float& x = sc[4 * j + e];
+          x *= scale2;
+          if (key >= T_len)
+            x = -INFINITY;  // past the keys: no weight at all
+          else if (key >= len || (causal && key > qpos[e >> 1]) ||
+                   (win > 0 && key <= qpos[e >> 1] - win))
+            x = kMasked;
+        }
+      row_softmax(sc, 1.f, alpha);
+    } else {
+      row_softmax(sc, scale2, alpha);
+    }
+  };
+  auto rescale = [&](const float* alpha) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e >> 1];
+  };
+
+  // Per tile: S = Q K^T, the softmax, P.V, each waited for in turn (two
+  // consumer warpgroups interleave on their own; issuing tile n's S with
+  // tile n - 1's P.V, and ping-pong turns between the warpgroups, were
+  // both slower on the card).
+  unsigned char* work = base + C::kWork;  // float32's split tiles
+  for (int it = it0, n = 0; it < n_tiles; ++it, ++n) {
+    const int st = n % STAGES;
+    hw::mbar_wait(&full[st], (n / STAGES) & 1);
+    const unsigned char* kraw = base + C::kRing + st * C::SLOT;
+    const unsigned char* vraw = kraw + TILE;
+    const int t0 = it * BK;
+    const unsigned char* kop = kraw;  // the K operand of S
+    if constexpr (C::kF32) {
+      // every consumer is done with the previous tile's work tiles
+      hw::named_sync(1, 128 * WG);
+      // K: TF32 hi / lo in the stage's own layout, once for the block
+      // (the loops' trip counts are constants: unrolled, their loads are
+      // in flight together)
+      static_assert(TILE / 16 % (128 * WG) == 0 &&
+                        BK / 8 * D % (128 * WG) == 0,
+                    "whole rounds of the split");
+#pragma unroll
+      for (int u = 0; u < TILE / 16 / (128 * WG); ++u) {
+        const int i = ct + u * 128 * WG;
+        const uint4 x = reinterpret_cast<const uint4*>(kraw)[i];
+        uint4 hi, lo;
+        split_tf32(__uint_as_float(x.x), hi.x, lo.x);
+        split_tf32(__uint_as_float(x.y), hi.y, lo.y);
+        split_tf32(__uint_as_float(x.z), hi.z, lo.z);
+        split_tf32(__uint_as_float(x.w), hi.w, lo.w);
+        reinterpret_cast<uint4*>(work)[i] = hi;
+        reinterpret_cast<uint4*>(work + TILE)[i] = lo;
+      }
+      // V: transposed to V^T (D rows of BK keys, keys contiguous, the
+      // K-major operand TF32 wgmma needs), keys of each 8 stored in the
+      // order the S accumulator hands P over: keys 0, 2, 4, 6 of a group
+      // at its positions 0-3, keys 1, 3, 5, 7 at 4-7.  A thread takes one
+      // head dim of one 8-key group: 8 loads, 4 16-byte stores; a warp's
+      // lanes take consecutive head dims (rows of V^T), so neither the
+      // loads nor the swizzled stores meet a bank twice.
+#pragma unroll
+      for (int u = 0; u < BK / 8 * D / (128 * WG); ++u) {
+        const int i = ct + u * 128 * WG;
+        const int d = i % D, kg = i / D;
+        float x[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          x[j] = *reinterpret_cast<const float*>(
+              vraw + (d / 32) * BK * 128 +
+              hw::swz128(8 * kg + j, d % 32 / 4) + d % 4 * 4);
+        unsigned char* row = work + 2 * TILE + (kg / 4) * D * 128;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          uint4 hi, lo;
+          split_tf32(x[half], hi.x, lo.x);
+          split_tf32(x[half + 2], hi.y, lo.y);
+          split_tf32(x[half + 4], hi.z, lo.z);
+          split_tf32(x[half + 6], hi.w, lo.w);
+          const uint32_t at = hw::swz128(d, 2 * (kg % 4) + half);
+          *reinterpret_cast<uint4*>(row + at) = hi;
+          *reinterpret_cast<uint4*>(row + TILE + at) = lo;
+        }
+      }
+      hw::fence_async_smem();
+      hw::named_sync(1, 128 * WG);
+      if (lane == 0) hw::mbar_arrive(&empty[st]);  // the raw stage is free
+      kop = work;
+    }
+    if (skips(t0)) {
+      if constexpr (!C::kF32)
+        if (lane == 0) hw::mbar_arrive(&empty[st]);
+      continue;
+    }
+
+    float sc[BK / 2], alpha[2];
+    issue_s(sc, kop);
+    hw::wgmma_wait<0>();
+    hw::fence_regs<BK / 2>(sc);
+    softmax(sc, t0, alpha);
+    rescale(alpha);
+    // O += P V on wgmma, P from registers
+    if constexpr (C::kF32) {
+      // A column q <-> key 8kk + 2q, q + 4 <-> key 8kk + 2q + 1 (V^T's key
+      // order above)
+      uint32_t ah[BK / 8][4], al[BK / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+        split_tf32(sc[4 * kk + 0], ah[kk][0], al[kk][0]);
+        split_tf32(sc[4 * kk + 2], ah[kk][1], al[kk][1]);
+        split_tf32(sc[4 * kk + 1], ah[kk][2], al[kk][2]);
+        split_tf32(sc[4 * kk + 3], ah[kk][3], al[kk][3]);
+      }
+      // the tile's product in fresh accumulators, added to O in float32
+      // (the tensor core's own sum into a running O loses accuracy with
+      // every tile)
+      float of[D / 2];
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+        const uint32_t va = hw::smem_u32(work + 2 * TILE) +
+                            (kk / 4) * D * 128 + (kk % 4) * 32;
+        hw::Wgmma<D, false>::rs(of, al[kk], hw::desc_kmajor(va), kk > 0);
+        hw::Wgmma<D, false>::rs(of, ah[kk], hw::desc_kmajor(va + TILE), 1);
+        hw::Wgmma<D, false>::rs(of, ah[kk], hw::desc_kmajor(va), 1);
+      }
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();
+      hw::fence_regs<D / 2>(of);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] += of[i];
+    } else {
+      // P as hi + lo bf16 pairs: the weights keep ~16 bits
+      uint32_t ph[BK / 16][4], pl[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], ph[kk][r],
+                     pl[kk][r]);
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t dv = hw::desc_mnmajor(
+            hw::smem_u32(vraw) + kk * 16 * 128, BK * 128);
+        hw::Wgmma<D, true>::rs(o, pl[kk], dv, 1);
+        hw::Wgmma<D, true>::rs(o, ph[kk], dv, 1);
+      }
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();
+      hw::fence_regs<D / 2>(o);
+      if (lane == 0) hw::mbar_arrive(&empty[st]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] = quad_sum(l[i]);
+    const int f = wrow0 + 16 * warp + gq + 8 * i;
+    if (f >= rows) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    const int s = f / rep, h = g * rep + f % rep;
+    T* orow = out + b * o_sb + (int64_t)s * o_ss + (int64_t)h * o_sh;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const float x0 = o[4 * j + 2 * i] * inv, x1 = o[4 * j + 2 * i + 1] * inv;
+      if constexpr (C::kF32)
+        *reinterpret_cast<float2*>(reinterpret_cast<float*>(orow) + j * 8 +
+                                   2 * tq) = make_float2(x0, x1);
+      else
+        *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * tq) =
+            pack_bf16(x0, x1);
+    }
+  }
+}
+
 template <typename T, int D, int BQ>
 cudaError_t raise_smem() {
   return cudaFuncSetAttribute(flash_attention_kernel<T, D, BQ>,
@@ -536,13 +1020,22 @@ cudaError_t raise_smem_d() {
   return e;
 }
 
-// Raise the shared-memory limit of all 24 instantiations at once.
+template <typename T, int D>
+cudaError_t raise_smem_ws() {
+  return cudaFuncSetAttribute(flash_attention_ws_kernel<T, D>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              Ws<T, D>::kSmem);
+}
+
+// Raise the shared-memory limit of all 28 instantiations at once.
 cudaError_t raise_all() {
-  const cudaError_t es[8] = {
+  const cudaError_t es[12] = {
       raise_smem_d<float, 16>(),          raise_smem_d<float, 32>(),
       raise_smem_d<float, 64>(),          raise_smem_d<float, 128>(),
       raise_smem_d<__nv_bfloat16, 16>(),  raise_smem_d<__nv_bfloat16, 32>(),
-      raise_smem_d<__nv_bfloat16, 64>(),  raise_smem_d<__nv_bfloat16, 128>()};
+      raise_smem_d<__nv_bfloat16, 64>(),  raise_smem_d<__nv_bfloat16, 128>(),
+      raise_smem_ws<float, 64>(),         raise_smem_ws<float, 128>(),
+      raise_smem_ws<__nv_bfloat16, 64>(), raise_smem_ws<__nv_bfloat16, 128>()};
   for (cudaError_t e : es)
     if (e != cudaSuccess) return e;
   return cudaSuccess;
@@ -584,12 +1077,101 @@ cudaError_t dispatch_bq(int BQ, const void* q, const void* k, const void* v,
   }
 }
 
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A (B, T, Hkv, D) operand with element strides (sb, st, sh) as a 4-D
+// tensor map whose box is 128 bytes of one row by `box_rows` keys, 128-byte
+// swizzled.  Outer dimensions go in increasing stride: (d, t, head, b) when
+// st <= sh (kv_order 0), else (d, head, t, b) (kv_order 1; the Marian
+// decoder's folded (B, T, H*D) buffers and every contiguous tensor).
+template <typename T>
+cudaError_t kv_map(CUtensorMap* map, const void* ptr, int D, int T_len,
+                   int Hkv, int B, int64_t sb, int64_t st, int64_t sh,
+                   int box_rows, int kv_order) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t e = sizeof(T);
+  const cuuint64_t dims[4] = {
+      (cuuint64_t)D, (cuuint64_t)(kv_order ? Hkv : T_len),
+      (cuuint64_t)(kv_order ? T_len : Hkv), (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)(kv_order ? sh : st) * e,
+                                 (cuuint64_t)(kv_order ? st : sh) * e,
+                                 (cuuint64_t)sb * e};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / e),
+                             (cuuint32_t)(kv_order ? 1 : box_rows),
+                             (cuuint32_t)(kv_order ? box_rows : 1), 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = enc(
+      map,
+      sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(ptr), dims, strides, box, estr,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, int D>
+cudaError_t launch_ws(const void* q, const void* k, const void* v,
+                      const int* lengths, void* out, int B, int S, int T_len,
+                      int Hkv, int rep, const int64_t* st, float scale,
+                      int causal, int window, cudaStream_t stream) {
+  using C = Ws<T, D>;
+  // both caches in one order: the smaller of the two strides inner
+  const int kv_order = (st[5] < st[4] && st[8] < st[7]) ? 1 : 0;
+  CUtensorMap kmap, vmap;
+  cudaError_t e = kv_map<T>(&kmap, k, D, T_len, Hkv, B, st[3], st[4], st[5],
+                            C::BK, kv_order);
+  if (e == cudaSuccess)
+    e = kv_map<T>(&vmap, v, D, T_len, Hkv, B, st[6], st[7], st[8], C::BK,
+                  kv_order);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((S * rep + C::BQ - 1) / C::BQ, B * Hkv);
+  flash_attention_ws_kernel<T, D><<<grid, C::kThreads, C::kSmem, stream>>>(
+      kmap, vmap, kv_order, static_cast<const T*>(q), lengths,
+      static_cast<T*>(out), S, T_len, Hkv, rep, st[0], st[1], st[2], st[9],
+      st[10], st[11], scale, causal, window);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dispatch_d(int D, int BQ, const void* q, const void* k,
                        const void* v, const int* lengths, void* out, int B,
                        int S, int T_len, int Hkv, int rep, const int64_t* st,
                        float scale, int causal, int window,
                        cudaStream_t stream) {
+  if (BQ == 0) {  // the warp-specialised wgmma kernel
+    switch (D) {
+      case 64:
+        return launch_ws<T, 64>(q, k, v, lengths, out, B, S, T_len, Hkv, rep,
+                                st, scale, causal, window, stream);
+      case 128:
+        return launch_ws<T, 128>(q, k, v, lengths, out, B, S, T_len, Hkv,
+                                 rep, st, scale, causal, window, stream);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
   switch (D) {
     case 16:
       return dispatch_bq<T, 16>(BQ, q, k, v, lengths, out, B, S, T_len, Hkv,
@@ -613,7 +1195,9 @@ cudaError_t dispatch_d(int D, int BQ, const void* q, const void* k,
 // Strides are in elements, ordered q (batch, seq, head), k (...), v (...),
 // out (...).  `lengths` may be null (every key valid).  `window` > 0 masks
 // keys at or below q_pos - window when causal (0: no window).  block_q is
-// the query rows per block (16, 32 or 64; chosen by the Python wrapper).
+// the query rows per block of the mma.sync kernel (16, 32 or 64), or 0 for
+// the warp-specialised wgmma kernel (head dims 64 and 128); the Python
+// wrapper's plan chooses.
 // dtype: 0 = float32, 1 = bfloat16.  Head dims 16, 32, 64 and 128 are
 // compiled.
 // Returns the cudaError_t of the launch.

@@ -1,12 +1,15 @@
 """Flash decode: the CUDA kernel's wrapper and its plain version.
 
 Port of ``repro/kernels/decode_attention.py`` (the Pallas TPU kernel
-``flash_decode``).  The kernel itself is ``csrc/decode_attention.cu``
-(split-KV: the cache is cut into :func:`decode_splits` ranges, one block
-each, and the splits' partial softmax states are combined in a fixed
-order); its header says what bounds it on the H100 and what it leaves
+``flash_decode``).  The kernel itself is ``csrc/decode_attention.cu``:
+one launch a call, split-KV (the cache is cut into :func:`decode_splits`
+ranges, one block each), the splits' partial softmax states combined in
+split order by the last block of each head group, which it learns from a
+counter (:func:`split_counters`); a kv head's query heads run as the
+rows of tensor-core tiles or on the CUDA cores, as :func:`decode_path`
+chooses.  Its header says what bounds it on the H100 and what it leaves
 for later.  :func:`combine_splits_plain` is the plain twin of its
-combine pass.
+combine.
 
 Semantics, shared by the kernel and :func:`flash_decode_plain`: one query
 token per sequence, q (B,H,D), against caches (B,S,Hkv,D) over the valid
@@ -53,6 +56,19 @@ from repro_torch.kernels.flash_attention import (
 NEG_INF = -1e30
 MIN_SPLIT_SLOTS = 32   # a split reads at least this many slots
 SPLIT_WAVES = 2        # aim: this many blocks per SM over B * Hkv * splits
+MMA_HEAD_DIMS = (64, 128)   # head dims of the tensor-core path
+MMA_HEADS = 16         # tensor-core path: query heads a block (one mma tile)
+CORE_HEADS = 8         # CUDA-core path: at most this many heads a block
+# the plan's threshold: grouped heads per kv head from which the tensor
+# cores take a float32 call (a group of 3 or more fills enough of a
+# 16-row tile; below, the CUDA cores were faster in chip_smoke.py phase
+# 6's sweep of both paths); bf16 calls take them at every group, where
+# the sweep found them faster
+MMA_MIN_REP_F32 = 3
+# split counters: one int32 per (b, kv head, head group) of a call with
+# more than one split, in a region of one per-device buffer per stream
+COUNTER_REGIONS = 64
+REGION_COUNTERS = 4096
 
 
 @functools.lru_cache(maxsize=256)
@@ -70,6 +86,79 @@ def decode_splits(b: int, hkv: int, s: int) -> tuple:
     chunk = -(-s // n)
     chunk = -(-chunk // 16) * 16
     return -(-s // chunk), chunk
+
+
+def decode_path(rep: int, d: int, dtype) -> str:
+    """``"mma"`` (the group's query heads as the rows of tensor-core
+    tiles) or ``"cores"`` (dot products reduced by shuffles on the CUDA
+    cores): a pure function of the group size ``rep = H / Hkv``, the head
+    dim and the dtype."""
+    if d not in MMA_HEAD_DIMS:
+        return "cores"
+    if dtype == torch.bfloat16 or rep >= MMA_MIN_REP_F32:
+        return "mma"
+    return "cores"
+
+
+def head_tile(rep: int, path: str) -> int:
+    """Query heads a block serves on ``path`` (the kernel's dispatch):
+    one mma tile of 16 rows, or on the CUDA cores 1, 2, 4 or 8."""
+    if path == "mma":
+        return MMA_HEADS
+    return rep if rep <= 2 else (4 if rep <= 4 else CORE_HEADS)
+
+
+def head_groups(rep: int, path: str) -> int:
+    """Blocks a kv head's ``rep`` query heads take on ``path``."""
+    return -(-rep // head_tile(rep, path))
+
+
+_COUNTERS: dict = {}   # device index -> the zeroed int32 buffer
+_REGIONS: dict = {}    # (device index, stream handle) -> region index
+
+
+def _index(device) -> int:
+    device = torch.device(device)
+    return (device.index if device.index is not None
+            else torch.cuda.current_device())
+
+
+def split_counters(device, stream) -> torch.Tensor:
+    """This stream's :data:`REGION_COUNTERS` split counters on ``device``.
+
+    The kernel's last block of each head group resets its counter, so the
+    counters are zero between calls; calls in flight on two streams at
+    once use two regions.  The buffer is allocated (zeroed) once per
+    device, at the first call there, which must not be inside a CUDA
+    graph capture; a stream's region is handed out at its first call, and
+    nothing is allocated after that, so capture is safe.  A graph replays
+    with the region of the stream it was captured on."""
+    dev = _index(device)
+    buf = _COUNTERS.get(dev)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "flash_decode allocates its split counters at its first call "
+                "on a device; make that call outside CUDA graph capture")
+        buf = torch.zeros(COUNTER_REGIONS * REGION_COUNTERS,
+                          dtype=torch.int32, device=torch.device("cuda", dev))
+        torch.cuda.synchronize(dev)   # zero before any stream reads it
+        _COUNTERS[dev] = buf
+    key = (dev, stream.cuda_stream)
+    region = _REGIONS.get(key)
+    if region is None:
+        region = sum(1 for d, _ in _REGIONS if d == dev)
+        if region >= COUNTER_REGIONS:
+            raise RuntimeError(f"flash_decode ran on more than "
+                               f"{COUNTER_REGIONS} streams of one device")
+        _REGIONS[key] = region
+    return buf[region * REGION_COUNTERS:(region + 1) * REGION_COUNTERS]
+
+
+def counter_buffer(device) -> torch.Tensor | None:
+    """The device's whole split-counter buffer (every stream's region),
+    or None before its first call with splits; zero between calls."""
+    return _COUNTERS.get(_index(device))
 
 
 def combine_splits_plain(m, l, acc):
@@ -129,12 +218,13 @@ def flash_decode_plain(q, k_cache, v_cache, lengths, *, scale=None,
 
 def flash_decode_cuda(q, k_cache, v_cache, lengths, *, scale=None,
                       window: int | None = None,
-                      return_stats: bool = False):
+                      return_stats: bool = False, path: str | None = None):
     """Launch ``csrc/decode_attention.cu`` on PyTorch's current stream;
     with ``return_stats`` also (m, l) (B,H) float32.
 
     Takes CUDA tensors only and raises on anything the kernel does not
-    take; builds the kernel library at first use.
+    take; builds the kernel library at first use.  ``path`` ("mma" or
+    "cores") forces a path; by default :func:`decode_path` chooses.
     """
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_cuda needs CUDA tensors, "
@@ -156,7 +246,20 @@ def flash_decode_cuda(q, k_cache, v_cache, lengths, *, scale=None,
     window = _window(window, True)
     lens = _lengths_i32(lengths, b, q.device)
     scale = scale if scale is not None else d ** -0.5
+    if path is None:
+        path = decode_path(h // hkv, d, q.dtype)
+    elif path not in ("mma", "cores") or (path == "mma"
+                                          and d not in MMA_HEAD_DIMS):
+        raise ValueError(f"no {path!r} path at head dim {d}")
     n_split, chunk = decode_splits(b, hkv, s)
+    counters = None
+    if n_split > 1:
+        need = b * hkv * head_groups(h // hkv, path)
+        if need > REGION_COUNTERS:
+            raise ValueError(f"{need} split counters needed, a region has "
+                             f"{REGION_COUNTERS}")
+        counters = split_counters(
+            q.device, torch.cuda.current_stream(q.device)).data_ptr()
     # one allocation: the output first, then (with splits) the partial
     # accumulators (B*H*n_split*D) and (m, l) pairs, then (with stats) m
     # and l, all float32
@@ -177,10 +280,10 @@ def flash_decode_cuda(q, k_cache, v_cache, lengths, *, scale=None,
     lib = _build.load_library()
     rc = lib.repro_flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), *parts, *stat_ptrs, b, s, h, hkv, d,
-        n_split,
-        chunk, *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3],
-        *out.stride()[:2], ctypes.c_float(scale), window, _DTYPES[q.dtype],
+        lens.data_ptr(), out.data_ptr(), *parts, *stat_ptrs, counters, b, s,
+        h, hkv, d, n_split, chunk, int(path == "mma"), *q.stride()[:2],
+        *k_cache.stride()[:3], *v_cache.stride()[:3], *out.stride()[:2],
+        ctypes.c_float(scale), window, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_decode")
     return (out, stats[0], stats[1]) if return_stats else out

@@ -1,9 +1,12 @@
 """Flash attention forward: the CUDA kernel's wrapper and its plain version.
 
 Port of ``repro/kernels/flash_attention.py`` (the Pallas TPU kernel
-``flash_attention``).  The kernel itself is ``csrc/flash_attention.cu``
-(tensor-core tiles: bf16 ``mma.sync``, float32 as 3 x TF32); its header
-says what bounds it on the H100 and what it leaves for later.
+``flash_attention``).  The kernels themselves are in
+``csrc/flash_attention.cu``: a warp-specialised ``wgmma`` kernel fed by
+TMA (head dims 64 and 128) and the ``mma.sync`` kernel it grew from,
+which keeps the shapes :func:`attention_plan` gives it (every head dim;
+float32 as 3 x TF32 in both); the header says what bounds them on the
+H100 and what they leave for later.
 
 Semantics, shared by the kernel and :func:`flash_attention_plain`:
 
@@ -35,8 +38,14 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)     # head dims the kernel is compiled for
-BLOCK_Q = (16, 32, 64)            # query rows per block the kernel takes
+BLOCK_Q = (16, 32, 64)            # query rows per block of the mma.sync kernel
 SMS = 132                         # streaming multiprocessors of an H100
+WGMMA_HEAD_DIMS = (64, 128)       # head dims of the wgmma kernel
+# the plan's threshold: the wgmma kernel takes a shape whose query rows
+# fill at least 3/4 of its blocks of wgmma_rows rows per kv head and give
+# at least WGMMA_MIN_BLOCKS blocks (chip_smoke.py phase 6's sweep of both
+# kernels at every timed shape sets it)
+WGMMA_MIN_BLOCKS = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -48,6 +57,32 @@ def pick_block_q(rows: int, bh: int) -> int:
         if -(-rows // bq) * bh >= SMS:
             return bq
     return 16
+
+
+def wgmma_rows(d: int, dtype) -> int:
+    """Query rows per block of the wgmma kernel: 64 per consumer
+    warpgroup; three warpgroups in bf16, two in float32 but one at D =
+    128 (its TF32 hi/lo tiles fill the shared memory)."""
+    if dtype == torch.bfloat16:
+        return 192
+    return 64 if d == 128 else 128
+
+
+def attention_plan(b: int, s: int, h: int, hkv: int, d: int,
+                   dtype) -> tuple:
+    """The kernel and tile for a call: ``("wgmma", rows)`` or ``("mma",
+    block_q)``.  A pure function of the shape and dtype: the wgmma kernel
+    where it has the head dim, a kv head's flattened (position, grouped
+    head) rows fill at least 3/4 of its blocks of ``wgmma_rows``, and the
+    blocks number at least ``WGMMA_MIN_BLOCKS``; else the mma.sync kernel
+    at :func:`pick_block_q`'s tile."""
+    rows = s * (h // hkv)
+    per = wgmma_rows(d, dtype)
+    blocks = -(-rows // per)
+    if (d in WGMMA_HEAD_DIMS and 4 * rows >= 3 * blocks * per
+            and blocks * b * hkv >= WGMMA_MIN_BLOCKS):
+        return "wgmma", per
+    return "mma", pick_block_q(rows, b * hkv)
 
 
 def _window(window, causal: bool) -> int:
@@ -117,13 +152,16 @@ def _lengths_i32(lengths, b, device):
 def flash_attention_cuda(q, k, v, lengths=None, *, causal: bool = True,
                          scale: float | None = None,
                          block_q: int | None = None,
-                         window: int | None = None):
+                         window: int | None = None,
+                         path: str | None = None):
     """Launch ``csrc/flash_attention.cu`` on PyTorch's current stream.
 
     Takes CUDA tensors only and raises on anything the kernel does not
-    take; builds the kernel library at first use.  ``block_q`` forces the
-    query rows per block (one of :data:`BLOCK_Q`); by default
-    :func:`pick_block_q` chooses from the shape.
+    take; builds the kernel library at first use.  By default
+    :func:`attention_plan` chooses the kernel and its tile from the
+    shape.  ``path="wgmma"`` forces the wgmma kernel (head dims 64 and
+    128), ``path="mma"`` the mma.sync kernel; ``block_q`` (one of
+    :data:`BLOCK_Q`) forces the mma.sync kernel at that query tile.
     """
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, "
@@ -140,10 +178,21 @@ def flash_attention_cuda(q, k, v, lengths=None, *, causal: bool = True,
         raise ValueError(f"{h} query heads are not a multiple of {hkv}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not compiled; have {HEAD_DIMS}")
-    if block_q is None:
-        block_q = pick_block_q(s * (h // hkv), b * hkv)
-    elif block_q not in BLOCK_Q:
-        raise ValueError(f"block_q {block_q} not in {BLOCK_Q}")
+    if block_q is not None and (block_q not in BLOCK_Q or path == "wgmma"):
+        raise ValueError(f"block_q {block_q} is not one of the mma.sync "
+                         f"kernel's {BLOCK_Q}")
+    if path is None and block_q is None:
+        path, block_q = attention_plan(b, s, h, hkv, d, q.dtype)
+    elif path in (None, "mma"):
+        path = "mma"
+        block_q = block_q or pick_block_q(s * (h // hkv), b * hkv)
+    elif path != "wgmma":
+        raise ValueError(f"path must be 'wgmma' or 'mma', got {path!r}")
+    if path == "wgmma":
+        if d not in WGMMA_HEAD_DIMS:
+            raise ValueError(f"the wgmma kernel has head dims "
+                             f"{WGMMA_HEAD_DIMS}, not {d}")
+        block_q = 0           # the C entry's code for the wgmma kernel
     window = _window(window, causal)
     lens = _lengths_i32(lengths, b, q.device)
     scale = scale if scale is not None else d ** -0.5

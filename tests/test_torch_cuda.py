@@ -862,3 +862,111 @@ def test_sharded_session_on_a_one_card_nccl_mesh(dev, tmp_path):
         np.testing.assert_array_equal(got[row, :k], ref[row, :k])
         if not low.size:
             assert m_got[row] == m_ref[row]
+
+
+# --------------------------------------- the Hopper redesign's paths --
+_FA_SHAPES = [   # b, s, t, h, hkv, d, causal, lens, window
+    (2, 77, 77, 4, 4, 16, False, (77, 20), None),
+    (2, 53, 91, 4, 2, 32, True, (91, 30), None),
+    (1, 130, 130, 4, 4, 64, True, None, None),       # rep 1, rows past 128
+    (2, 129, 200, 16, 4, 64, False, (200, 65), None),  # rep 4, ragged
+    (1, 300, 300, 32, 4, 128, True, None, 64),       # rep 8, windowed
+    (2, 37, 37, 8, 1, 128, True, (37, 1), None),     # rep 8, short
+    (1, 200, 200, 2, 2, 128, True, (0,), None),      # a row with no key
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("path", ["wgmma", "mma", None])
+@pytest.mark.parametrize("b,s,t,h,hkv,d,causal,lens,window", _FA_SHAPES)
+def test_flash_attention_every_path_matches_plain(dev, dtype, path, b, s, t,
+                                                  h, hkv, d, causal, lens,
+                                                  window):
+    """Both kernels (and the plan's choice) at every head dim the path
+    has: ragged, causal, windowed, GQA groups of 1, 4 and 8, rows and
+    keys straddling the tiles' edges."""
+    if path == "wgmma" and d not in fa.WGMMA_HEAD_DIMS:
+        pytest.skip(f"the wgmma kernel has no head dim {d}")
+    q = _randn(50, (b, s, h, d), dev, dtype)
+    k = _randn(51, (b, t, hkv, d), dev, dtype)
+    v = _randn(52, (b, t, hkv, d), dev, dtype)
+    lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                     device=dev)
+    got = fa.flash_attention_cuda(q, k, v, lengths, causal=causal,
+                                  window=window, path=path)
+    want = fa.flash_attention_plain(q, k, v, lengths, causal=causal,
+                                    window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+
+
+_DA_SHAPES = [   # b, t, h, hkv, d, lens, window
+    (2, 70, 4, 4, 16, (0, 70), None),
+    (3, 130, 12, 4, 32, (130, 5, 64), None),
+    (8, 256, 8, 8, 64, (1, 37, 256, 100, 64, 65, 200, 255), None),
+    (2, 2048, 32, 8, 64, (2047, 33), 64),            # rep 4, many splits
+    (8, 256, 32, 4, 128, QW_LENS, None),             # rep 8
+    (2, 96, 32, 2, 128, (96, 5), None),              # rep 16
+    (1, 4200, 32, 8, 128, (4150,), 4096),            # qwen3-8b-swa
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("path", ["mma", "cores", None])
+@pytest.mark.parametrize("b,t,h,hkv,d,lens,window", _DA_SHAPES)
+def test_flash_decode_every_path_matches_plain(dev, dtype, path, b, t, h, hkv,
+                                               d, lens, window):
+    """Both decode paths (and the plan's choice) with the combine in the
+    kernel: output and return_stats' (m, l) against the plain twin, the
+    output the same bits with and without stats and on a second call."""
+    if path == "mma" and d not in da.MMA_HEAD_DIMS:
+        pytest.skip(f"the tensor-core path has no head dim {d}")
+    q = _randn(53, (b, h, d), dev, dtype)
+    kc = _randn(54, (b, t, hkv, d), dev, dtype)
+    vc = _randn(55, (b, t, hkv, d), dev, dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    out, m, l = da.flash_decode_cuda(q, kc, vc, lengths, window=window,
+                                     return_stats=True, path=path)
+    again = da.flash_decode_cuda(q, kc, vc, lengths, window=window,
+                                 path=path)
+    want, wm, wl = da.flash_decode_plain(q, kc, vc, lengths, window=window,
+                                         return_stats=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+    torch.testing.assert_close(m, wm, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(l, wl, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("path", ["mma", "cores"])
+def test_flash_decode_graph_replays_100_times_and_leaves_counters_zero(
+        dev, path):
+    """One launch a call under a CUDA graph: 100 replays with new lengths
+    written on the device each time, each output against the plain
+    version, and every split counter back at zero afterwards."""
+    b, t, h, hkv, d = 8, 256, 32, 4, 128
+    q = _randn(56, (b, h, d), dev, torch.bfloat16)
+    kc = _randn(57, (b, t, hkv, d), dev, torch.bfloat16)
+    vc = _randn(58, (b, t, hkv, d), dev, torch.bfloat16)
+    lengths = torch.tensor(QW_LENS, dtype=torch.int32, device=dev)
+    assert da.decode_splits(b, hkv, t)[0] > 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.flash_decode_cuda(q, kc, vc, lengths, path=path)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = da.flash_decode_cuda(q, kc, vc, lengths, path=path)
+    rng = np.random.default_rng(7)
+    for _ in range(100):
+        lengths.copy_(torch.as_tensor(rng.integers(-1, t + 40, size=b),
+                                      dtype=torch.int32))
+        graph.replay()
+        want = da.flash_decode_plain(q, kc, vc, lengths)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+    torch.cuda.synchronize()
+    assert int((da.counter_buffer(dev) != 0).sum()) == 0
