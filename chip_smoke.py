@@ -15,8 +15,12 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    zamba2's 32 (float32 within 2e-5, bfloat16 within 2e-2), ``rwkv6_wkv``
    at rwkv6-3b's 40 heads of 64 (within 2e-4) and ``ssd_scan`` at
    zamba2's 64 heads of P = N = 64 (within 3e-4), at the chunk lengths
-   prefill meets, with and without an initial state, and under every
-   value tile their hosts can pick; then the attention
+   prefill meets (a prime length above 128 too, and B=8 S=2048), with and
+   without an initial state (``rwkv6_wkv`` also at head size 128;
+   ``ssd_scan`` on the plan's kernel and every one it can be forced to,
+   and under every value tile its mma.sync kernel's host can pick); a
+   captured call of each scan replays 100 times bitwise equal;
+   then the attention
    kernels at the D=128 models' shapes (qwen3-8b's 32 query heads over 8
    KV heads of 128, qwen3-moe-30b-a3b's 32 over 4, moonshot-v1-16b-a3b's
    16 over 16; float32 and bfloat16: a causal B=8 S=64 prefill, a B=8
@@ -54,8 +58,8 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    qwen3-8b-swa's windowed prefill, linear-window and ring decode; and in
    bfloat16 at phase 18's: the three D=128 models' prefill and decode and
    whisper's encoder, bounded at 2-byte operands and 989 TFLOP/s),
-   and each scan kernel under every value tile its host
-   chooses between; the tokens/s and peak memory of one batch-8
+   and ``ssd_scan`` on every path it has at every timed shape (the plan's
+   choice beside them); the tokens/s and peak memory of one batch-8
    translate; and Marian's decode step, eager and from a CUDA graph, with
    ``flash_decode``'s share of it;
 7. builds rwkv6-3b at full width (``resolve("rwkv6-3b", size="full")``,
@@ -371,16 +375,19 @@ def device_ms(fn, per_graph: int = 50, replays: int = 10) -> float:
 
 
 # --------------------------------------------------------------- phase 3 --
-def within_paths(what: str, kernel, want, tol: float, mod) -> None:
+def within_paths(what: str, kernel, want, tol: float, mod=None,
+                 paths=None) -> None:
     """``kernel(path)`` within ``tol`` of ``want`` on the plan's own path
-    and on every path the attention kernel module ``mod`` can be forced
-    to at this head dim: ``flash_attention``'s wgmma and mma.sync kernels,
+    and on every path it can be forced to: ``paths`` where given (the
+    scans'), else those the attention kernel module ``mod`` has at this
+    head dim: ``flash_attention``'s wgmma and mma.sync kernels,
     ``flash_decode``'s tensor-core and CUDA-core paths."""
-    d = _outputs(want)[0].shape[-1]
-    if hasattr(mod, "attention_plan"):
-        paths = ["mma"] + (["wgmma"] if d in mod.WGMMA_HEAD_DIMS else [])
-    else:
-        paths = ["cores"] + (["mma"] if d in mod.MMA_HEAD_DIMS else [])
+    if paths is None:
+        d = _outputs(want)[0].shape[-1]
+        if hasattr(mod, "attention_plan"):
+            paths = ["mma"] + (["wgmma"] if d in mod.WGMMA_HEAD_DIMS else [])
+        else:
+            paths = ["cores"] + (["mma"] if d in mod.MMA_HEAD_DIMS else [])
     for path in (None, *paths):
         within(f"{what} [{path or 'plan'}]", kernel(path), want, tol)
 
@@ -786,13 +793,13 @@ def check_window_cases(fa, da, gen):
     return cases + 1
 
 
-def wkv_inputs(gen, b, s, with_s0=False):
-    """rwkv6-3b-shaped WKV operands; log w clamped as the model clamps."""
-    r, k, v = (randn(gen, (b, s, WKV_H, WKV_P)) for _ in range(3))
-    log_w = -torch.clamp(torch.exp(randn(gen, (b, s, WKV_H, WKV_P))), 1e-4,
-                         2.5)
-    u = 0.5 * randn(gen, (WKV_H, WKV_P))
-    s0 = randn(gen, (b, WKV_H, WKV_P, WKV_P)) if with_s0 else None
+def wkv_inputs(gen, b, s, with_s0=False, h=WKV_H, p=WKV_P):
+    """rwkv6-3b-shaped WKV operands (``h`` heads of ``p``); log w clamped
+    as the model clamps."""
+    r, k, v = (randn(gen, (b, s, h, p)) for _ in range(3))
+    log_w = -torch.clamp(torch.exp(randn(gen, (b, s, h, p))), 1e-4, 2.5)
+    u = 0.5 * randn(gen, (h, p))
+    s0 = randn(gen, (b, h, p, p)) if with_s0 else None
     return (r, k, v, log_w, u, s0)
 
 
@@ -811,40 +818,75 @@ def ssd_inputs(gen, b, s, with_s0=False):
 
 def check_scan_kernels(wkv, ssd, gen):
     """The two scan kernels vs their plain versions at the LM prefill
-    shapes: every chunk length a prompt can give (1 for a prime length),
-    then every value tile the hosts can pick (``wkv_plan``'s and
-    ``ssd_plan``'s), forced through the wrappers' ``_launch``."""
+    shapes: every chunk length a prompt can give (1 for a prime length;
+    both kernels run blocks of their own whatever the chunk, and
+    ``ssd_scan``'s also above 128), the long prefill B=8 S=2048 and
+    ``rwkv6_wkv`` at head size 128; ``ssd_scan`` on the plan's kernel and
+    every kernel it can be forced to (``_launch(..., path=)``), then every
+    value tile its mma.sync kernel's host can pick (``ssd_plan``'s); then
+    a captured call of each replayed 100 times, bitwise equal every
+    time."""
     cases = 0
     for with_s0 in (False, True):
-        for b, s, chunk in ((1, 37, 1), (2, 49, 7), (1, 64, 32), (8, 64, 32)):
+        for b, s, chunk in ((1, 37, 1), (2, 49, 7), (1, 64, 32), (8, 64, 32),
+                            *([(8, 2048, 32)] if with_s0 else [])):
             args = wkv_inputs(gen, b, s, with_s0)
             within(f"rwkv6_wkv B={b} S={s} H={WKV_H} P={WKV_P} L={chunk} "
                    f"s0={with_s0}", wkv.rwkv6_wkv_cuda(*args, chunk=chunk),
                    wkv.rwkv6_wkv_plain(*args, chunk=chunk), WKV_TOL)
             cases += 1
         for b, s, chunk in ((1, 37, 1), (1, 37, 37), (2, 128, 64),
-                            (1, 256, 128)):
+                            (1, 256, 128), (1, 257, 1),
+                            *([(8, 2048, 128)] if with_s0 else [])):
             args = ssd_inputs(gen, b, s, with_s0)
-            within(f"ssd_scan B={b} S={s} H={SSD_H} P=N={SSD_P} L={chunk} "
-                   f"s0={with_s0}", ssd.ssd_scan_cuda(*args, chunk=chunk),
-                   ssd.ssd_scan_plain(*args, chunk=chunk), SSD_TOL)
+            within_paths(f"ssd_scan B={b} S={s} H={SSD_H} P=N={SSD_P} "
+                         f"L={chunk} s0={with_s0}",
+                         lambda p: ssd._launch(*args, chunk, path=p),
+                         ssd.ssd_scan_plain(*args, chunk=chunk), SSD_TOL,
+                         paths=ssd.ssd_paths(SSD_P, SSD_N, chunk))
             cases += 1
-    for p_tile in wkv.P_TILES:
-        for b, s, chunk in ((1, 37, 1), (2, 64, 32)):
-            args = wkv_inputs(gen, b, s, True)
-            within(f"rwkv6_wkv p_tile={p_tile} B={b} S={s} L={chunk}",
-                   wkv._launch(*args, chunk, p_tile),
-                   wkv.rwkv6_wkv_plain(*args, chunk=chunk), WKV_TOL)
-            cases += 1
+    for b, s, chunk in ((2, 53, 1), (1, 96, 32)):
+        args = wkv_inputs(gen, b, s, True, 4, 128)
+        within(f"rwkv6_wkv B={b} S={s} H=4 P=128 L={chunk} s0=True",
+               wkv.rwkv6_wkv_cuda(*args, chunk=chunk),
+               wkv.rwkv6_wkv_plain(*args, chunk=chunk), WKV_TOL)
+        cases += 1
     for b, s, chunk in ((1, 37, 1), (2, 128, 64), (1, 256, 128)):
         for pt in ssd.ssd_tiles(SSD_P, SSD_N, chunk):
             args = ssd_inputs(gen, b, s, True)
-            within(f"ssd_scan p_tile={pt} B={b} S={s} L={chunk}",
+            within(f"ssd_scan mma.sync p_tile={pt} B={b} S={s} L={chunk}",
                    ssd._launch(*args, chunk, pt),
                    ssd.ssd_scan_plain(*args, chunk=chunk), SSD_TOL)
             cases += 1
+    wargs, sargs = wkv_inputs(gen, 2, 64, True), ssd_inputs(gen, 2, 128, True)
+    for name, call in (
+            ("rwkv6_wkv", lambda: wkv.rwkv6_wkv_cuda(*wargs, chunk=32)),
+            ("ssd_scan", lambda: ssd.ssd_scan_cuda(*sargs, chunk=64))):
+        replays_equal(name, call)
+        cases += 1
     torch.cuda.synchronize()
     return cases
+
+
+def replays_equal(name: str, call, replays: int = 100) -> None:
+    """Capture one ``call`` in a CUDA graph, replay it ``replays`` times
+    and raise unless every replay's outputs equal the first's bitwise."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _outputs(call())
+    graph.replay()
+    first = [t.clone() for t in out]
+    for _ in range(replays - 1):
+        graph.replay()
+        if not all(torch.equal(a, b) for a, b in zip(out, first)):
+            raise AssertionError(f"{name}: a graph replay differs")
+    torch.cuda.synchronize()
+    log(f"  {name}: {replays} graph replays bitwise equal")
 
 
 # --------------------------------------------------------------- phase 4 --
@@ -1335,22 +1377,20 @@ def window_decode_case(da, gen, t, length, window):
     return row
 
 
-def wkv_case(wkv, gen, b, s):
-    """rwkv6_wkv over one rwkv6-3b prefill layer: batch ``b`` of ``s``
-    tokens from the zero state, at the chunk prefill picks (the largest
-    divisor of ``s`` up to 32: 1 for a prime ``s``).  Bound: r/k/v/log w
-    and y once each, u and the final state; FLOP of the triangular chunk
-    products and the state's two products."""
-    args = wkv_inputs(gen, b, s)
+def wkv_case(wkv, gen, b, s, h=WKV_H, p=WKV_P):
+    """rwkv6_wkv over one rwkv6-3b prefill layer (``h`` heads of ``p``):
+    batch ``b`` of ``s`` tokens from the zero state, at the chunk prefill
+    picks (the largest divisor of ``s`` up to 32: 1 for a prime ``s``).
+    Bound: r/k/v/log w and y once each, u and the final state; FLOP of
+    the kernel's own work (``wkv_flops``)."""
+    args = wkv_inputs(gen, b, s, False, h, p)
     chunk = max(d for d in range(1, 33) if s % d == 0)
-    p, h, nc = WKV_P, WKV_H, s // chunk
     nbytes = 4 * (5 * b * s * h * p + h * p + b * h * p * p)
-    flops = b * h * nc * (2 * chunk * (chunk - 1) * p + 4 * chunk * p * p
-                          + 3 * chunk * p + p * p)
     big = b * s > 1024
     row = time_case(lambda: wkv.rwkv6_wkv_cuda(*args, chunk=chunk),
                     lambda: wkv.rwkv6_wkv_plain(*args, chunk=chunk), None,
-                    nbytes, flops, per_graph=5 if big else 50,
+                    nbytes, wkv_flops(wkv, b, h, s, p),
+                    per_graph=5 if big else 50,
                     plain_per_graph=2 if big else 10)
     row["shape"] = f"B={b} S={s} H={h} P={p} L={chunk} f32"
     return row
@@ -1360,22 +1400,46 @@ def ssd_case(ssd, gen, b, s):
     """ssd_scan over one zamba2-1.2b prefill layer: batch ``b`` of ``s``
     tokens, one B/C group read for all 64 heads, at the chunk prefill
     picks.  Bound: x, dt, the one B/C group, y and the final state once
-    each; FLOP of the triangular scores, their product with x and the
-    state's two products."""
+    each; FLOP at the blocking of the kernel the plan picks
+    (``ssd_flops``)."""
     args = ssd_inputs(gen, b, s)
-    chunk = min(128, s)
-    p, n, h, nc = SSD_P, SSD_N, SSD_H, s // chunk
+    chunk = max(d for d in range(1, 129) if s % d == 0)
+    p, n, h = SSD_P, SSD_N, SSD_H
+    path = ssd.ssd_path(p, n, chunk)
     nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
                   + b * h * p * n)
-    flops = b * h * nc * (chunk * (chunk + 1) * (n + p + 2)
-                          + 4 * chunk * n * p + chunk * (n + p) + n * p)
+    flops = ssd_flops(b, h, s, p, n,
+                      ssd.WGMMA_STEPS if path == "wgmma" else chunk)
     big = b * s > 1024
     row = time_case(lambda: ssd.ssd_scan_cuda(*args, chunk=chunk),
                     lambda: ssd.ssd_scan_plain(*args, chunk=chunk), None,
                     nbytes, flops, per_graph=5 if big else 50,
-                    plain_per_graph=2 if big else 10)
+                    plain_per_graph=2 if big else 10,
+                    sweep=(lambda path: ssd._launch(*args, chunk, path=path),
+                           ssd.ssd_paths(p, n, chunk), path))
     row["shape"] = f"B={b} S={s} H={h} P=N={p} L={chunk} f32"
     return row
+
+
+def wkv_flops(wkv, b, h, s, p):
+    """FLOP of rwkv6_wkv as its kernel runs it, step by step in groups of
+    ``CORES_STEPS`` (the last one ragged): per (sequence, head) and step,
+    y's product with the state and the state's rank-one update (4 P^2),
+    the transform, bonus and its term in y (5 P); per group the state's
+    decay (P^2)."""
+    groups = -(-s // wkv.CORES_STEPS)
+    return b * h * (s * (4 * p * p + 5 * p) + groups * p * p)
+
+
+def ssd_flops(b, h, s, p, n, steps):
+    """FLOP of ssd_scan run in blocks of ``steps`` (the last one ragged):
+    per (sequence, head) and block of l steps, the triangular scores
+    C B^T and their product with x (l (l + 1) (N + P + 2), with the
+    decay weights), the state's two products (4 l N P), the per-step
+    scalings (l (N + P)) and the state's decay (N P)."""
+    blocks = [steps] * (s // steps) + ([s % steps] if s % steps else [])
+    return b * h * sum(l * (l + 1) * (n + p + 2) + 4 * l * n * p
+                       + l * (n + p) + n * p for l in blocks)
 
 
 KERNELS = {   # name -> (source, the TPU kernel's pallas_call)
@@ -1391,15 +1455,19 @@ KERNELS = {   # name -> (source, the TPU kernel's pallas_call)
 
 
 def scan_cases(gen):
-    """The scan kernels' timed cases: prefill at the serving shape, a long
-    prefill and (rwkv6_wkv) a prime prompt length, chunk 1."""
+    """The scan kernels' timed cases, each with every path it has: prefill
+    at the serving shape, a long prefill and a prime prompt length (chunk
+    1: rwkv6-3b at 37 steps, zamba2-1.2b at 257); ``rwkv6_wkv`` also at
+    rwkv6-3b's width in heads of 128 (no configuration's head size)."""
     from repro_torch.kernels import rwkv6_wkv as wkv
     from repro_torch.kernels import ssd_scan as ssd
     return [("rwkv6_wkv", wkv_case(wkv, gen, 1, 64)),
             ("rwkv6_wkv", wkv_case(wkv, gen, 8, 2048)),
             ("rwkv6_wkv", wkv_case(wkv, gen, 1, 37)),
+            ("rwkv6_wkv", wkv_case(wkv, gen, 8, 2048, 20, 128)),
             ("ssd_scan", ssd_case(ssd, gen, 1, 64)),
-            ("ssd_scan", ssd_case(ssd, gen, 8, 2048))]
+            ("ssd_scan", ssd_case(ssd, gen, 8, 2048)),
+            ("ssd_scan", ssd_case(ssd, gen, 1, 257))]
 
 
 def timings(gen):
@@ -1461,7 +1529,6 @@ def timings(gen):
             f"{r['eager_ms']:.5f}ms, bound {r['bound_ms']:.5f}ms by {by}, "
             f"plain {r['plain_ms']:.5f}ms, {lib} "
             f"(kernel vs plain {r['max_abs_err']:.2e}){sweep}")
-    tile_sweep(gen)
     rows, seen = [], set()
     for name, r in cases:
         if name not in seen:
@@ -1472,28 +1539,6 @@ def timings(gen):
     decode_ms = {r["batch"]: r["ms"] for name, r in cases
                  if name == "flash_decode" and "batch" in r}
     return rows, decode_ms
-
-
-def tile_sweep(gen):
-    """Device ms of every value tile of the two scan kernels at prefill's
-    serving shape (B=1, S=64) and a long prefill (B=8, S=2048): what
-    ``wkv_plan`` and ``ssd_plan`` choose between."""
-    from repro_torch.kernels import rwkv6_wkv as wkv
-    from repro_torch.kernels import ssd_scan as ssd
-    for b, s in ((1, 64), (8, 2048)):
-        per_graph = 5 if b * s > 1024 else 50
-        args = wkv_inputs(gen, b, s)
-        for pt in wkv.P_TILES:
-            ms = device_ms(lambda pt=pt: wkv._launch(*args, 32, pt),
-                           per_graph=per_graph)
-            log(f"  rwkv6_wkv B={b} S={s} p_tile={pt} "
-                f"({b * WKV_H * WKV_P // pt} blocks): device {ms:.5f}ms")
-        args, chunk = ssd_inputs(gen, b, s), min(128, s)
-        for pt in ssd.ssd_tiles(SSD_P, SSD_N, chunk):
-            ms = device_ms(lambda pt=pt: ssd._launch(*args, chunk, pt),
-                           per_graph=per_graph)
-            log(f"  ssd_scan B={b} S={s} p_tile={pt} "
-                f"({b * SSD_H * SSD_P // pt} blocks): device {ms:.5f}ms")
 
 
 def bound(nbytes: int, flops: int, dtype) -> dict:

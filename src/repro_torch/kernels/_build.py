@@ -35,8 +35,9 @@ _SIGNATURES = {
                              + [_F, _I, _I, _I, _P],
     "repro_flash_decode": [_P] * 10 + [_I] * 8 + [_I64] * 10
                           + [_F, _I, _I, _P],
-    "repro_rwkv6_wkv": [_P] * 8 + [_I] * 6 + [_I64] * 15 + [_P],
+    "repro_rwkv6_wkv": [_P] * 8 + [_I] * 4 + [_I64] * 15 + [_P],
     "repro_ssd_scan": [_P] * 8 + [_I] * 7 + [_I64] * 15 + [_P],
+    "repro_ssd_scan_ws": [_P] * 8 + [_I] * 5 + [_I64] * 15 + [_P],
 }
 
 

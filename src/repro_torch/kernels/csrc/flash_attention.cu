@@ -1077,28 +1077,6 @@ cudaError_t dispatch_bq(int BQ, const void* q, const void* k, const void* v,
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault,
-                                         &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // A (B, T, Hkv, D) operand with element strides (sb, st, sh) as a 4-D
 // tensor map whose box is 128 bytes of one row by `box_rows` keys, 128-byte
 // swizzled.  Outer dimensions go in increasing stride: (d, t, head, b) when
@@ -1108,27 +1086,12 @@ template <typename T>
 cudaError_t kv_map(CUtensorMap* map, const void* ptr, int D, int T_len,
                    int Hkv, int B, int64_t sb, int64_t st, int64_t sh,
                    int box_rows, int kv_order) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t e = sizeof(T);
-  const cuuint64_t dims[4] = {
-      (cuuint64_t)D, (cuuint64_t)(kv_order ? Hkv : T_len),
-      (cuuint64_t)(kv_order ? T_len : Hkv), (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)(kv_order ? sh : st) * e,
-                                 (cuuint64_t)(kv_order ? st : sh) * e,
-                                 (cuuint64_t)sb * e};
-  const cuuint32_t box[4] = {(cuuint32_t)(128 / e),
-                             (cuuint32_t)(kv_order ? 1 : box_rows),
-                             (cuuint32_t)(kv_order ? box_rows : 1), 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  const CUresult r = enc(
+  return repro::sm90::rows_map(
       map,
       sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      4, const_cast<void*>(ptr), dims, strides, box, estr,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+      (int)sizeof(T), ptr, D, T_len, Hkv, B, sb, st, sh, 128 / (int)sizeof(T),
+      box_rows, true, kv_order);
 }
 
 template <typename T, int D>

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the warp-specialised attention kernel
-// (flash_attention.cu): mbarriers, TMA tile loads, wgmma descriptors and
-// the wgmma products it issues, written as inline PTX.
+// Hopper (sm_90a) building blocks of the warp-specialised kernels
+// (flash_attention.cu, ssd_scan.cu, rwkv6_wkv.cu): mbarriers, TMA tile
+// loads and the host's tensor-map encoding, wgmma descriptors and the
+// wgmma products they issue, written as inline PTX.
 //
 // Shared-memory tiles are kept in the 128-byte swizzled layout that TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B writes and wgmma's B128 descriptors read: a
@@ -26,6 +27,7 @@
 // 2q+8..)}, tf32 m64nNk8 {(g, q), (g+8, q), (g, q+4), (g+8, q+4)}.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -444,6 +446,87 @@ struct Wgmma<128, false> {
   }
 };
 
+// ------------------------------------------------------- host: tensor maps
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled tma_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A (batch, rows, heads, inner) operand of `elem`-byte elements of `type`
+// with element strides (s_batch, s_row, s_head, 1) as a 4-D tensor map
+// whose box is `box_inner` elements of one row by `box_rows` rows of one
+// head and batch; rows past `rows` are zero-filled.  `order` 0 lays the
+// outer dimensions out as (inner, row, head, batch), 1 as (inner, head,
+// row, batch).  `swizzle`: 128-byte swizzled (box_inner * elem = 128),
+// else rows land dense.
+inline cudaError_t rows_map(CUtensorMap* map, CUtensorMapDataType type,
+                            int elem, const void* ptr, int inner, int rows,
+                            int heads, int batch, int64_t s_batch,
+                            int64_t s_row, int64_t s_head, int box_inner,
+                            int box_rows, bool swizzle, int order) {
+  const EncodeTiled enc = tma_encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)inner,
+                              (cuuint64_t)(order ? heads : rows),
+                              (cuuint64_t)(order ? rows : heads),
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)(order ? s_head : s_row) * elem,
+                                 (cuuint64_t)(order ? s_row : s_head) * elem,
+                                 (cuuint64_t)s_batch * elem};
+  const cuuint32_t box[4] = {(cuuint32_t)box_inner,
+                             (cuuint32_t)(order ? 1 : box_rows),
+                             (cuuint32_t)(order ? box_rows : 1), 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = enc(
+      map, type, 4, const_cast<void*>(ptr), dims, strides, box, estr,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// rows_map of a float32 operand, with the outer dimensions in increasing
+// stride: *order = 1 when the head stride is the smaller, else 0.  A head
+// stride of 0 (one group expanded over the heads) maps a single head: the
+// caller passes head coordinate 0.
+inline cudaError_t f32_rows_map(CUtensorMap* map, const void* ptr, int inner,
+                                int rows, int heads, int batch,
+                                int64_t s_batch, int64_t s_row,
+                                int64_t s_head, int box_inner, int box_rows,
+                                bool swizzle, int* order) {
+  if (s_head == 0) heads = 1, s_head = s_batch;
+  *order = s_head < s_row ? 1 : 0;
+  return rows_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, inner, rows,
+                  heads, batch, s_batch, s_row, s_head, box_inner, box_rows,
+                  swizzle, *order);
+}
+
+// The box of `map` at row t0 of head `head` (0 where the map has one) and
+// batch b, in the coordinate order the map was built in, at inner offset
+// c0.
+__device__ __forceinline__ void tma_load_rows(void* dst, const void* map,
+                                              uint64_t* bar, int order,
+                                              int c0, int t0, int head,
+                                              int b) {
+  tma_load_4d(dst, map, bar, c0, order ? head : t0, order ? t0 : head, b);
+}
 
 }  // namespace sm90
 }  // namespace repro

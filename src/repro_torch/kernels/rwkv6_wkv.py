@@ -1,10 +1,10 @@
 """RWKV6 chunked WKV: the CUDA kernel's wrapper and its plain version.
 
 Port of ``repro/kernels/rwkv6_wkv.py`` (the Pallas TPU kernel
-``rwkv6_wkv``).  The kernel itself is ``csrc/rwkv6_wkv.cu`` (value-tiled
-blocks, 3 x TF32 tensor-core products, pipelined chunk loads); its
-header says what bounds it on the H100 and what it leaves for later.
-:func:`wkv_plan` is its host-side block plan.
+``rwkv6_wkv``).  The kernel itself is ``csrc/rwkv6_wkv.cu``: the
+recurrence step by step on the CUDA cores in float32, fed by a ring of
+TMA loads; its header says what bounds it on the H100, what was tried
+and lost, and what it leaves for later.
 
 Semantics, shared by the kernel and :func:`rwkv6_wkv_plain`:
 
@@ -14,41 +14,31 @@ Semantics, shared by the kernel and :func:`rwkv6_wkv_plain`:
   reference asserts); within a chunk the per-channel decay factorizes
   through r e^{cum_{t-1}} and k e^{-cum}, which stays finite only for a
   chunk of at most 32 steps under the caller's ``|log w| <= 2.5`` clamp
-  (the kernel refuses longer chunks).
+  (the wrapper refuses longer chunks).  The recurrence composes exactly
+  over any blocking of the steps, so the kernel runs groups of its own
+  (:data:`CORES_STEPS`, the last one ragged, whatever the caller's chunk)
+  and is held to the plain version at the caller's chunk.
 """
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import SMS
 
 DEFAULT_CHUNK = 32
 MAX_CHUNK = 32        # e^{2.5 * 32} < float32 max: the chunk bound of the clamp
 HEAD_SIZES = (16, 32, 64, 128)   # head sizes the kernel takes
-P_TILES = (64, 32, 16)           # value columns per block it is built for
-# a plan needs this many blocks to count as filling the card: one per two
-# SMs (at B=1, S=64, fewer wider blocks beat 132 narrow ones, PERF.md)
-MIN_BLOCKS = SMS // 2
+CORES_STEPS = 16                  # its steps per group (one ring slot)
 
 
-@functools.lru_cache(maxsize=256)
-def wkv_plan(b: int, h: int, p: int) -> int:
-    """Value columns per block (``p_tile``) of the kernel's grid of
-    ``b * h * p / p_tile`` blocks: block i owns value columns
-    ``[p_tile * j, p_tile * (j + 1))`` of head ``i // (p / p_tile) % h``
-    of sequence ``i // (h * p / p_tile)``, with ``j = i % (p / p_tile)``.
-    The widest tile (the least recomputed prefix sums and scores) that
-    still gives :data:`MIN_BLOCKS` blocks, else the narrowest (the most
-    blocks).  A plain function of the shape."""
-    tiles = [pt for pt in P_TILES if p % pt == 0]
-    for pt in tiles:
-        if b * h * (p // pt) >= MIN_BLOCKS:
-            return pt
-    return tiles[-1]
+def cores_tile(p: int) -> int:
+    """Value columns per block of the kernel (``cores::qt`` in the .cu):
+    block i of its ``b * h * p / cores_tile(p)`` owns columns ``[t * j,
+    t * (j + 1))`` of head ``i // (p / t) % h`` of sequence ``i // (h * p
+    / t)``, with ``t = cores_tile(p)`` and ``j = i % (p / t)``, and runs
+    every step of that sequence in groups of :data:`CORES_STEPS`."""
+    return min(32, p)
 
 
 def _check_shapes(r, k, v, log_w, u, s0, chunk):
@@ -101,16 +91,8 @@ def rwkv6_wkv_cuda(r, k, v, log_w, u, s0=None, *,
 
     Takes float32 CUDA tensors only and raises on anything the kernel
     does not take; (B,S,H,P) inputs are read through their strides, with
-    rows 16-byte aligned.  :func:`wkv_plan` picks the value columns per
-    block from the shape.  Builds the kernel library at first use.
+    rows 16-byte aligned.  Builds the kernel library at first use.
     """
-    return _launch(r, k, v, log_w, u, s0, chunk, None)
-
-
-def _launch(r, k, v, log_w, u, s0, chunk, p_tile):
-    """:func:`rwkv6_wkv_cuda` with its value tile forced to ``p_tile`` (one
-    of :data:`P_TILES` dividing P; None: :func:`wkv_plan`'s), so every
-    tile can be checked on the card."""
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_wkv_cuda needs CUDA tensors, got {r.device}")
     _check_shapes(r, k, v, log_w, u, s0, chunk)
@@ -131,25 +113,20 @@ def _launch(r, k, v, log_w, u, s0, chunk, p_tile):
         if x.stride(-1) != 1:
             raise ValueError(f"{name} needs a contiguous last dimension")
     for name in ("r", "k", "v", "log_w"):
-        x = named[name]   # the kernel stages rows with 16-byte copies
+        x = named[name]   # the kernel loads rows through TMA tensor maps
         if x.data_ptr() % 16 or any(st % 4 for st in x.stride()[:3]):
             raise ValueError(f"{name} rows are not 16-byte aligned")
-    if p_tile is None:
-        p_tile = wkv_plan(b, h, p)
-    elif p_tile not in P_TILES or p % p_tile:
-        raise ValueError(f"p_tile {p_tile} not in {P_TILES} or does not "
-                         f"divide {p}")
     u = u.contiguous()
     s0 = None if s0 is None else s0.contiguous()
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=r.device)
     s_out = torch.empty((b, h, p, p), dtype=torch.float32, device=r.device)
     lib = _build.load_library()
-    rc = lib.repro_rwkv6_wkv(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
-        u.data_ptr(), None if s0 is None else s0.data_ptr(), y.data_ptr(),
-        s_out.data_ptr(), b, s, h, p, chunk, p_tile,
-        *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *log_w.stride()[:3], *y.stride()[:3],
-        torch.cuda.current_stream(r.device).cuda_stream)
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+            u.data_ptr(), None if s0 is None else s0.data_ptr(), y.data_ptr(),
+            s_out.data_ptr())
+    strides = (*r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *log_w.stride()[:3], *y.stride()[:3])
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    rc = lib.repro_rwkv6_wkv(*ptrs, b, s, h, p, *strides, stream)
     _build.check(rc, "rwkv6_wkv")
     return y, s_out

@@ -1,10 +1,14 @@
 """Mamba2 SSD chunked scan: the CUDA kernel's wrapper and its plain version.
 
 Port of ``repro/kernels/ssd_scan.py`` (the Pallas TPU kernel
-``ssd_scan``).  The kernel itself is ``csrc/ssd_scan.cu`` (value-tiled
-blocks, 3 x TF32 tensor-core products, pipelined chunk loads); its
-header says what bounds it on the H100 and what it leaves for later.
-:func:`ssd_plan` picks its value tile on the host.
+``ssd_scan``).  The kernels themselves are in ``csrc/ssd_scan.cu``: a
+warp-specialised ``wgmma`` kernel fed by TMA (zamba2's P = N = 64; blocks
+of 64 steps, the last one ragged, whatever the caller's chunk) and the
+``mma.sync`` kernel it grew from (value-tiled blocks at the caller's
+chunk), both 3 x TF32; its header says what bounds them on the H100 and
+what they leave for later.  :func:`ssd_path` picks the kernel and
+:func:`ssd_plan` the ``mma.sync`` kernel's value tile, both on the host
+from the shape alone.
 
 Semantics, shared by the kernel and :func:`ssd_scan_plain`:
 
@@ -12,8 +16,11 @@ Semantics, shared by the kernel and :func:`ssd_scan_plain`:
   A = -exp(a_log), b_in/c_in (B,S,H,N), s0 (B,H,P,N) or None (zero
   state) -> (y (B,S,H,P) float32, s_final (B,H,P,N) float32);
 * the sequence is cut into S / chunk chunks (``S % chunk == 0``, as the
-  reference asserts).  The state is (P,N) at this API, as in the
-  reference's; the kernel keeps it (N,P) inside.
+  reference asserts).  The scan is linear with a scalar decay, so any
+  blocking of the steps composes exactly: the wgmma kernel runs blocks
+  of its own (:data:`WGMMA_STEPS`) and is held to the plain version at
+  the caller's chunk.  The state is (P,N) at this API, as in the
+  reference's.
 * B/C may arrive expanded over the heads (a head stride of 0, one
   group): the kernel reads them in place.
 * the prefix sums of the log decay are taken in float64 (the reference
@@ -37,6 +44,8 @@ DEFAULT_CHUNK = 64
 MIN_BLOCKS = SMS // 2
 _SMEM_LIMIT = 232448     # bytes of shared memory one H100 block may use
 P_TILES = (64, 32, 16)   # value columns per block the kernel is built for
+WGMMA_SHAPES = ((64, 64),)   # the (P, N) the wgmma kernel is built for
+WGMMA_STEPS = 64             # its steps per block: one warpgroup's rows
 
 
 def _smem_bytes(pt: int, n: int, chunk: int) -> int:
@@ -72,6 +81,27 @@ def ssd_plan(b: int, h: int, p: int, n: int, chunk: int) -> int:
         if b * h * (p // pt) >= MIN_BLOCKS:
             return pt
     return tiles[-1]
+
+
+def ssd_paths(p: int, n: int, chunk: int) -> tuple:
+    """Every kernel that takes this shape: ``"wgmma"`` at the (P, N) of
+    :data:`WGMMA_SHAPES`, ``"mma"`` where a value tile fits."""
+    return tuple(path for path, ok in (
+        ("wgmma", (p, n) in WGMMA_SHAPES),
+        ("mma", bool(ssd_tiles(p, n, chunk)))) if ok)
+
+
+def ssd_path(p: int, n: int, chunk: int) -> str:
+    """The kernel for a call, a plain function of the shape: the wgmma
+    kernel wherever it has the (P, N) (chip_smoke.py phase 6 times both
+    kernels at every scan shape; it won at each, from B=1 S=37 to B=8
+    S=2048), else the mma.sync kernel."""
+    paths = ssd_paths(p, n, chunk)
+    if not paths:
+        raise ValueError(f"P={p} N={n} chunk={chunk}: no kernel takes it "
+                         f"(P must be a multiple of 16, N of 8, and the "
+                         f"tiles {_SMEM_LIMIT} bytes of shared memory)")
+    return paths[0]
 
 
 def _check_shapes(x, dt, a_log, b_in, c_in, s0, chunk):
@@ -130,18 +160,21 @@ def ssd_scan_cuda(x, dt, a_log, b_in, c_in, s0=None, *,
                   chunk: int = DEFAULT_CHUNK):
     """Launch ``csrc/ssd_scan.cu`` on PyTorch's current stream.
 
-    Takes float32 CUDA tensors only and raises on anything the kernel
-    does not take; (B,S,H,·) inputs are read through their strides, with
-    x, b_in and c_in rows 16-byte aligned.  :func:`ssd_plan` picks the
-    value tile from the shape.  Builds the kernel library at first use.
+    Takes float32 CUDA tensors only and raises on anything the kernels
+    do not take; (B,S,H,·) inputs are read through their strides, with
+    x, b_in and c_in rows 16-byte aligned.  :func:`ssd_path` picks the
+    kernel and :func:`ssd_plan` the mma.sync kernel's value tile from the
+    shape.  Builds the kernel library at first use.
     """
-    return _launch(x, dt, a_log, b_in, c_in, s0, chunk, None)
+    return _launch(x, dt, a_log, b_in, c_in, s0, chunk)
 
 
-def _launch(x, dt, a_log, b_in, c_in, s0, chunk, p_tile):
-    """:func:`ssd_scan_cuda` with its value tile forced to ``p_tile`` (one
-    of :func:`ssd_tiles`; None: :func:`ssd_plan`'s), so every tile can be
-    checked on the card."""
+def _launch(x, dt, a_log, b_in, c_in, s0, chunk, p_tile=None, path=None):
+    """:func:`ssd_scan_cuda` with its kernel forced to ``path`` (one of
+    :func:`ssd_paths`; None: :func:`ssd_path`'s) and the mma.sync
+    kernel's value tile to ``p_tile`` (one of :func:`ssd_tiles`; None:
+    :func:`ssd_plan`'s), so every path and tile can be checked on the
+    card."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_cuda needs CUDA tensors, got {x.device}")
     _check_shapes(x, dt, a_log, b_in, c_in, s0, chunk)
@@ -164,22 +197,33 @@ def _launch(x, dt, a_log, b_in, c_in, s0, chunk, p_tile):
         # the kernel stages rows with 16-byte copies
         if t.data_ptr() % 16 or any(st % 4 for st in t.stride()[:3]):
             raise ValueError(f"{name} rows are not 16-byte aligned")
-    if p_tile is None:
-        p_tile = ssd_plan(bsz, h, p, n, chunk)
-    elif p_tile not in ssd_tiles(p, n, chunk):
-        raise ValueError(f"p_tile {p_tile} does not fit P={p} N={n} "
-                         f"chunk={chunk}")
+    if path is None:
+        path = "mma" if p_tile is not None else ssd_path(p, n, chunk)
+    if path not in ssd_paths(p, n, chunk) or (path == "wgmma"
+                                              and p_tile is not None):
+        raise ValueError(f"path {path!r} does not take P={p} N={n} "
+                         f"chunk={chunk} (p_tile={p_tile})")
+    if path == "mma":
+        if p_tile is None:
+            p_tile = ssd_plan(bsz, h, p, n, chunk)
+        elif p_tile not in ssd_tiles(p, n, chunk):
+            raise ValueError(f"p_tile {p_tile} does not fit P={p} N={n} "
+                             f"chunk={chunk}")
     a_log = a_log.contiguous()
     s0 = None if s0 is None else s0.contiguous()
     y = torch.empty((bsz, s, h, p), dtype=torch.float32, device=x.device)
     s_out = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     lib = _build.load_library()
-    rc = lib.repro_ssd_scan(
-        x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b_in.data_ptr(),
-        c_in.data_ptr(), None if s0 is None else s0.data_ptr(), y.data_ptr(),
-        s_out.data_ptr(), bsz, s, h, p, n, chunk, p_tile,
-        *x.stride()[:3], *dt.stride(), *b_in.stride()[:3],
-        *c_in.stride()[:3], *y.stride()[:3],
-        torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = (x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b_in.data_ptr(),
+            c_in.data_ptr(), None if s0 is None else s0.data_ptr(),
+            y.data_ptr(), s_out.data_ptr())
+    strides = (*x.stride()[:3], *dt.stride(), *b_in.stride()[:3],
+               *c_in.stride()[:3], *y.stride()[:3])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if path == "wgmma":
+        rc = lib.repro_ssd_scan_ws(*ptrs, bsz, s, h, p, n, *strides, stream)
+    else:
+        rc = lib.repro_ssd_scan(*ptrs, bsz, s, h, p, n, chunk, p_tile,
+                                *strides, stream)
     _build.check(rc, "ssd_scan")
     return y, s_out

@@ -338,12 +338,11 @@ def _assert_scan_close(got, want, tol):
 
 @pytest.mark.parametrize("with_s0", [False, True])
 @pytest.mark.parametrize("s,chunk", [(37, 1), (49, 7), (64, 32)])
-@pytest.mark.parametrize("p,p_tile", [(64, 16), (64, 32), (64, 64),
-                                      (128, 64), (32, 32), (16, 16)])
-def test_rwkv6_wkv_every_plan_matches_plain(dev, with_s0, s, chunk, p,
-                                            p_tile):
+@pytest.mark.parametrize("p", wkv.HEAD_SIZES)
+def test_rwkv6_wkv_every_plan_matches_plain(dev, with_s0, s, chunk, p):
+    """Every head size the kernel takes, at chunks 1, 7 and 32."""
     args = _wkv_args(dev, 2, s, 3, p, with_s0)
-    got = wkv._launch(*args, chunk, p_tile)
+    got = wkv.rwkv6_wkv_cuda(*args, chunk=chunk)
     want = wkv.rwkv6_wkv_plain(*args, chunk=chunk)
     torch.cuda.synchronize()
     _assert_scan_close(got, want, 2e-4)
@@ -376,6 +375,50 @@ def test_ssd_scan_per_head_b_c_every_tile(dev, pt, n, chunk):
         ssd._launch(*args, chunk, 64)
 
 
+# every path of ssd_scan (the plan's, each forced) and rwkv6_wkv, at the
+# models' shapes and ragged ones: zamba2-1.2b's heads at chunk 128 and a
+# prime prompt (chunk 1, blocks of 64 with a 3-step tail), rwkv6-3b's at
+# chunk 32 and a prime prompt, per-head B/C, and the other head sizes
+@pytest.mark.parametrize("path", [None, "wgmma", "mma"])
+@pytest.mark.parametrize("b,s,h,chunk,shared_bc", [
+    (2, 256, 64, 128, True),
+    (1, 131, 64, 1, True),
+    (2, 100, 3, 50, False),
+])
+def test_ssd_scan_every_path_matches_plain(dev, path, b, s, h, chunk,
+                                           shared_bc):
+    args = _ssd_args(dev, b, s, h, 64, 64, True, shared_bc=shared_bc)
+    got = ssd._launch(*args, chunk, path=path)
+    want = ssd.ssd_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    _assert_scan_close(got, want, 3e-4)
+
+
+@pytest.mark.parametrize("b,s,h,p,chunk,with_s0", [
+    (2, 96, 40, 64, 32, True),
+    (1, 37, 40, 64, 1, True),
+    (2, 53, 3, 32, 1, False),
+    (1, 49, 4, 16, 7, True),
+    (2, 53, 3, 128, 1, True),
+])
+def test_rwkv6_wkv_matches_plain_at_model_shapes(dev, b, s, h, p, chunk,
+                                                 with_s0):
+    args = _wkv_args(dev, b, s, h, p, with_s0)
+    got = wkv.rwkv6_wkv_cuda(*args, chunk=chunk)
+    want = wkv.rwkv6_wkv_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    _assert_scan_close(got, want, 2e-4)
+
+
+def test_scan_paths_refuse_what_they_do_not_take(dev):
+    sargs = _ssd_args(dev, 1, 16, 2, 32, 16, False)
+    with pytest.raises(ValueError, match="path"):   # wgmma: P = N = 64 only
+        ssd._launch(*sargs, 8, path="wgmma")
+    wargs = _wkv_args(dev, 1, 8, 2, 8, False)
+    with pytest.raises(ValueError, match="head size"):   # P 16 to 128
+        wkv.rwkv6_wkv_cuda(*wargs, chunk=8)
+
+
 def test_scan_kernels_are_bitwise_repeatable(dev):
     wargs = _wkv_args(dev, 2, 96, 40, 64, True)
     first = wkv.rwkv6_wkv_cuda(*wargs, chunk=32)
@@ -390,16 +433,16 @@ def test_scan_kernels_are_bitwise_repeatable(dev):
 
 def test_scan_kernels_graph_capture_after_a_smaller_launch(dev):
     """The first launches are small (under 48 KB of shared memory); a graph
-    captured afterwards at zamba2's chunk of 128 (230 KB) and rwkv6-3b's
-    widest tile still replays right."""
+    captured afterwards at zamba2's chunk of 128 (230 KB) and rwkv6's head
+    size 128 (82 KB) still replays right."""
     ssd.ssd_scan_cuda(*_ssd_args(dev, 1, 8, 2, 16, 8, False), chunk=8)
     wkv.rwkv6_wkv_cuda(*_wkv_args(dev, 1, 4, 1, 16, False), chunk=4)
     sargs = _ssd_args(dev, 1, 256, 64, 64, 64, True)
-    wargs = _wkv_args(dev, 2, 64, 40, 64, True)
+    wargs = _wkv_args(dev, 2, 64, 4, 128, True)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         s_out = ssd._launch(*sargs, 128, 64)
-        w_out = wkv._launch(*wargs, 32, 64)
+        w_out = wkv.rwkv6_wkv_cuda(*wargs, chunk=32)
     graph.replay()
     torch.cuda.synchronize()
     _assert_scan_close(s_out, ssd.ssd_scan_plain(*sargs, chunk=128), 3e-4)
