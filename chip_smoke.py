@@ -14,7 +14,9 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    main paths' shapes: the attention kernels at Marian's 8 heads and
    zamba2's 32 (float32 within 2e-5, bfloat16 within 2e-2), ``rwkv6_wkv``
    at rwkv6-3b's 40 heads of 64 (within 2e-4) and ``ssd_scan`` at
-   zamba2's 64 heads of P = N = 64 (within 3e-4), at the chunk lengths
+   zamba2's 64 heads of P = N = 64 (within 3e-4), the scans against the
+   float64 run of their plain versions (the float32 run's own gap to it
+   printed beside each case, not gated), at the chunk lengths
    prefill meets (a prime length above 128 too, and B=8 S=2048), with and
    without an initial state (``rwkv6_wkv`` also at head size 128;
    ``ssd_scan`` on the plan's kernel and every one it can be forced to,
@@ -230,6 +232,19 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    moments) at the deepest cut the dry run's bytes and the 4-layer
    run's peak say fits (all 36 layers where they do), each with ms a
    step, the device busy share, the peak memory and a falling loss.
+20. (run after phase 19, before phases 11-12) the examples' launchers,
+   ``repro_torch.launch.<name>.main()`` in process with
+   ``REPRO_SMOKE=1``: ``quickstart`` and ``fault_tolerant_serving`` as
+   they are, ``partitioned_serving``, ``collaborative_serving`` and
+   ``multitier_serving`` with the BiLSTM de-en at ``--scale 1.0``, and
+   ``big_model_serving --size full`` (qwen3-8b as the cloud tier and
+   rwkv6-3b as the edge, both whole in float32), every kernel call held
+   against its plain version (``checked_kernels``; the scans against
+   the float64 run).  It checks each result (every request of the
+   smoke streams served or accounted for, finite latencies, full token
+   rows) and that ``big_model_serving`` launched ``flash_attention``,
+   ``flash_decode`` and ``rwkv6_wkv``; it prints each launcher's wall
+   time, launches and engine stats, and the phase's peak memory.
 
 It prints one JSON line of kernel numbers (each kernel's launches summed
 over the main paths that run it) and, last, the line
@@ -816,47 +831,70 @@ def ssd_inputs(gen, b, s, with_s0=False):
     return (x, dt, a_log, b_in, c_in, s0)
 
 
+def twin_gap(got, exact) -> float:
+    """Max abs difference of each output of ``got`` from ``exact``'s, the
+    float64 one cast to ``got``'s dtype first."""
+    return max(max_err(a, b.to(a.dtype))
+               for a, b in zip(_outputs(got), _outputs(exact)))
+
+
+def float64_twin(what, plain, args, chunk):
+    """The yardstick of a scan check: ``plain`` (a scan's plain twin) run
+    in float64 on ``args``, cast back to float32.  Logs the float32
+    twin's own gap to it beside the check, for the record, not as a
+    gate: at rwkv6-3b's |y| ~ 90 the float32 twin at chunk 32 is up to
+    2.3e-4 off, past ``WKV_TOL``."""
+    exact = tuple(t.float() for t in plain(*args, chunk=chunk,
+                                           dtype=torch.float64))
+    log(f"  {what}: float32 twin's gap to the float64 twin "
+        f"{twin_gap(plain(*args, chunk=chunk), exact):.3e}")
+    return exact
+
+
 def check_scan_kernels(wkv, ssd, gen):
-    """The two scan kernels vs their plain versions at the LM prefill
-    shapes: every chunk length a prompt can give (1 for a prime length;
-    both kernels run blocks of their own whatever the chunk, and
-    ``ssd_scan``'s also above 128), the long prefill B=8 S=2048 and
-    ``rwkv6_wkv`` at head size 128; ``ssd_scan`` on the plan's kernel and
-    every kernel it can be forced to (``_launch(..., path=)``), then every
-    value tile its mma.sync kernel's host can pick (``ssd_plan``'s); then
-    a captured call of each replayed 100 times, bitwise equal every
-    time."""
+    """The two scan kernels vs the float64 runs of their plain versions
+    (:func:`float64_twin`) at the LM prefill shapes: every chunk length a
+    prompt can give (1 for a prime length; both kernels run blocks of
+    their own whatever the chunk, and ``ssd_scan``'s also above 128), the
+    long prefill B=8 S=2048 and ``rwkv6_wkv`` at head size 128;
+    ``ssd_scan`` on the plan's kernel and every kernel it can be forced to
+    (``_launch(..., path=)``), then every value tile its mma.sync kernel's
+    host can pick (``ssd_plan``'s); then a captured call of each replayed
+    100 times, bitwise equal every time."""
     cases = 0
     for with_s0 in (False, True):
         for b, s, chunk in ((1, 37, 1), (2, 49, 7), (1, 64, 32), (8, 64, 32),
                             *([(8, 2048, 32)] if with_s0 else [])):
             args = wkv_inputs(gen, b, s, with_s0)
-            within(f"rwkv6_wkv B={b} S={s} H={WKV_H} P={WKV_P} L={chunk} "
-                   f"s0={with_s0}", wkv.rwkv6_wkv_cuda(*args, chunk=chunk),
-                   wkv.rwkv6_wkv_plain(*args, chunk=chunk), WKV_TOL)
+            what = (f"rwkv6_wkv B={b} S={s} H={WKV_H} P={WKV_P} L={chunk} "
+                    f"s0={with_s0}")
+            within(what, wkv.rwkv6_wkv_cuda(*args, chunk=chunk),
+                   float64_twin(what, wkv.rwkv6_wkv_plain, args, chunk),
+                   WKV_TOL)
             cases += 1
         for b, s, chunk in ((1, 37, 1), (1, 37, 37), (2, 128, 64),
                             (1, 256, 128), (1, 257, 1),
                             *([(8, 2048, 128)] if with_s0 else [])):
             args = ssd_inputs(gen, b, s, with_s0)
-            within_paths(f"ssd_scan B={b} S={s} H={SSD_H} P=N={SSD_P} "
-                         f"L={chunk} s0={with_s0}",
-                         lambda p: ssd._launch(*args, chunk, path=p),
-                         ssd.ssd_scan_plain(*args, chunk=chunk), SSD_TOL,
-                         paths=ssd.ssd_paths(SSD_P, SSD_N, chunk))
+            what = (f"ssd_scan B={b} S={s} H={SSD_H} P=N={SSD_P} L={chunk} "
+                    f"s0={with_s0}")
+            within_paths(what, lambda p: ssd._launch(*args, chunk, path=p),
+                         float64_twin(what, ssd.ssd_scan_plain, args, chunk),
+                         SSD_TOL, paths=ssd.ssd_paths(SSD_P, SSD_N, chunk))
             cases += 1
     for b, s, chunk in ((2, 53, 1), (1, 96, 32)):
         args = wkv_inputs(gen, b, s, True, 4, 128)
-        within(f"rwkv6_wkv B={b} S={s} H=4 P=128 L={chunk} s0=True",
-               wkv.rwkv6_wkv_cuda(*args, chunk=chunk),
-               wkv.rwkv6_wkv_plain(*args, chunk=chunk), WKV_TOL)
+        what = f"rwkv6_wkv B={b} S={s} H=4 P=128 L={chunk} s0=True"
+        within(what, wkv.rwkv6_wkv_cuda(*args, chunk=chunk),
+               float64_twin(what, wkv.rwkv6_wkv_plain, args, chunk), WKV_TOL)
         cases += 1
     for b, s, chunk in ((1, 37, 1), (2, 128, 64), (1, 256, 128)):
         for pt in ssd.ssd_tiles(SSD_P, SSD_N, chunk):
             args = ssd_inputs(gen, b, s, True)
-            within(f"ssd_scan mma.sync p_tile={pt} B={b} S={s} L={chunk}",
-                   ssd._launch(*args, chunk, pt),
-                   ssd.ssd_scan_plain(*args, chunk=chunk), SSD_TOL)
+            what = f"ssd_scan mma.sync p_tile={pt} B={b} S={s} L={chunk}"
+            within(what, ssd._launch(*args, chunk, pt),
+                   float64_twin(what, ssd.ssd_scan_plain, args, chunk),
+                   SSD_TOL)
             cases += 1
     wargs, sargs = wkv_inputs(gen, 2, 64, True), ssd_inputs(gen, 2, 128, True)
     for name, call in (
@@ -919,15 +957,21 @@ CALL_TOL = {"flash_attention": F32_TOL, "flash_decode": F32_TOL,
             "rwkv6_wkv": WKV_TOL, "ssd_scan": SSD_TOL}
 
 
+SCANS = ("rwkv6_wkv", "ssd_scan")
+
+
 @contextlib.contextmanager
 def checked_kernels(worst):
     """While active, each kernel wrapper runs and counts its launch as on
     the main path, and each CUDA launch is followed by the kernel's plain
-    version on the same inputs: every output must be finite and within
-    ``CALL_TOL`` (``BF16_TOL`` for a bf16 output) x max(1, max |plain|) of
-    the plain one (the max over values under 1e29: an empty row's m is
-    the -1e30 sentinel, which the kernel must then return too).  ``worst`` gathers per kernel the calls checked and the
-    call nearest its limit.  Raises at the first call out of it."""
+    version on the same inputs (a scan's run in float64: its float32 run
+    is logged beside, in ``worst``, not gated): every output must be
+    finite and within ``CALL_TOL`` (``BF16_TOL`` for a bf16 output) x
+    max(1, max |plain|) of the plain one (the max over values under 1e29:
+    an empty row's m is the -1e30 sentinel, which the kernel must then
+    return too).  ``worst`` gathers per kernel the calls checked, the call
+    nearest its limit and, for a scan, the float32 twin's largest gap to
+    the float64 one.  Raises at the first call out of it."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rwkv6_wkv as wkv
@@ -941,8 +985,13 @@ def checked_kernels(worst):
 
         def call(*args, **kw):
             out = cuda[name](*args, **kw)
-            want = plain(*args, **kw)
             w = worst.setdefault(name, {"calls": 0, "share": -1.0})
+            if name in SCANS:
+                want = plain(*args, **kw, dtype=torch.float64)
+                w["twin_gap"] = max(w.get("twin_gap", 0.0),
+                                    twin_gap(plain(*args, **kw), want))
+            else:
+                want = plain(*args, **kw)
             w["calls"] += 1
             for a, b in zip(_outputs(out), _outputs(want)):
                 live = b.float().abs()
@@ -973,7 +1022,10 @@ def checked_kernels(worst):
 def checked_line(worst) -> str:
     return "; ".join(
         f"{name} {w['calls']} calls, nearest its limit {w['err']:.3e} of "
-        f"{w['tol']:.3e} at {w['shape']}" for name, w in sorted(worst.items()))
+        f"{w['tol']:.3e} at {w['shape']}"
+        + (f" (against float64; the float32 twin's own gap up to "
+           f"{w['twin_gap']:.3e})" if "twin_gap" in w else "")
+        for name, w in sorted(worst.items()))
 
 
 def model_outputs(model, src, mask):
@@ -3712,6 +3764,101 @@ def phase19(ops):
     return paths
 
 
+# --------------------------------------------------------------- phase 20 --
+# the examples' launchers (``repro_torch.launch.<name>``) and the arguments
+# phase 20 gives them: the BiLSTM at the paper's width, the LMs at full size
+LAUNCHERS = (("quickstart", []), ("fault_tolerant_serving", []),
+             ("partitioned_serving", ["--scale", "1.0"]),
+             ("collaborative_serving", ["--scale", "1.0"]),
+             ("multitier_serving", ["--scale", "1.0"]),
+             ("big_model_serving", ["--size", "full"]))
+LM_KERNELS = ("flash_attention", "flash_decode", "rwkv6_wkv")
+
+
+def engine_stats(res) -> dict:
+    """The engine stats in a launcher's result, by the key they sit
+    under, cut to the figures the examples print."""
+    keys = ("requests", "mean_latency_s", "p95_latency_s", "offload_frac",
+            "tier_frac", "split", "shed", "slo_attainment", "availability",
+            "failovers")
+    found = {}
+    for name, s in res.items():
+        if name == "stats":
+            name = "engine"
+        if isinstance(s, dict) and "requests" in s:
+            found[name] = {k: s[k] for k in keys if k in s}
+    return found
+
+
+# where each launcher's result keeps the stats of its last stream, and
+# the requests that stream sends under REPRO_SMOKE=1
+SMOKE_STREAMS = {"fault_tolerant_serving": ("failover", 120),
+                 "partitioned_serving": ("split-capable", 60),
+                 "collaborative_serving": ("stats", 30),
+                 "multitier_serving": ("slo_stats", 100),
+                 "big_model_serving": ("stats", 6)}
+
+
+def check_launcher(name, res) -> None:
+    """Raise unless the launcher's result is what its example promises:
+    quickstart's five finite decisions; else every request of the smoke
+    stream accounted for at a finite mean latency, and big_model_serving's
+    full token rows."""
+    if name == "quickstart":
+        ok = len(res["decisions"]) == 5 and all(
+            np.isfinite([d.t_edge_pred, d.t_cloud_pred, d.m_hat]).all()
+            for d in res["decisions"])
+    else:
+        key, n = SMOKE_STREAMS[name]
+        ok = (res[key]["requests"] == n
+              and np.isfinite(res[key]["mean_latency_s"]))
+        if name == "big_model_serving":
+            ok = ok and res["tokens"].shape == (4, 8) and all(
+                len(out) == max(m, 1) for _, _, m, out in res["routed"])
+    if not ok:
+        raise AssertionError(f"{name}: result off: {engine_stats(res)}")
+
+
+def launchers_phase(ops):
+    """Phase 20: each launcher's ``main()`` in process, ``REPRO_SMOKE=1``,
+    every kernel call held against its plain version (the scans against
+    their float64 runs); launches per launcher; big_model_serving must
+    launch ``LM_KERNELS``."""
+    import importlib
+
+    paths, worst = {}, {}
+    empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    smoke = os.environ.get("REPRO_SMOKE")
+    os.environ["REPRO_SMOKE"] = "1"
+    try:
+        for name, argv in LAUNCHERS:
+            mod = importlib.import_module(f"repro_torch.launch.{name}")
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with checked_kernels(worst):
+                res = mod.main(argv)
+            wall = time.perf_counter() - t0
+            launches = paths[f"launch {name}"] = ops.launch_counts()
+            check_launcher(name, res)
+            log(f"  {name} {' '.join(argv)}: {wall:.2f} s wall, launches "
+                f"{launches}, stats {json.dumps(engine_stats(res))}")
+            del res
+            empty_cache()
+    finally:
+        if smoke is None:
+            del os.environ["REPRO_SMOKE"]
+        else:
+            os.environ["REPRO_SMOKE"] = smoke
+    for k in LM_KERNELS:
+        if paths["launch big_model_serving"][k] == 0:
+            raise AssertionError(f"big_model_serving never launched {k}")
+    log(f"  each kernel call vs its plain version: {checked_line(worst)}")
+    log(f"  phase 20 peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return paths
+
+
 # ---------------------------------------------------------- phases 9-10 --
 RAGGED = [128, 37, 64, 5, 100, 128, 1, 23]
 
@@ -4352,6 +4499,11 @@ def main() -> int:
         "remat bitwise, the dry run's bytes within 1%, rwkv6-3b, zamba2-1.2b "
         "and qwen3-8b at depth)")
     paths.update(phase19(ops))
+
+    log("== phase 20: the examples' six launchers (repro_torch.launch), "
+        "REPRO_SMOKE=1: the BiLSTM at --scale 1.0, qwen3-8b and rwkv6-3b at "
+        "--size full, every kernel call checked")
+    paths.update(launchers_phase(ops))
 
     log("== phase 11: training the paper's three NMT models at full width")
     model, _ = nmt_training("marian", "en-zh", ops, 200, smi)

@@ -56,19 +56,23 @@ def _check_shapes(r, k, v, log_w, u, s0, chunk):
 
 
 def rwkv6_wkv_plain(r, k, v, log_w, u, s0=None, *,
-                    chunk: int = DEFAULT_CHUNK):
+                    chunk: int = DEFAULT_CHUNK, dtype=torch.float32):
     """Plain PyTorch version of the kernel: the same chunked algorithm
-    (the reference's ``_wkv_kernel``) in torch ops, batched over (B, H)."""
+    (the reference's ``_wkv_kernel``) in torch ops, batched over (B, H).
+
+    ``dtype`` is the type the algorithm runs in: float32 as the kernel's
+    reference; float64 gives the exact recurrence to hold both to.  ``y``
+    comes back in ``r``'s dtype, the state in ``dtype``."""
     _check_shapes(r, k, v, log_w, u, s0, chunk)
     b, s, h, p = r.shape
-    state = (torch.zeros((b, h, p, p), dtype=torch.float32, device=r.device)
-             if s0 is None else s0.float())
-    uf = u.float()
+    state = (torch.zeros((b, h, p, p), dtype=dtype, device=r.device)
+             if s0 is None else s0.to(dtype))
+    uf = u.to(dtype)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=r.device), diagonal=-1)
     ys = []
     for c0 in range(0, s, chunk):
-        rc, kc, vc, lw = (x[:, c0:c0 + chunk].float()
+        rc, kc, vc, lw = (x[:, c0:c0 + chunk].to(dtype)
                           for x in (r, k, v, log_w))            # (B,L,H,P)
         cum = torch.cumsum(lw, dim=1)
         r_dec = rc * torch.exp(cum - lw)

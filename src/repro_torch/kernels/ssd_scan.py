@@ -123,35 +123,40 @@ def _check_shapes(x, dt, a_log, b_in, c_in, s0, chunk):
 
 
 def ssd_scan_plain(x, dt, a_log, b_in, c_in, s0=None, *,
-                   chunk: int = DEFAULT_CHUNK):
+                   chunk: int = DEFAULT_CHUNK, dtype=torch.float32):
     """Plain PyTorch version of the kernel: the same chunked algorithm
-    (the reference's ``_ssd_kernel``) in torch ops, batched over (B, H)."""
+    (the reference's ``_ssd_kernel``) in torch ops, batched over (B, H).
+
+    ``dtype`` is the type the algorithm runs in (the prefix sums are
+    float64 either way): float32 as the kernel's reference; float64 gives
+    the exact recurrence to hold both to.  ``y`` comes back in ``x``'s
+    dtype, the state in ``dtype``."""
     _check_shapes(x, dt, a_log, b_in, c_in, s0, chunk)
     bsz, s, h, p = x.shape
     n = b_in.shape[-1]
-    a = -torch.exp(a_log.float())
-    log_decay = (dt.float() * a).double()                      # (B,S,H)
-    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
-                         device=x.device) if s0 is None else s0.float())
+    a = -torch.exp(a_log.to(dtype))
+    log_decay = (dt.to(dtype) * a).double()                    # (B,S,H)
+    state = (torch.zeros((bsz, h, p, n), dtype=dtype,
+                         device=x.device) if s0 is None else s0.to(dtype))
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
     ys = []
     for c0 in range(0, s, chunk):
         sl = slice(c0, c0 + chunk)
-        xc, bc, cc = (t[:, sl].float() for t in (x, b_in, c_in))
-        dtc, ld = dt[:, sl].float(), log_decay[:, sl]           # (B,L,H)
+        xc, bc, cc = (t[:, sl].to(dtype) for t in (x, b_in, c_in))
+        dtc, ld = dt[:, sl].to(dtype), log_decay[:, sl]         # (B,L,H)
         cum = torch.cumsum(ld, dim=1)                           # float64
         cb = torch.einsum("blhn,bmhn->bhlm", cc, bc)
         seg = (cum[:, :, None, :] - cum[:, None, :, :]).permute(0, 3, 1, 2)
-        seg = torch.where(tri, seg.float(), torch.full((), float("-inf"),
-                                                       device=x.device))
+        seg = torch.where(tri, seg.to(dtype), torch.full((), float("-inf"),
+                                                         device=x.device))
         scores = cb * torch.exp(seg) * dtc.permute(0, 2, 1)[:, :, None, :]
         y = (torch.einsum("bhlm,bmhp->blhp", scores, xc)
              + torch.einsum("blhn,bhpn,blh->blhp", cc, state,
-                            torch.exp(cum.float())))
-        wj = torch.exp((cum[:, -1:] - cum).float()) * dtc
+                            torch.exp(cum.to(dtype))))
+        wj = torch.exp((cum[:, -1:] - cum).to(dtype)) * dtc
         hc = torch.einsum("blh,blhn,blhp->bhpn", wj, bc, xc)
-        state = state * torch.exp(cum[:, -1].float())[:, :, None, None] + hc
+        state = state * torch.exp(cum[:, -1].to(dtype))[:, :, None, None] + hc
         ys.append(y)
     return torch.cat(ys, dim=1).to(x.dtype), state
 
