@@ -246,6 +246,24 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    ``flash_decode`` and ``rwkv6_wkv``; it prints each launcher's wall
    time, launches and engine stats, and the phase's peak memory.
 
+Step graphs.  Every default decode path replays one CUDA graph a step
+on the card (``repro_torch.runtime.graphs``), so the phases' main paths
+run from graphs, their launch counts counting replayed launches (and a
+capture's warm-up, which launches); a check that reads values back (``checked_kernels``, phases
+18-20) or routes the wrappers to their plain versions (``plain_kernels``)
+runs inside ``graphs.eager()``, and so do the timings printed as eager.
+Each phase that builds a model also holds its graph path against
+``graphs.eager()`` on the same inputs, bitwise, after replays that
+interleave two keys, and prints a token's (or a slot-table step's) ms
+eager and from the graphs, the captures and their seconds: phase 10
+Marian, the BiLSTM and the GRU (B=8 and B=1, two source widths, EOS and
+``forced_len``, the fused translate and both split legs); phases 7-8
+rwkv6-3b and zamba2-1.2b through ``GenerationSession``; phase 13
+qwen3-8b through ``GenerationSession`` and a slot table of 8 with refill
+(every step's stream and finished lists); phase 15 whisper-large-v3
+(1500 and 1000 frames); phase 18 qwen3-8b and qwen3-moe-30b-a3b in bf16,
+session and slot table (the MoE dispatch under capture).
+
 It prints one JSON line of kernel numbers (each kernel's launches summed
 over the main paths that run it) and, last, the line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -315,6 +333,9 @@ def log(msg: str) -> None:
     if msg.startswith("== "):
         msg = f"{msg} [{time.perf_counter() - _T0:.0f} s]"
     print(msg, flush=True)
+
+
+SMI = ""                        # nvidia-smi's name and power limit (main)
 
 
 def smi_line() -> str:
@@ -940,11 +961,13 @@ def plain_kernels(ops):
              "flash_decode": da.flash_decode_plain,
              "rwkv6_wkv": wkv.rwkv6_wkv_plain,
              "ssd_scan": ssd.ssd_scan_plain}
+    from repro_torch.runtime import graphs
     kernels = {name: getattr(ops, name) for name in plain}
     for name, fn in plain.items():
         setattr(ops, name, fn)
     try:
-        yield
+        with graphs.eager():     # a graph captured here would keep them
+            yield
     finally:
         for name, fn in kernels.items():
             setattr(ops, name, fn)
@@ -962,8 +985,10 @@ SCANS = ("rwkv6_wkv", "ssd_scan")
 
 @contextlib.contextmanager
 def checked_kernels(worst):
-    """While active, each kernel wrapper runs and counts its launch as on
-    the main path, and each CUDA launch is followed by the kernel's plain
+    """While active (and ``graphs.eager()`` with it: a check reads values
+    back, which no graph capture allows), each kernel wrapper runs and
+    counts its launch as on the main path, and each CUDA launch is
+    followed by the kernel's plain
     version on the same inputs (a scan's run in float64: its float32 run
     is logged beside, in ``worst``, not gated): every output must be
     finite and within ``CALL_TOL`` (``BF16_TOL`` for a bf16 output) x
@@ -1010,10 +1035,12 @@ def checked_kernels(worst):
             return out
         return call
 
+    from repro_torch.runtime import graphs
     for name, m in mods.items():
         setattr(m, f"{name}_cuda", checked(name))
     try:
-        yield
+        with graphs.eager():     # the checks read values: no capture
+            yield
     finally:
         for name, m in mods.items():
             setattr(m, f"{name}_cuda", cuda[name])
@@ -1026,6 +1053,161 @@ def checked_line(worst) -> str:
         + (f" (against float64; the float32 twin's own gap up to "
            f"{w['twin_gap']:.3e})" if "twin_gap" in w else "")
         for name, w in sorted(worst.items()))
+
+
+# ------------------------------------------------------------ step graphs --
+def graph_vs_eager(what, run):
+    """``run()`` (a list of host arrays) under ``graphs.eager()``, then
+    twice on the default path, whose first call captures the step graphs
+    of its keys and whose second only replays them: both must equal the
+    eager run bitwise.  Returns (captures, capture seconds, replays) of
+    the two."""
+    from repro_torch.runtime import graphs
+
+    with graphs.eager():
+        want = run()
+    before = graphs.totals()
+    for i in range(2):
+        got = run()
+        if len(got) != len(want) or not all(
+                np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{what}: the graph path's run {i} differs "
+                                 "from eager()'s")
+    after = graphs.totals()
+    return tuple(after[k] - before[k]
+                 for k in ("captures", "capture_s", "replays"))
+
+
+def per_token_ms(call, n1=4, n2=20):
+    """The marginal host-clock ms of one more token: ``call(n2)`` minus
+    ``call(n1)`` over ``n2 - n1``, each after a warm-up call, eager
+    (``graphs.eager()``) and from the step graphs."""
+    from repro_torch.runtime import graphs
+
+    def marginal():
+        return (wall_ms(lambda: call(n2), reps=1)
+                - wall_ms(lambda: call(n1), reps=1)) / (n2 - n1)
+
+    with graphs.eager():
+        eager = marginal()
+    return eager, marginal()
+
+
+def graph_line(what, checked, counts, ms) -> str:
+    caps, cap_s, replays = counts
+    return (f"  {what}: graph path == eager() bitwise ({checked}); "
+            f"{caps} graphs captured in {cap_s:.2f}s "
+            f"({cap_s / max(caps, 1):.3f}s each, warm-up included; a key "
+            f"an earlier run of this model made only replays), {replays} "
+            f"replays; "
+            + ", ".join(f"{k}: {e:.3f}ms eager vs {g:.3f}ms from the graphs "
+                        f"({e / g:.1f}x)" for k, (e, g) in ms.items())
+            + f" [{SMI}]")
+
+
+def nmt_graph_check(name, model):
+    """The fused translate and both split legs from their step graphs ==
+    ``graphs.eager()`` bitwise: B=8 ragged at width 64 and B=1 at width
+    29 interleaved, in EOS mode and at ``forced_len=24``; then the ms of
+    one more token, eager and from the graphs, of a B=1 and a B=8
+    translate (``forced_len`` 4 against 20)."""
+    vocab = model.cfg.vocab_src
+    batches = (ragged_batch(vocab, [37, 12, 64, 5, 50, 64, 1, 23], seed=21),
+               ragged_batch(vocab, [29], seed=22))
+    translate = model.make_translate_batched()
+    enc, dec = model.make_encode_states(), model.make_decode_from_states()
+
+    def run():
+        out = []
+        for forced in (None, 24):
+            for src, mask in batches:
+                out += translate(src, mask, forced_len=forced)
+                out += dec(enc(src, mask), forced_len=forced)
+        return out
+
+    counts = graph_vs_eager(name, run)
+    src, mask = batches[0]
+    ms = {f"a token at B={b}": per_token_ms(lambda m: translate(
+        src[:b], mask[:b], forced_len=m)) for b in (1, 8)}
+    log(graph_line(name, "fused + split legs, B=8 and B=1, EOS and "
+                   "forced_len 24", counts, ms))
+
+
+def session_graph_check(what, model, batches, max_new, max_len):
+    """``GenerationSession(max_len=)``'s default decode from its step
+    graphs == ``graphs.eager()`` bitwise over ``batches`` ((tokens,
+    frames or None), two keys interleaved), then the ms of one more token
+    at the first batch, eager and from the graph."""
+    from repro_torch.runtime.serving import GenerationSession
+
+    sess = GenerationSession(model, max_len=max_len)
+
+    def run():
+        out = []
+        for toks, frames in batches:
+            out += sess.generate_with_lengths(toks, max_new=max_new,
+                                              frames=frames)
+        return out
+
+    counts = graph_vs_eager(what, run)
+    toks, frames = batches[0]
+    ms = {f"a token at B={toks.shape[0]}": per_token_ms(
+        lambda n: sess.generate_with_lengths(toks, max_new=n,
+                                             frames=frames))}
+    keys = ", ".join(f"B={t.shape[0]}" + (f" {f.shape[1]} frames"
+                                          if f is not None else "")
+                     for t, f in batches)
+    log(graph_line(what, f"GenerationSession max_len {max_len}, {keys}, "
+                   f"max_new {max_new}", counts, ms))
+
+
+def table_trace(sess, prompts, max_new):
+    """``prompts`` through the slot table with refill, as ``serve`` runs
+    them, keeping every step's stream and finished lists."""
+    sess.reset()
+    trace, head = [], 0
+    while head < len(prompts) or sess.live_count:
+        take = min(sess.free_slots, len(prompts) - head)
+        if take:
+            sess.admit(prompts[head:head + take], max_new=max_new,
+                       req_ids=list(range(head, head + take)))
+            head += take
+        stream, finished = sess.step()
+        trace.append(np.asarray(stream, np.int64).reshape(-1))
+        for rid, m, toks in finished:
+            trace += [np.asarray([rid, m]), toks]
+    return trace
+
+
+def table_graph_check(what, model, prompts, max_new, max_len):
+    """A slot table of 8 serving ``prompts`` with refill: its step graph
+    == ``graphs.eager()`` bitwise, every step's stream and finished lists;
+    then the step at 8 live slots, eager and from the graph."""
+    from repro_torch.runtime import graphs
+    from repro_torch.runtime.serving import ContinuousGenerationSession
+
+    sess = ContinuousGenerationSession(model, max_slots=8, max_len=max_len)
+    counts = graph_vs_eager(what, lambda: table_trace(sess, prompts,
+                                                      max_new))
+
+    def step_ms():
+        sess.reset()
+        sess.admit([p[:16] for p in prompts[:8]], max_new=max_len - 32)
+        for _ in range(3):
+            sess.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            sess.step()
+        return (time.perf_counter() - t0) / 10 * 1e3
+
+    with graphs.eager():
+        eager = step_ms()
+    ms = {"a step at 8 live slots": (eager, step_ms())}
+    log(graph_line(what, f"slot table of 8, {len(prompts)} prompts with "
+                   f"refill, every step's stream and finished lists",
+                   counts, ms))
+    del sess
 
 
 def model_outputs(model, src, mask):
@@ -1615,11 +1797,13 @@ def step_profile(model, b, decode_ms):
         tok = torch.full((b,), 7, dtype=torch.int32, device="cuda")
 
         def step():
+            # the step advances pos in place: every call writes slot 120
+            state["pos"].fill_(120)
             model.decode_step(state, tok)
 
-        eager = eager_ms(step, iters=100, warmup=10)      # pos 0 -> 110
-        device = device_ms(step, per_graph=20, replays=10)  # pos <= 133
-    log(f"  decode step B={b} (pos ~110-133, 6 layers): eager "
+        eager = eager_ms(step, iters=100, warmup=10)
+        device = device_ms(step, per_graph=20, replays=10)
+    log(f"  decode step B={b} (pos 120, 6 layers): eager "
         f"{eager:.4f}ms, device {device:.4f}ms, device busy "
         f"{100 * device / eager:.1f}% of the eager step; 12 flash_decode "
         f"calls x {decode_ms:.5f}ms = {100 * 12 * decode_ms / device:.1f}% "
@@ -1627,17 +1811,23 @@ def step_profile(model, b, decode_ms):
 
 
 def translate_rate(model):
+    """A B=8 N=32 translate, eager and from the step graphs (the default)."""
+    from repro_torch.runtime import graphs
+
     rng = np.random.default_rng(5)
     src = rng.integers(4, model.cfg.vocab_src, (8, 32)).astype(np.int32)
     translate = model.make_translate_batched()
-    translate(src)                                      # warm-up
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    lens, _ = translate(src)
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    log(f"  B=8 N=32 translate: {int(lens.sum())} tokens in {wall:.3f}s = "
-        f"{lens.sum() / wall:.1f} tokens/s, peak memory {peak:.1f} MiB")
+    for mode in ("eager", "step graphs"):
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            translate(src)                              # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            lens, _ = translate(src)
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        log(f"  B=8 N=32 translate ({mode}): {int(lens.sum())} tokens in "
+            f"{wall:.3f}s = {lens.sum() / wall:.1f} tokens/s, peak memory "
+            f"{peak:.1f} MiB")
 
 
 # ----------------------------------------------------------- phases 7-8 --
@@ -1816,6 +2006,11 @@ def lm_phase(name, ops, needed, continuous=None):
     check_lm(model, ops)
     paths = {name: lm_main_path(model, ops, needed)}
     lm_rates(model, ops, needed[0])
+    rng = np.random.default_rng(31)
+    vocab = model.cfg.vocab_size
+    session_graph_check(name, model, [
+        (rng.integers(4, vocab, (4, 16)).astype(np.int32), None),
+        (rng.integers(4, vocab, (1, 9)).astype(np.int32), None)], 12, 64)
     if continuous is not None:
         paths[f"{name} continuous"] = continuous(model)
     del model
@@ -1968,7 +2163,9 @@ def profiled_busy_ms(fn):
 def qwen3_phase(ops):
     """qwen3-8b at full width: kernels vs plain, the tiered path, then
     continuous in-flight batching through the engine, held against solo
-    generation, and the slot table's step and wave times."""
+    generation, the step graphs against eager, and the slot table's step
+    and wave times."""
+    from repro_torch.runtime import graphs
     from repro_torch.runtime.serving import ContinuousGenerationSession
 
     torch.cuda.reset_peak_memory_stats()
@@ -1994,19 +2191,26 @@ def qwen3_phase(ops):
             f"refill=True ran {runs[True][2]} prefill waves (need more than "
             f"{waves}) at peak {runs[True][3]} live (need {sess.max_slots})")
     check_against_solo(model, prompts, runs, 32, QW_T)
+    session_graph_check("qwen3-8b", model, [
+        (rng.integers(4, model.cfg.vocab_size, (8, 24)).astype(np.int32),
+         None),
+        (prompts[0][None, :9], None)], 16, QW_T)
+    table_graph_check("qwen3-8b", model, prompts[:12], 8, QW_T)
 
-    # a full table: 8 live slots mid-decode, one step each call
+    # a full table: 8 live slots mid-decode, one eager step each call
     sess.reset()
     sess.admit([p[:16] for p in prompts[:8]], max_new=QW_T - 32)
-    for _ in range(3):
-        sess.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        sess.step()
-    step_ms = (time.perf_counter() - t0) / 20 * 1e3
-    busy, kernels = profiled_busy_ms(lambda: [sess.step() for _ in range(5)])
-    n_ops = aten_ops(sess.step)
+    with graphs.eager():
+        for _ in range(3):
+            sess.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            sess.step()
+        step_ms = (time.perf_counter() - t0) / 20 * 1e3
+        busy, kernels = profiled_busy_ms(
+            lambda: [sess.step() for _ in range(5)])
+        n_ops = aten_ops(sess.step)
     with torch.inference_mode():
         tok = sess._tok[:, None].clone()
         graph_ms = device_ms(lambda: model.decode_step(sess._state, tok),
@@ -2553,6 +2757,9 @@ def whisper_phase(ops):
         f"device time per step = device busy {100 * busy / 5 / step_ms:.1f}%"
         f" of the step; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    session_graph_check("whisper-large-v3", model, [
+        (prompts[4], frames), (prompts[16][:2], frames[:2, :1000])], 16,
+        WH_MAX_LEN)
     del model, sess, state
     empty_cache()
     return {"whisper-large-v3": launches}
@@ -3267,6 +3474,7 @@ def bf16_model_phase(name, ops, rng):
     beside the weight-read bound and, for a MoE model, beside the read of
     the experts its routing picked), and the peak memory."""
     from repro_torch.models.registry import resolve
+    from repro_torch.runtime import graphs
     from repro_torch.runtime.serving import (ContinuousGenerationSession,
                                              GenerationSession)
 
@@ -3329,24 +3537,30 @@ def bf16_model_phase(name, ops, rng):
             if launches[k] == 0:
                 raise AssertionError(f"{what}: {k} never launched")
 
+    if name in ("qwen3-8b", "qwen3-moe-30b-a3b"):
+        session_graph_check(f"{name} bf16", model, [
+            (toks[:, :24], None), (toks[:1, :9], None)], 16, BF16_T)
+        table_graph_check(f"{name} bf16", model, prompts, 8, BF16_T)
     csess.reset()
     csess.admit([p[:16] for p in prompts[:8]], max_new=BF16_T - 32)
-    for _ in range(3):
-        csess.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
-        csess.step()
-    step_ms = (time.perf_counter() - t0) / 10 * 1e3
-    busy, kernels = profiled_busy_ms(lambda: [csess.step() for _ in range(3)])
-    n_ops = aten_ops(csess.step)
-    bound_ms = n_bytes / HBM_BYTES_S * 1e3
-    routed = ""
-    if r.cfg.moe:
-        need = routed_bytes(model, csess.step)
-        routed = (f"; the weights this step's routing needs (every expert "
-                  f"it picks once, the rest whole) {need / 1e9:.2f} GB = "
-                  f"{need / HBM_BYTES_S * 1e3:.2f}ms")
+    with graphs.eager():            # the eager step, as before
+        for _ in range(3):
+            csess.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            csess.step()
+        step_ms = (time.perf_counter() - t0) / 10 * 1e3
+        busy, kernels = profiled_busy_ms(
+            lambda: [csess.step() for _ in range(3)])
+        n_ops = aten_ops(csess.step)
+        bound_ms = n_bytes / HBM_BYTES_S * 1e3
+        routed = ""
+        if r.cfg.moe:
+            need = routed_bytes(model, csess.step)
+            routed = (f"; the weights this step's routing needs (every expert "
+                      f"it picks once, the rest whole) {need / 1e9:.2f} GB = "
+                      f"{need / HBM_BYTES_S * 1e3:.2f}ms")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  {name} bf16 slot-table step at 8 live slots: {step_ms:.2f}ms "
         f"eager = {8 / step_ms * 1e3:.1f} decode tokens/s; {n_ops} ATen "
@@ -4389,7 +4603,8 @@ def main() -> int:
 
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = smi_line()
+    global SMI
+    smi = SMI = smi_line()
     log(f"== phase 1: device {kind} x{count}; nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
@@ -4454,6 +4669,7 @@ def main() -> int:
     for name, (model, cpu) in models.items():
         paths[f"split {name}"] = split_phase(name, model, cpu, planes[name],
                                              ops)
+        nmt_graph_check(name, model)
     for name in ("flash_attention", "flash_decode"):
         if paths["split cnmt:en-zh"][name] == 0:
             raise AssertionError(f"Marian's split never launched {name}")

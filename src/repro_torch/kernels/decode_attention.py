@@ -22,6 +22,15 @@ window``: with ``lengths = pos + 1`` the reference LM's linear-cache
 window ``idx > pos - window``, which the TPU kernel does not take (the
 reference computes windowed decode in jnp; the port's LM runs it here).
 
+The split counters (:func:`split_counters`) are one zeroed buffer per
+device, allocated at the first call there, which must not be inside a
+CUDA graph capture: the step graphs' warm-up on their capture stream
+(``repro_torch.runtime.graphs``) makes that call.  A captured call keeps
+the address of its capture stream's counter region, and a graph replays
+with that region on whatever stream it is launched: replays and eager
+calls of one process run one after another on one stream, and only that
+single-threaded, one-stream use is supported.
+
 The caches may be strided views: the Marian decoder passes its folded
 (B,T,H*D) buffers as ``view(B,T,H,D)``, and the kernel reads them through
 their strides, with no per-step transpose or copy.

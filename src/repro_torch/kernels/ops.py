@@ -8,7 +8,11 @@ which launches on a CUDA tensor or raises.  Nothing falls back.
 
 Each wrapper counts its kernel launches in a plain integer attribute
 (``flash_attention.launches``, ``rwkv6_wkv.launches``, ...), so a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels.  A wrapper called
+while a CUDA graph is being captured launches nothing then: the graph
+(``repro_torch.runtime.graphs``) takes those counts back and adds them
+again at every replay (:func:`add_launches`), so the counters count the
+launches the device ran.
 
 The kernels are forward-only, as their Pallas originals are (none has a
 VJP), and their outputs come from ``torch.empty`` through ``ctypes``, so
@@ -127,3 +131,15 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
+
+
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    """Set the counters to ``counts`` (a :func:`launch_counts` result)."""
+    for name, n in counts.items():
+        _WRAPPERS[name].launches = n
+
+
+def add_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``counts`` launches (a replayed graph's)."""
+    for name, n in counts.items():
+        _WRAPPERS[name].launches += n * times

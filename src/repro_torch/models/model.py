@@ -215,6 +215,12 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.w.device
 
+    @property
+    def graph_safe(self) -> bool:
+        """Whether a CUDA graph may capture ``decode_step``: it runs no
+        collective (no sharded runtime's gather installed)."""
+        return self.unshard is None
+
     def _whole(self, *modules):
         """Context in which ``modules``' weights are whole: the sharded
         runtime's gather (``unshard``) if one is installed."""

@@ -9,11 +9,14 @@ loops, and the training loss (:func:`cross_entropy`).  Two greedy-decode paths l
   one host sync per token (``int(token)``).  Its wall-clock is linear in
   M by construction, which is the paper-faithful timing path (§II-A,
   Fig. 2a).
-* :func:`batched_greedy_decode` — the fast path: a Python loop over
-  decode steps with a leading batch dimension and the EOS ``done`` mask
-  kept on the device.  Nothing inside the loop reads a value back to the
-  host, so the CPU enqueues kernels ahead of the card; the results come
-  back in one transfer at the end (:func:`build_translate_batched`).
+* :func:`batched_greedy_decode` — the fast path: a loop over decode
+  steps with a leading batch dimension (:class:`GreedySteps`) and the
+  EOS bookkeeping on the device (:func:`greedy_columns`).  Nothing in a
+  step reads a value back to the host, so on the card each step is a
+  replay of one CUDA graph (``repro_torch.runtime.graphs``; the
+  reference's single ``lax.scan`` dispatch), and on the CPU or under
+  ``graphs.eager()`` a Python loop; the results come back in one
+  transfer at the end (:func:`build_translate_batched`).
 
 The cells are plain tensor ops (not ``nn.LSTM`` / ``nn.GRU``, whose
 cuDNN cells differ: the LSTM here adds a fixed +1 to the forget gate,
@@ -252,13 +255,92 @@ def greedy_update(tok, done, *, keep_eos: bool = False,
     return emit, live, done | is_eos
 
 
+def greedy_columns(cols, *, keep_eos: bool = False, forced: bool = False):
+    """The greedy EOS bookkeeping of a whole decode at once.
+
+    ``cols`` (B, steps) holds the carried token of each emission step (what
+    :func:`greedy_update` would be given, step after step).  Returns
+    ``(lengths (B,) int32, tokens (B, steps) int32)``, exactly what
+    :func:`greedy_update` run over the columns gives: a row is live until
+    its first EOS, ``lengths`` counts its live (pre-EOS) tokens;
+    ``keep_eos=False`` PAD-masks the EOS and everything after it,
+    ``keep_eos=True`` keeps the EOS and PAD-masks what follows it;
+    ``forced=True`` ignores EOS (every token emitted and counted).
+    """
+    b, steps = cols.shape
+    if forced:
+        return torch.full((b,), steps, dtype=torch.int32,
+                          device=cols.device), cols.clone()
+    is_eos = cols == EOS_ID
+    seen = torch.cumsum(is_eos, dim=1, dtype=torch.int32)   # EOS so far
+    live = seen == 0
+    pad = torch.full_like(cols, PAD_ID)
+    emit = (torch.where(seen - is_eos.to(torch.int32) > 0, pad, cols)
+            if keep_eos else torch.where(live, cols, pad))
+    return live.sum(dim=1, dtype=torch.int32), emit
+
+
+class GreedySteps:
+    """The static buffers of a batched greedy decode, and its step.
+
+    ``state`` is the model's decode state (a tree of tensors), ``tok``
+    (B,) int32 the carried token, ``cols`` (B, width) int32 the tokens
+    the steps produce, one column a step at the step index ``idx`` (1,)
+    kept on the device.  :meth:`step` runs ``decode_step(state, tok) ->
+    (state, logits)`` once, copies every state tensor it returned as a
+    new tensor back into its buffer (the RNNs return new carries; the
+    transformer and the LM update theirs in place), takes the argmax as
+    the next ``tok`` and writes it at column ``idx``.  Nothing in it reads
+    a value back to the host, so one CUDA graph of it serves every step
+    of every decode of its shapes (``repro_torch.runtime.graphs``); on
+    the CPU, and under ``graphs.eager()``, a Python loop calls it.
+    """
+
+    def __init__(self, decode_step, state, tok, width: int):
+        from repro_torch.runtime import graphs
+
+        self.decode_step = decode_step
+        self.state = state
+        self.tok = tok
+        self.cols = torch.full((tok.shape[0], max(width, 1)), PAD_ID,
+                               dtype=torch.int32, device=tok.device)
+        self.idx = torch.zeros((1,), dtype=torch.long, device=tok.device)
+        self._leaves = graphs.leaves
+        self._static = graphs.leaves(state)
+
+    def static(self) -> tuple:
+        """Every buffer :meth:`step` writes."""
+        return (self.state, self.tok, self.cols, self.idx)
+
+    def start(self, tok, first: bool = False) -> None:
+        """Load the carried token (B,); ``first=True`` also writes it as
+        column 0 and starts the steps at column 1."""
+        self.tok.copy_(tok)
+        if first:
+            self.cols[:, 0] = tok
+        self.idx.fill_(1 if first else 0)
+
+    def step(self) -> None:
+        state, logits = self.decode_step(self.state, self.tok)
+        new = self._leaves(state)
+        if len(new) != len(self._static):
+            raise ValueError("decode_step changed the state's structure")
+        for old, fresh in zip(self._static, new):
+            if fresh is not old:
+                old.copy_(fresh)
+        self.tok.copy_(torch.argmax(logits, dim=-1))
+        self.cols.index_copy_(1, self.idx, self.tok[:, None])
+        self.idx.add_(1)
+
+
 def scan_greedy_steps(decode_step, state, token0, batch: int, steps: int, *,
                       keep_eos: bool = False, forced: bool = False):
-    """The shared greedy-decode loop body over ``steps`` emissions.
+    """The greedy decode over ``steps`` emissions, eagerly.
 
-    Each iteration emits the carried token, then steps the model once to
-    produce the next (``decode_step(state, tokens (B,)) -> (state, logits
-    (B,V))``).  EOS bookkeeping stays on the device:
+    Each emission is the carried token; between two emissions the model
+    steps once to produce the next (``decode_step(state, tokens (B,)) ->
+    (state, logits (B,V))``), through :class:`GreedySteps`, and the EOS
+    bookkeeping (:func:`greedy_columns`) stays on the device:
 
     * ``keep_eos=False`` PAD-masks the EOS slot itself (the NMT models'
       contract — emitted tokens are exactly the pre-EOS output);
@@ -270,39 +352,33 @@ def scan_greedy_steps(decode_step, state, token0, batch: int, steps: int, *,
     does not stop early when every row is done.  The model step after
     the last emission is skipped: its output is never read, and at
     ``steps == max_decode_len`` it would write past the end of the cache
-    (the reference's scan runs it and drops the write).
+    (the reference's scan runs it and drops the write).  ``state`` is
+    advanced in place.
 
     Returns ``(lengths (B,) int32, tokens (B, steps) int32)`` on the
     device, lengths counting pre-EOS tokens either way.
     """
-    done = torch.zeros((batch,), dtype=torch.bool, device=token0.device)
-    tok = token0
-    emits, lives = [], []
-    for i in range(steps):
-        emit, live, done = greedy_update(tok, done, keep_eos=keep_eos,
-                                         forced=forced)
-        emits.append(emit)
-        lives.append(live)
-        if i + 1 < steps:
-            state, logits = decode_step(state, tok)
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    if not emits:
+    if steps <= 0:
         empty = torch.zeros((batch, 0), dtype=torch.int32,
                             device=token0.device)
         return empty.sum(dim=1, dtype=torch.int32), empty
-    lengths = torch.stack(lives, dim=1).sum(dim=1, dtype=torch.int32)
-    return lengths, torch.stack(emits, dim=1)
+    loop = GreedySteps(decode_step, state, token0.clone(), steps)
+    loop.start(token0, first=True)
+    for _ in range(steps - 1):
+        loop.step()
+    return greedy_columns(loop.cols[:, :steps], keep_eos=keep_eos,
+                          forced=forced)
 
 
 def batched_greedy_decode(decode_step, init_state, batch: int, max_len: int,
                           forced_len: int | None = None, *,
                           device: torch.device):
-    """Batched greedy decode with on-device EOS masking.
+    """Batched greedy decode with on-device EOS masking, eagerly.
 
     ``decode_step(state, tokens (B,)) -> (state, logits (B,V))`` carries a
-    leading batch dimension.  A ``done`` mask freezes finished sequences
-    (their emitted slots become PAD) while the loop keeps stepping the
-    still-live ones — no per-token host round-trip.
+    leading batch dimension.  The loop steps every row from BOS, ``steps``
+    model steps in all; finished rows keep stepping and their emitted
+    slots become PAD — no per-token host round-trip.
 
     Returns ``(lengths (B,) int32, tokens (B, steps) int32)`` on the
     device: per-sequence output length EXCLUDING the EOS token (the
@@ -314,19 +390,81 @@ def batched_greedy_decode(decode_step, init_state, batch: int, max_len: int,
     """
     steps = forced_len if forced_len is not None else max_len
     bos = torch.full((batch,), BOS_ID, dtype=torch.int32, device=device)
-    state, logits = decode_step(init_state, bos)
-    token0 = torch.argmax(logits, dim=-1).to(torch.int32)
-    return scan_greedy_steps(decode_step, state, token0, batch, steps,
-                             keep_eos=False, forced=forced_len is not None)
+    loop = GreedySteps(decode_step, init_state, bos, steps)
+    for _ in range(steps):
+        loop.step()
+    return greedy_columns(loop.cols[:, :steps], forced=forced_len is not None)
 
 
-def _decode_to_host(model, state, batch: int, forced_len):
-    """Batched greedy decode from ``state``, then the one transfer off the
+# graph keys an NMT model keeps: one per (leg, batch, source width), each
+# a decoder cache of B x max_decode_len x d_model floats a layer at most
+# (Marian en-zh: 6 MB at B=1, 50 MB at B=8); an engine's B=1 requests
+# bring a key per distinct source length
+NMT_GRAPH_KEYS = 64
+
+
+class _DecodeGraphs:
+    """One key's graphs: the static ``inputs``, ``prep`` (the graph that
+    makes the decode state from them; None when the inputs are the state)
+    and the greedy loop over that state with its step graph."""
+
+    def __init__(self, model, make_state, args, batch: int, width: int):
+        from repro_torch.runtime import graphs
+
+        cache = graphs.owner_cache(model, NMT_GRAPH_KEYS)
+        self.inputs = _map(torch.clone, args)
+        if make_state is None:
+            self.prep, state = None, self.inputs[0]
+        else:
+            self.prep = cache.capture(lambda: make_state(*self.inputs))
+            state = self.prep.outputs
+            graphs.copy_into(self.inputs, args)
+            self.prep.replay()          # a real state for the step's warm-up
+        bos = torch.full((batch,), BOS_ID, dtype=torch.int32,
+                         device=model.device)
+        self.loop = GreedySteps(model.decode_step, state, bos, width)
+        self.step = cache.capture(self.loop.step, static=self.loop.static())
+
+    def run(self, args, steps: int):
+        from repro_torch.runtime import graphs
+
+        graphs.copy_into(self.inputs, args)
+        if self.prep is not None:
+            self.prep.replay()
+        self.loop.start(torch.full_like(self.loop.tok, BOS_ID))
+        self.step.replay(steps)
+        return self.loop.cols[:, :steps]
+
+
+def _decode_to_host(model, kind: str, make_state, args, batch: int,
+                    forced_len):
+    """Greedy decode of the state ``make_state(*args)`` makes (a copy of
+    ``args[0]`` when ``make_state`` is None), then the one transfer off the
     device (it waits for the last kernel).  The fused translate and the
-    split decode leg both end here, so they run the same operations."""
-    lengths, toks = batched_greedy_decode(
-        model.decode_step, state, batch, model.cfg.max_decode_len,
-        forced_len, device=model.device)
+    split decode leg both end here, so they run the same operations.
+
+    On the card (outside ``graphs.eager()``) the state and the steps come
+    from CUDA graphs kept per ``(kind, shapes of args, width)``: the
+    state's graph replays once, the step's ``steps`` times, with no host
+    sync between; elsewhere the same step runs in a Python loop."""
+    from repro_torch.runtime import graphs
+
+    steps = forced_len if forced_len is not None else \
+        model.cfg.max_decode_len
+    if graphs.active(model.device):
+        width = max(model.cfg.max_decode_len, steps, 1)
+        key = (kind, graphs.signature(args), width)
+        entry = graphs.owner_cache(model, NMT_GRAPH_KEYS).get(
+            key, lambda: _DecodeGraphs(model, make_state, args, batch,
+                                       width))
+        cols = entry.run(args, steps)
+        lengths, toks = greedy_columns(cols, forced=forced_len is not None)
+    else:
+        state = (_map(torch.clone, args[0]) if make_state is None
+                 else make_state(*args))
+        lengths, toks = batched_greedy_decode(
+            model.decode_step, state, batch,
+            model.cfg.max_decode_len, forced_len, device=model.device)
     host = torch.cat([lengths[:, None], toks], dim=1).cpu().numpy()
     return host[:, 0], host[:, 1:]
 
@@ -395,14 +533,45 @@ def build_encode_states(model, encode_data):
     ``encode_states(src, src_mask=None)`` takes numpy arrays; the states
     stay on the model's device.
     """
+    from repro_torch.runtime import graphs
+
+    def encode(src_t, mask_t):
+        return (encode_data(src_t, mask_t),
+                (mask_t > 0).sum(dim=-1, dtype=torch.int32))
+
     def encode_states(src, src_mask=None):
         with torch.inference_mode():
             src_t, mask_t = _as_device_batch(model, src, src_mask)
-            data = encode_data(src_t, mask_t)
-            lens = (mask_t > 0).sum(dim=-1, dtype=torch.int32)
+            if graphs.active(model.device):
+                entry = graphs.owner_cache(model, NMT_GRAPH_KEYS).get(
+                    ("encode", graphs.signature((src_t, mask_t))),
+                    lambda: _EncodeGraph(model, encode, (src_t, mask_t)))
+                data, lens = entry.run((src_t, mask_t))
+            else:
+                data, lens = encode(src_t, mask_t)
         return EncoderStates(data, lens)
 
     return encode_states
+
+
+class _EncodeGraph:
+    """The encode leg's graph of one shape: static inputs, the encoder's
+    graph, and fresh copies of its outputs for each call (the caller keeps
+    the states past the next call)."""
+
+    def __init__(self, model, encode, args):
+        from repro_torch.runtime import graphs
+
+        self.inputs = _map(torch.clone, args)
+        self.graph = graphs.owner_cache(model, NMT_GRAPH_KEYS).capture(
+            lambda: encode(*self.inputs))
+
+    def run(self, args):
+        from repro_torch.runtime import graphs
+
+        graphs.copy_into(self.inputs, args)
+        self.graph.replay()
+        return _map(torch.clone, self.graph.outputs)
 
 
 def build_decode_from_states(model, state_from_data):
@@ -410,19 +579,20 @@ def build_decode_from_states(model, state_from_data):
 
     ``state_from_data(data) -> batched decode state`` rebuilds the
     model's decode-step carry from the shipped :class:`EncoderStates`
-    payload (identity for the RNNs; the transformer re-derives its
-    cross-attention K/V cache decoder-side so only the raw memory
-    crosses the wire).  The states are first moved to the model's
-    device.  The decode itself is the batched greedy loop the fused
-    path runs, so ``decode_from_states(encode_states(src, mask))`` equals
+    payload (the transformer re-derives its cross-attention K/V cache
+    decoder-side so only the raw memory crosses the wire); None (the
+    RNNs) means the payload is the carry, which the decode advances in a
+    copy.  The states are first moved to the model's device.  The decode
+    itself is the batched greedy loop the fused path runs, so
+    ``decode_from_states(encode_states(src, mask))`` equals
     ``make_translate_batched()(src, mask)`` bit for bit on one device.
     Returns ``(lengths (B,), tokens (B, steps))`` numpy int32.
     """
     def decode_from_states(states: EncoderStates, forced_len=None):
         states = states.to(model.device)
         with torch.inference_mode():
-            return _decode_to_host(model, state_from_data(states.data),
-                                   states.batch, forced_len)
+            return _decode_to_host(model, "decode", state_from_data,
+                                   (states.data,), states.batch, forced_len)
 
     return decode_from_states
 
@@ -433,9 +603,11 @@ def build_translate_batched(model, make_state, *, compiled: bool = True):
     ``make_state(src (B,N), src_mask (B,N)) -> batched decode state`` is
     the only model-specific piece (encode + state assembly); stepping is
     ``model.decode_step`` with a leading batch dim.  ``compiled=True``
-    (the name kept from the reference, where it meant one XLA dispatch)
-    is the batched device loop; ``compiled=False`` is the per-sequence
-    host loop (the paper-faithful, linear-in-M timing path).  Both return
+    is the batched device loop, on the card the reference's compiled
+    decode in its port's form: the state from one CUDA graph and every
+    step a replay of another (:func:`_decode_to_host`);
+    ``compiled=False`` is the per-sequence host loop (the
+    paper-faithful, linear-in-M timing path), eager everywhere.  Both return
     ``translate(src, src_mask=None, forced_len=None) -> (lengths (B,),
     tokens (B, steps))`` as numpy int32 arrays, after the device has
     finished.
@@ -451,8 +623,9 @@ def build_translate_batched(model, make_state, *, compiled: bool = True):
     def translate_batch(src, src_mask=None, forced_len=None):
         with torch.inference_mode():
             src_t, mask_t = _as_device_batch(model, src, src_mask)
-            return _decode_to_host(model, make_state(src_t, mask_t),
-                                   src_t.shape[0], forced_len)
+            return _decode_to_host(model, "translate", make_state,
+                                   (src_t, mask_t), src_t.shape[0],
+                                   forced_len)
 
     return translate_batch
 

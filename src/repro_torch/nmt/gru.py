@@ -116,7 +116,7 @@ class GRUSeq2Seq(nn.Module):
     def make_decode_from_states(self):
         """Decode leg: EncoderStates -> (lengths, tokens); the shipped
         hidden state IS the decode carry, no rebuild needed."""
-        return build_decode_from_states(self, lambda data: data)
+        return build_decode_from_states(self, None)
 
     def forward_teacher(self, src, src_mask, tgt_in):
         """Teacher-forced logits: (B,N), (B,N), (B,M) -> (B,M,V).

@@ -169,7 +169,7 @@ class BiLSTMSeq2Seq(nn.Module):
     def make_decode_from_states(self):
         """Decode leg: EncoderStates -> (lengths, tokens); the shipped
         data is already the decode carry."""
-        return build_decode_from_states(self, lambda data: data)
+        return build_decode_from_states(self, None)
 
     # ------------------------------------------------------------- train
     def forward_teacher(self, src, src_mask, tgt_in):

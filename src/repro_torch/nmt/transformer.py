@@ -260,7 +260,7 @@ class MarianTransformer(nn.Module):
 
         A 0-d ``token`` (the per-sequence form) runs the B=1 batch and
         returns logits (V,).  The state's caches are updated in place and
-        the same state dict is returned with ``pos`` advanced.
+        the same state dict is returned with ``pos`` advanced in place.
         """
         if token.ndim == 0:
             state, logits = self._decode_step_batch(state, token[None])
@@ -286,7 +286,7 @@ class MarianTransformer(nn.Module):
                                         cache["xv"], state["src_lens"])
             x = layer.ln2(x + layer.cross.o(a))
             x = layer.ln3(x + layer.ffn(x))
-        state["pos"] = self_lens
+        pos.add_(1)             # in place: a graph replays over the buffer
         return state, self.out(x)
 
     # ---------------------------------------------------------- translate

@@ -6,17 +6,22 @@ Port of the LM half of ``repro/runtime/serving.py``.
 :class:`GenerationSession` serves a :class:`~repro_torch.models.model.LM`
 (its weights live in the module).  Decode has two paths:
 
-* **device loop** (default): prefill once, then the shared
-  :func:`~repro_torch.nmt.common.scan_greedy_steps` over all ``max_new``
-  decode steps with the EOS ``done`` mask kept on the device and ONE
-  transfer to the host at the end (the reference's single ``lax.scan``
-  dispatch);
+* **device loop** (default): prefill once, then ``max_new - 1`` steps
+  of the shared :class:`~repro_torch.nmt.common.GreedySteps` with the
+  EOS bookkeeping on the device and ONE transfer to the host at the end.
+  On the card each step is a replay of one CUDA graph, captured per
+  (padded batch, ``max_len``, state shapes: the plan and whisper's frame
+  count) over a persistent copy of the decode state into which each
+  call's prefill state is copied (``repro_torch.runtime.graphs``; the
+  reference's single ``lax.scan`` dispatch); on the CPU, under
+  ``graphs.eager()`` and for a sharded LM (its step runs collectives) a
+  Python loop runs the same step;
 * **host loop** (``host_loop=True``): the per-token loop, one scalar
   sync per step for its early exit — the paper-faithful timing path
   (§II-A), kept for characterization runs.
 
 Batches are padded to a power-of-two size (the reference's shape
-buckets, kept so a later CUDA-graph decode meets few shapes).  MLA plans
+buckets, so the step graphs meet few shapes).  MLA plans
 (deepseek-v3) are position-masked like attention: their latent caches
 (``ckv``, ``kpe``) take ragged prefill and ride the same row copies.  In
 an MoE plan whose capacity drops assignments, the padding rows (and a
@@ -28,7 +33,8 @@ and the batched executor runs one sub-batch per distinct prompt length.
 
 :class:`ContinuousGenerationSession` is continuous in-flight batching
 over a persistent slot table of ``max_slots`` sequences on the model's
-device: one decode step over the whole table per ``step()``, finished
+device: one decode step over the whole table per ``step()`` (on the
+card a replay of the session's one CUDA graph of it), finished
 rows evicted between steps, queued prompts prefilled into the freed
 slots of the live batch (one bucketed ``prefill`` per admission wave,
 its real rows copied into the resident state), and tokens streamed out
@@ -59,16 +65,35 @@ import numpy as np
 import torch
 
 from repro_torch.data.tokenizer import PAD_ID
-from repro_torch.nmt.common import greedy_update, scan_greedy_steps
+from repro_torch.nmt.common import (
+    GreedySteps,
+    greedy_columns,
+    greedy_update,
+    scan_greedy_steps,
+)
+from repro_torch.runtime import graphs
 
 # mixers whose decode caches are position-masked per sequence (slot ==
 # position, mask idx <= pos), making right-padded ragged prefill exact
 _POSITION_MASKED_MIXERS = ("attn", "mla", "shared_attn")
 
 
+# step-graph keys an LM keeps for GenerationSession: each holds a copy of
+# a decode state (a KV cache of B x max_len slots a layer)
+SESSION_GRAPH_KEYS = 4
+
+
 def _ragged_plan_ok(model) -> bool:
     return all(g.mixer in _POSITION_MASKED_MIXERS
                for g in model.cfg.layer_plan)
+
+
+def _graphs_on(model) -> bool:
+    """Whether ``model``'s decode steps replay CUDA graphs: on the card,
+    outside ``graphs.eager()``, for a model whose step runs no collective
+    (an LM, not a sharded one)."""
+    return graphs.active(model.device) and getattr(model, "graph_safe",
+                                                   False)
 
 
 def make_prefill_step(model, *, max_len: Optional[int] = None) -> Callable:
@@ -323,8 +348,9 @@ class GenerationSession:
     """Greedy batched generation over an LM's prefill and decode_step.
 
     ``host_loop=True`` selects the per-token loop (the paper-faithful,
-    linear-in-M timing path); the default keeps ``done`` on the device
-    and syncs once at the end.  The batch is padded to a power of two,
+    linear-in-M timing path, eager everywhere); the default keeps the
+    EOS bookkeeping on the device, replays one CUDA graph a step on the
+    card and syncs once at the end.  The batch is padded to a power of two,
     and for position-masked plans the prompt width as well (ragged
     prefill with true ``lengths``).
     """
@@ -397,6 +423,8 @@ class GenerationSession:
             tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
             if self.host_loop:
                 lens_out, out = self._host_decode(state, tok0, max_new)
+            elif max_new > 0 and _graphs_on(self.model):
+                lens_out, out = self._graph_decode(state, tok0, max_new)
             else:
                 lens_out, out = scan_greedy_steps(
                     self._step, state, tok0, tok0.shape[0], max_new,
@@ -406,6 +434,17 @@ class GenerationSession:
         return host[:b, 0], host[:b, 1:]
 
     # ----------------------------------------------------------- helpers --
+    def _graph_decode(self, state, tok0, max_new: int):
+        """``scan_greedy_steps``' result from the step graph of this
+        state's shapes (the model's, shared by its sessions)."""
+        cache = graphs.owner_cache(self.model, SESSION_GRAPH_KEYS)
+        entry = cache.get(
+            ("generate", self.max_len, graphs.signature(state)),
+            lambda: _SessionGraph(cache, self._step, state, tok0,
+                                  self.max_len))
+        return greedy_columns(entry.run(state, tok0, max_new),
+                              keep_eos=True)
+
     def _bucket_pad(self, tokens, lens_in, max_new):
         """Pad (b, s) up to the shape bucket; returns (tokens, lengths)."""
         b, s = tokens.shape
@@ -443,6 +482,25 @@ class GenerationSession:
                          device=tok0.device)
         out[:, :len(emitted)] = torch.stack(emitted, dim=1)
         return torch.stack(lives, dim=1).sum(dim=1, dtype=torch.int32), out
+
+
+class _SessionGraph:
+    """One GenerationSession key: a persistent copy of the decode state,
+    the greedy loop over it and its step graph.  Each call copies its
+    prefill state and first token in, then replays the step."""
+
+    def __init__(self, cache: graphs.GraphCache, step, state, tok0,
+                 max_len: int):
+        self.loop = GreedySteps(step, graphs.clone(state), tok0.clone(),
+                                max_len)
+        self.loop.start(tok0, first=True)
+        self.step = cache.capture(self.loop.step, static=self.loop.static())
+
+    def run(self, state, tok0, steps: int):
+        graphs.copy_into(self.loop.state, state)
+        self.loop.start(tok0, first=True)
+        self.step.replay(steps - 1)
+        return self.loop.cols[:, :steps]
 
 
 def greedy_margins(model, prompt: np.ndarray, tokens: np.ndarray, *,
@@ -528,18 +586,28 @@ class ContinuousGenerationSession:
         self.max_len = max_len
         self.bucket_shapes = bucket_shapes
         self._ragged_ok = _ragged_plan_ok(model)
+        self._graphs = graphs.GraphCache(max_keys=1)
+        self._table = None
         self.reset()
 
     def reset(self) -> None:
-        """Empty the slot table and zero the counters."""
+        """Empty the slot table and zero the counters.  The table's
+        buffers stay where they are (a fresh state is copied into them),
+        so the step graph stays valid."""
         dev = self.model.device
         with torch.inference_mode():
-            self._state = self.model.init_decode_state(
-                self.max_slots, self.max_len, ring=False)
-            self._tok = torch.full((self.max_slots,), PAD_ID,
-                                   dtype=torch.int32, device=dev)
-            self._done = torch.ones((self.max_slots,), dtype=torch.bool,
-                                    device=dev)
+            fresh = (self.model.init_decode_state(
+                self.max_slots, self.max_len, ring=False),
+                torch.full((self.max_slots,), PAD_ID, dtype=torch.int32,
+                           device=dev),
+                torch.ones((self.max_slots,), dtype=torch.bool, device=dev))
+            if self._table is None:
+                self._state, self._tok, self._done = fresh
+                self._out = torch.zeros((3, self.max_slots),
+                                        dtype=torch.int32, device=dev)
+                self._table = (self._state, self._tok, self._done, self._out)
+            else:
+                graphs.copy_into(self._table[:3], fresh)
         # host-side slot table
         self._live = np.zeros(self.max_slots, bool)
         self._req: List[object] = [None] * self.max_slots
@@ -656,16 +724,13 @@ class ContinuousGenerationSession:
         if not self._live.any():
             return [], []
         with torch.inference_mode():
-            emit, live, done = greedy_update(self._tok, self._done,
-                                             keep_eos=True)
-            logits, _ = self.model.decode_step(self._state,
-                                               self._tok[:, None])
-            self._tok = torch.argmax(logits, dim=-1).to(torch.int32)
-            self._done = done
+            if _graphs_on(self.model):
+                self._graphs.get("table", lambda: self._graphs.capture(
+                    self._table_step, static=self._table)).replay()
+            else:
+                self._table_step()
             # the step's one transfer to the host
-            emit, live, done = torch.stack(
-                [emit, live.to(torch.int32), done.to(torch.int32)]
-            ).cpu().numpy()
+            emit, live, done = self._out.cpu().numpy()
         self.n_steps += 1
 
         stream: List[tuple] = []
@@ -693,6 +758,19 @@ class ContinuousGenerationSession:
                 self._done.index_fill_(0, torch.as_tensor(
                     exhausted, device=self._done.device), True)
         return stream, finished
+
+    def _table_step(self) -> None:
+        """The decode step over the whole table, on its static buffers:
+        ``_tok`` and ``_done`` advanced in place, ``_out`` the emitted
+        token, live flag and done flag of every slot (one CUDA graph of it
+        on the card)."""
+        emit, live, done = greedy_update(self._tok, self._done,
+                                         keep_eos=True)
+        logits, _ = self.model.decode_step(self._state, self._tok[:, None])
+        self._tok.copy_(torch.argmax(logits, dim=-1))
+        self._done.copy_(done)
+        torch.stack([emit, live.to(torch.int32), done.to(torch.int32)],
+                    out=self._out)
 
     # ------------------------------------------------------------- serve --
     def serve(self, prompts: Sequence[np.ndarray], *, max_new: int = 16,

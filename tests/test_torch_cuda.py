@@ -1013,3 +1013,83 @@ def test_flash_decode_graph_replays_100_times_and_leaves_counters_zero(
                                    atol=2e-2)
     torch.cuda.synchronize()
     assert int((da.counter_buffer(dev) != 0).sum()) == 0
+
+
+# ------------------------------------------------------------ step graphs --
+def _twice_counted(fn):
+    """``fn()`` twice, the launch counts of the second call (the first may
+    capture, and its warm-ups launch)."""
+    fn()
+    ops.reset_launch_counts()
+    out = fn()
+    return out, ops.launch_counts()
+
+
+@pytest.mark.parametrize("family", ["gru", "bilstm", "marian"])
+def test_translate_graphs_equal_eager_bitwise(dev, family):
+    """The default translate and both split legs replay CUDA graphs; their
+    tokens and lengths equal ``graphs.eager()``'s bit for bit, with two
+    keys interleaved, in EOS and forced modes, and replayed launches count
+    as the eager ones do."""
+    from repro_torch.runtime import graphs
+    model = _nmt(family, dev)
+    batches = (_ragged_batch([9, 3, 12, 1, 7, 12, 5, 2], 64, seed=1),
+               _ragged_batch([4, 6], 64, seed=2))
+    translate = model.make_translate_batched()
+    enc, dec = model.make_encode_states(), model.make_decode_from_states()
+
+    def run(forced):
+        return [o for src, mask in batches for o in
+                translate(src, mask, forced_len=forced)
+                + dec(enc(src, mask), forced_len=forced)]
+
+    for forced in (None, 5):
+        with graphs.eager():
+            want, eager_counts = _twice_counted(lambda: run(forced))
+        got, counts = _twice_counted(lambda: run(forced))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert counts == eager_counts
+    cache = model._step_graphs
+    # per key: the translate's state and step, the encoder's graph, the
+    # decode leg's step (and its state's graph: Marian's init_cache)
+    assert cache.captures == 2 * (5 if family == "marian" else 4)
+    assert len(cache) == 6 and cache.replays > 0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "rwkv6-3b", "zamba2-1.2b",
+                                  "qwen3-moe-30b-a3b"])
+def test_session_graphs_equal_eager_bitwise(dev, arch):
+    """GenerationSession's default decode replays one graph a step:
+    tokens and lengths equal the eager loop's bitwise, B=1 and B=4 keys
+    interleaved; the slot table's graph serves with refill as the eager
+    table does."""
+    from repro_torch.models.registry import resolve
+    from repro_torch.runtime import graphs
+    from repro_torch.runtime.serving import (ContinuousGenerationSession,
+                                             GenerationSession)
+    model = resolve(arch, device=dev, seed=2).model
+    rng = np.random.default_rng(4)
+    batch = rng.integers(4, 512, (3, 9)).astype(np.int32)
+    prompts = [rng.integers(4, 512, int(n)).astype(np.int32)
+               for n in (5, 9, 9, 5, 9, 5)]
+    sess = GenerationSession(model, max_len=32)
+    cont = ContinuousGenerationSession(model, max_slots=4, max_len=32)
+
+    def run():
+        outs = []
+        for _ in range(2):
+            outs += sess.generate_with_lengths(batch, max_new=10)
+            outs += sess.generate_with_lengths(batch[:1], max_new=7)
+        cont.reset()
+        for m, toks in cont.serve(prompts, max_new=6, refill=True):
+            outs += [np.asarray([m]), toks]
+        return outs
+
+    with graphs.eager():
+        want, eager_counts = _twice_counted(run)
+    got, counts = _twice_counted(run)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert counts == eager_counts
+    assert model._step_graphs.captures == 2 and cont._graphs.captures == 1
