@@ -101,25 +101,32 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    shipped states' measured payload, and that Marian's split launched
    both attention kernels;
 11. trains the paper's three NMT models at full width through
-   ``launch/train_nmt.py``'s loop on their pairs' synthetic corpora at
+   ``launch/train_nmt.py``'s loop (its compiled step: one CUDA graph per
+   batch shape) on their pairs' synthetic corpora at
    B=32 and max_len 48: Marian en-zh 200 AdamW steps, the BiLSTM de-en
-   and the GRU fr-en 50 each.  Each checks a finite loss whose last-10
+   and the GRU fr-en 50 each.  First, four steps over two batches
+   (a key captured, then replayed) from the graphs against two eager
+   runs (``train_graph_check``: eager == eager, then the graphs, every
+   loss, grad norm, parameter and moment bitwise), and the loop's first
+   steps eager for their ms.  Each checks a finite loss whose last-10
    mean is below its first-10 mean, the first step's loss against a CPU
    copy of the same weights and batch (within 1e-4 relative), that no
    kernel launched while training, and a checkpoint in the reference's
-   format read back bitwise; it prints ms per step, target tokens/s and
-   peak memory.  The trained Marian's kernel-path ``forward_teacher``
+   format read back bitwise; it prints ms per step (eager and compiled,
+   the captures and their seconds), target tokens/s and peak memory.  The trained Marian's kernel-path ``forward_teacher``
    (no grad) is held against its training path (within 1e-4), the same
    call under autograd must raise (the kernels are forward-only), and a
    greedy decode of 32 corpus sources prints the mean output length, the
    N->M correlation and the share that reaches ``max_decode_len``
    (reported, not gated);
 12. the LM train step (loss, gradients, clipping, AdamW) at full width
-   for zamba2-1.2b and rwkv6-3b, 5 steps each on one B=1 S=64 batch,
-   each model freed before the next: a finite loss that falls, no kernel
-   launched while training, and ``train_logits``' last position against
-   ``prefill``'s kernel-path logits (phases 7-8's rule); it prints ms
-   per step and peak memory.
+   for zamba2-1.2b and rwkv6-3b, 3 compiled steps each on one B=1 S=64
+   batch (the first real, then captured, then replays), held bitwise
+   against two eager runs on models built alike (the first's state kept
+   on the host), each model freed before the next: a finite loss that
+   falls, no kernel launched while training, and ``train_logits``' last
+   position against ``prefill``'s kernel-path logits (phases 7-8's
+   rule); it prints ms per step eager and from the graph and both peaks.
 13. (run after phase 10, before phases 11-12, so that its weights are
    freed before rwkv6-3b trains) builds qwen3-8b at full width
    (``resolve("qwen3-8b", size="full")``, random weights from a seed),
@@ -258,11 +265,18 @@ interleave two keys, and prints a token's (or a slot-table step's) ms
 eager and from the graphs, the captures and their seconds: phase 10
 Marian, the BiLSTM and the GRU (B=8 and B=1, two source widths, EOS and
 ``forced_len``, the fused translate and both split legs); phases 7-8
-rwkv6-3b and zamba2-1.2b through ``GenerationSession``; phase 13
-qwen3-8b through ``GenerationSession`` and a slot table of 8 with refill
-(every step's stream and finished lists); phase 15 whisper-large-v3
-(1500 and 1000 frames); phase 18 qwen3-8b and qwen3-moe-30b-a3b in bf16,
-session and slot table (the MoE dispatch under capture).
+rwkv6-3b and zamba2-1.2b through ``GenerationSession`` (zamba2 also a
+slot table of 8); phase 13 qwen3-8b through ``GenerationSession`` and a
+slot table of 8 with refill (every step's stream and finished lists and
+the table's state at the end); phase 15 whisper-large-v3 (1500 and 1000
+frames); phase 18 qwen3-8b and qwen3-moe-30b-a3b in bf16, session and
+slot table (the MoE dispatch under capture).  The prefills replay graphs
+too: each session check also holds the session's prefill graph against
+the eager prefill (the logits and every decode-state tensor, bitwise)
+and prints a prefill's ms both ways, and each slot-table check an
+admission's ms (its waves' graphs) both ways; phases 11-12 hold the
+compiled train steps (``train_graph_check``).  The last lines print the
+script's wall time.
 
 It prints one JSON line of kernel numbers (each kernel's launches summed
 over the main paths that run it) and, last, the line
@@ -283,6 +297,7 @@ import sys
 import tempfile
 import time
 import types
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -1159,6 +1174,47 @@ def session_graph_check(what, model, batches, max_new, max_len):
                      for t, f in batches)
     log(graph_line(what, f"GenerationSession max_len {max_len}, {keys}, "
                    f"max_new {max_new}", counts, ms))
+    prefill_graph_check(what, sess, batches, max_new)
+
+
+def prefill_graph_check(what, sess, batches, max_new):
+    """The session's prefill from its graphs == ``graphs.eager()``'s,
+    bitwise: the last logits and every tensor of the decode state, each
+    batch's block in turn, twice (the keys interleaved); then a
+    prefill's ms, eager and from its graph, at the first block."""
+    from repro_torch.runtime import graphs
+
+    blocks = [(*sess._bucket_pad(toks, None, max_new), None)
+              if frames is None else (toks, None, torch.as_tensor(frames))
+              for toks, frames in batches]
+
+    def prefill(block, graph):
+        with torch.inference_mode():
+            return sess._prefill(*block, graph=graph)
+
+    def outputs(block, graph):
+        logits, state, _ = prefill(block, graph)
+        return [logits.clone()] + [t.clone() for t in graphs.leaves(state)]
+
+    before = graphs.totals()
+    for _ in range(2):
+        for block in blocks:
+            want = outputs(block, graph=False)
+            got = outputs(block, graph=True)
+            if len(got) != len(want) or not all(
+                    torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{what}: a prefill from its graph "
+                                     "differs from the eager prefill")
+            n = len(want)
+            del want, got
+    after = graphs.totals()
+    eager = wall_ms(lambda: prefill(blocks[0], False))
+    graph = wall_ms(lambda: prefill(blocks[0], True))
+    log(f"  {what}: prefill graph == eager prefill bitwise (logits and "
+        f"{n - 1} state tensors, {len(blocks)} blocks x 2, "
+        f"{after['replays'] - before['replays']} replays); a prefill of "
+        f"{tuple(blocks[0][0].shape)}: {eager:.3f}ms eager vs {graph:.3f}ms "
+        f"from its graph ({eager / graph:.2f}x) [{SMI}]")
 
 
 def table_trace(sess, prompts, max_new):
@@ -1176,7 +1232,30 @@ def table_trace(sess, prompts, max_new):
         trace.append(np.asarray(stream, np.int64).reshape(-1))
         for rid, m, toks in finished:
             trace += [np.asarray([rid, m]), toks]
-    return trace
+    return trace + table_bits(sess)
+
+
+def table_bits(sess):
+    """The bits of a slot table's resident state, carried token and done
+    flags, as host arrays."""
+    from repro_torch.runtime import graphs
+
+    return [t.detach().contiguous().view(torch.uint8).cpu().numpy()
+            for t in graphs.leaves((sess._state, sess._tok, sess._done))]
+
+
+def wave_ms(sess, prompts, max_new, reps=3):
+    """Median host-clock ms of admitting ``prompts`` into the emptied
+    table (its waves), after one untimed admission."""
+    times = []
+    for _ in range(reps + 1):
+        sess.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.admit(prompts, max_new=max_new)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
 
 
 def table_graph_check(what, model, prompts, max_new, max_len):
@@ -1201,11 +1280,16 @@ def table_graph_check(what, model, prompts, max_new, max_len):
             sess.step()
         return (time.perf_counter() - t0) / 10 * 1e3
 
+    block = [p[:16] for p in prompts[:8]]
     with graphs.eager():
         eager = step_ms()
-    ms = {"a step at 8 live slots": (eager, step_ms())}
+        eager_wave = wave_ms(sess, block, max_len - 32)
+    ms = {"a step at 8 live slots": (eager, step_ms()),
+          "an admission of 8 prompts of up to 16 tokens": (
+              eager_wave, wave_ms(sess, block, max_len - 32))}
     log(graph_line(what, f"slot table of 8, {len(prompts)} prompts with "
-                   f"refill, every step's stream and finished lists",
+                   f"refill, every step's stream and finished lists and "
+                   f"the table's state; {sess._waves.captures} wave graphs",
                    counts, ms))
     del sess
 
@@ -1899,14 +1983,22 @@ def lm_main_path(model, ops, needed):
     from repro_torch.launch.serve import serve_tiered
     from repro_torch.runtime.serving import GenerationSession
 
+    from repro_torch.runtime import graphs
+
     sess = GenerationSession(model, max_len=64)
     ops.reset_launch_counts()
+    before = graphs.totals()
     t0 = time.perf_counter()
     engine = serve_tiered(sess, model.cfg.vocab_size, requests=8, max_new=8,
                           seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
+    after = graphs.totals()
+    log(f"  graphs on the main path: {after['captures'] - before['captures']}"
+        f" captured in {after['capture_s'] - before['capture_s']:.2f}s "
+        f"(decode keys and prompt blocks new to this model), "
+        f"{after['replays'] - before['replays']} replays")
     results = engine.results
     for r in results:
         log(f"  req {r.req_id} n={r.n:2d} -> {r.tier_name:5s} "
@@ -2052,9 +2144,12 @@ def serve_both_modes(sess, ops, prompts, max_new, rate_hz, needed):
     sess.serve(prompts[:sess.max_slots], max_new=min(max_new, 4))
     arrivals = np.cumsum(np.random.default_rng(11).exponential(
         1 / rate_hz, len(prompts)))
+    from repro_torch.runtime import graphs
+
     card = DeviceProfile("card", LinearLatencyModel(0.0, 0.0, 0.01), 0.0)
     runs = {}
     ops.reset_launch_counts()
+    before = graphs.totals()
     for refill in (False, True):
         sess.reset()
         rec = Recorder(sess)
@@ -2088,7 +2183,11 @@ def serve_both_modes(sess, ops, prompts, max_new, rate_hz, needed):
         runs[refill] = (s, sess.n_steps, sess.n_prefills, sess.peak_live,
                         rec.rows)
     launches = ops.launch_counts()
-    log(f"  kernel launches over both runs: {launches}")
+    after = graphs.totals()
+    log(f"  kernel launches over both runs: {launches}; graphs: "
+        f"{after['captures'] - before['captures']} captured in "
+        f"{after['capture_s'] - before['capture_s']:.2f}s (wave keys new to "
+        f"the table), {after['replays'] - before['replays']} replays")
     for name in needed:
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched in serve_continuous")
@@ -2140,6 +2239,7 @@ def zamba2_continuous(model, ops):
         sess, ops, prompts, 8, 50.0,
         ("ssd_scan", "flash_attention", "flash_decode"))
     check_against_solo(model, prompts, runs, 8, 64)
+    table_graph_check("zamba2-1.2b", model, prompts, 8, 64)
     return launches
 
 
@@ -4370,24 +4470,44 @@ def nmt_training(family, pair, ops, steps, smi):
     kernel launched while training, a checkpoint that reads back
     bitwise.  Returns (model, losses)."""
     from repro_torch.launch import train_nmt as tn
+    from repro_torch.runtime import graphs
     from repro_torch.training.checkpoint import (load_checkpoint,
                                                  save_checkpoint,
                                                  state_from_jax, state_to_jax)
+    from repro_torch.training.optimizer import cosine_schedule
+    from repro_torch.training.train_loop import TRAIN_GRAPH_KEYS
 
-    model = tn.build_model(family, full_width=True, device="cuda", seed=0)
+    build = lambda: tn.build_model(family, full_width=True, device="cuda",
+                                   seed=0)
+    model = build()
     n_params = sum(p.numel() for p in model.parameters())
     src, tgt = tn.corpus_tokens(pair, model.cfg)
-    first = next(tn.batches(src, tgt, batch=32))
+    feed = tn.batches(src, tgt, batch=32)
+    first, second = next(feed), next(feed)
     cpu = copy.deepcopy(model).to("cpu")
     with torch.no_grad():
         cpu_loss = float(cpu.loss({k: torch.as_tensor(v)
                                    for k, v in first.items()}))
     del cpu
+    sched = cosine_schedule(tn.OPT.lr, warmup_steps=tn.WARMUP,
+                            total_steps=steps)
+    train_graph_check(f"{family} {pair}", build,
+                      lambda m: tn.make_nmt_train_step(m, sched),
+                      [first, second, first, second], replays_from=2)
+    empty_cache()
+    # the loop's ms a step eager, on the batches the compiled loop takes
+    n_eager = 30 if family == "marian" else 20
+    with graphs.eager():
+        _, _, eager_s, _ = tn.train(build(), src, tgt, steps=n_eager,
+                                    batch=32, log_every=0)
+    empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    before = graphs.totals()
     state, losses, step_s, tokens = tn.train(model, src, tgt, steps=steps,
                                              batch=32, log_every=50)
+    moved = {k: v - before[k] for k, v in graphs.totals().items()}
     train_launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     ms = 1e3 * float(np.mean(step_s[1:]))
@@ -4395,9 +4515,19 @@ def nmt_training(family, pair, ops, steps, smi):
     head, tail = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
     rel = abs(losses[0] - cpu_loss) / cpu_loss
     log(f"  {family} {pair} ({n_params / 1e6:.2f}M parameters), {steps} "
-        f"AdamW steps at B=32 max_len 48: {ms:.2f}ms per step after the "
-        f"first ({1e3 * step_s[0]:.1f}ms), {rate:.0f} target tokens/s, "
-        f"peak memory {peak:.2f} GiB on {smi}")
+        f"AdamW steps at B=32 max_len 48 through the compiled step: "
+        f"{ms:.2f}ms per step after the first ({1e3 * step_s[0]:.1f}ms), "
+        f"{rate:.0f} target tokens/s, peak memory {peak:.2f} GiB on {smi}")
+    shapes = {tuple(np.shape(b[k]) for k in sorted(b)) for b, _ in zip(
+        tn.batches(src, tgt, batch=32), range(steps))}
+    log(f"  {family} loop: {moved['captures']} graphs captured in "
+        f"{moved['capture_s']:.2f}s ({len(shapes)} batch shapes in "
+        f"{steps} steps through {TRAIN_GRAPH_KEYS} keys), "
+        f"{moved['replays']} "
+        f"replays; steps 1-"
+        f"{n_eager - 1}: {1e3 * float(np.mean(eager_s[1:])):.2f}ms eager vs "
+        f"{1e3 * float(np.mean(step_s[1:n_eager])):.2f}ms compiled "
+        f"(captures included) [{smi}]")
     log(f"  loss first-10 mean {head:.4f} -> last-10 mean {tail:.4f}; step "
         f"0 loss {losses[0]:.6f} on the card vs {cpu_loss:.6f} on a CPU "
         f"copy (rel {rel:.2e}); kernel launches while training "
@@ -4431,6 +4561,128 @@ def nmt_training(family, pair, ops, steps, smi):
     step_breakdown(family, lambda: model.loss(batch), state.params,
                    state.opt, tn.leaf_ndims(model))
     return model, losses
+
+
+def train_tensors(state) -> list:
+    """A train state's parameters, moments and step counter, in order."""
+    return ([p.detach() for p in state.params.values()]
+            + list(state.opt.mu.values()) + list(state.opt.nu.values())
+            + [state.opt.step])
+
+
+def train_run(build, make_step, batches, *, graph):
+    """``batches`` through ``compile_train_step(make_step(model))`` on a
+    model from ``build()``, from the graphs or under ``graphs.eager()``.
+    Returns (model, state, step, [(loss, grad norm)] on the host, each
+    step's host-clock s, the peak bytes allocated, the graphs' totals
+    moved, the kernel launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import graphs
+    from repro_torch.training.train_loop import (compile_train_step,
+                                                 init_train_state)
+
+    model = build()
+    state = init_train_state(model)
+    step = compile_train_step(make_step(model), model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    before = graphs.totals()
+    mets, times = [], []
+    with contextlib.nullcontext() if graph else graphs.eager():
+        for b in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            mets.append((float(m["loss"]), float(m["grad_norm"])))
+            times.append(time.perf_counter() - t0)
+    after = graphs.totals()
+    moved = {k: after[k] - before[k] for k in after}
+    return (model, state, step, mets, times,
+            torch.cuda.max_memory_allocated(), moved, ops.launch_counts())
+
+
+def nondeterministic_ops(step, state, batch) -> list:
+    """The ops ``torch.use_deterministic_algorithms(warn_only=True)``
+    names as run-to-run nondeterministic in one eager step."""
+    from repro_torch.runtime import graphs
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with graphs.eager():
+                step(state, batch)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(" does not")[0] for w in caught
+                   if "deterministic" in str(w.message)})
+
+
+def rel_gap(got, want_host) -> float:
+    """The largest |got - want| over max(1e-30, max |want|), tensor by
+    tensor (``want`` on the host, brought to the card one at a time)."""
+    worst = 0.0
+    for g, w in zip(got, want_host):
+        w = w.to(g.device)
+        if not torch.equal(g, w):
+            d = float((g.float() - w.float()).abs().max())
+            worst = max(worst, d / max(float(w.float().abs().max()), 1e-30))
+    return worst
+
+
+def train_graph_check(what, build, make_step, batches, *, replays_from):
+    """``batches`` (their shapes repeating) through the compiled train
+    step, from its graphs against ``graphs.eager()``: eager twice first
+    on models built alike (is eager bitwise equal to itself?), then from
+    the graphs.  Each step's loss and grad norm, and every parameter,
+    moment and the step counter after the last step, must equal eager's
+    bitwise; where eager differs from itself, the op named, within
+    eager's own gap.  Prints which rule held, the ms a step eager and
+    from the graphs (steps ``replays_from`` on, the replays), each run's
+    peak memory, and the captures and their seconds.  Returns the graph
+    run (``train_run``'s tuple), for the caller's own checks."""
+    runs, ref = [], None
+    for graph in (False, False, True):
+        run = train_run(build, make_step, batches, graph=graph)
+        model, state, step, mets, times, peak, moved, _ = run
+        tensors = train_tensors(state)
+        if ref is None:
+            ref = ([torch.tensor(mets)] + [t.cpu() for t in tensors])
+            gap = 0.0
+        else:
+            gap = max(rel_gap([torch.tensor(mets)], ref[:1]),
+                      rel_gap(tensors, ref[1:]))
+        if len(runs) == 1 and gap > 0:
+            named = nondeterministic_ops(step, state, batches[0])
+        runs.append((gap, times, peak, moved))
+        del model, state, step, tensors
+        if not graph:
+            del run
+            empty_cache()
+    del ref
+    eager_gap, graph_gap = runs[1][0], runs[2][0]
+    if eager_gap == 0:
+        rule = "bitwise (eager == eager bitwise)"
+        ok = graph_gap == 0
+    else:
+        rule = (f"within eager's own gap {eager_gap:.3e} (eager != eager; "
+                f"nondeterministic ops named: {named or 'none'})")
+        ok = graph_gap <= eager_gap
+    ms = [1e3 * float(np.mean(r[1][replays_from:])) for r in runs]
+    moved = runs[2][3]
+    log(f"  {what}: {len(batches)} train steps from the graphs == eager: "
+        f"{rule}; the graphs' gap {graph_gap:.3e}; a step {ms[0]:.2f} / "
+        f"{ms[1]:.2f}ms eager vs {ms[2]:.2f}ms from the graphs "
+        f"({ms[0] / ms[2]:.2f}x; steps {replays_from}+), the first "
+        f"{1e3 * runs[0][1][0]:.1f}ms eager vs {1e3 * runs[2][1][0]:.1f}ms "
+        f"from the graphs (its real step and capture); "
+        f"{moved['captures']} captures in {moved['capture_s']:.2f}s, "
+        f"{moved['replays']} replays; peak memory {runs[0][2] / 2**30:.2f} "
+        f"GiB eager vs {runs[2][2] / 2**30:.2f} GiB from the graphs [{SMI}]")
+    if not ok:
+        raise AssertionError(f"{what}: the train step from its graphs is "
+                             f"{graph_gap} off eager ({rule})")
+    return run
 
 
 def step_breakdown(what, loss_fn, params, opt, leaf_ndim):
@@ -4518,39 +4770,33 @@ def marian_after_training(model, ops):
     return {k: launches[k] + decode[k] for k in launches}
 
 
-def lm_training(name, ops, steps=5):
+def lm_training(name, ops, steps=3):
     """The LM train step (loss, grads, clip, AdamW) at full width, B=1
-    S=64, ``steps`` times on one batch.  Checks: finite loss that falls,
-    and ``train_logits``' last position against ``prefill``'s kernel-path
+    S=64, ``steps`` times on one batch through the compiled step, held
+    against two eager runs (``train_graph_check``; the graph run is the
+    main path).  Checks: finite loss that falls, no kernel launched, and
+    ``train_logits``' last position against ``prefill``'s kernel-path
     logits (within 1e-4, or ten times the effect of a 1e-7 perturbation of
     the embeddings, phases 7-8's rule).  Returns the prefill's launches."""
     from repro_torch.data.pipeline import lm_batches
     from repro_torch.models.registry import resolve
     from repro_torch.training.losses import lm_loss
-    from repro_torch.training.train_loop import (init_train_state,
-                                                 leaf_ndims, make_train_step)
+    from repro_torch.training.train_loop import leaf_ndims, make_train_step
 
-    r = resolve(name, size="full", device="cuda", seed=0)
-    model = r.model
-    n_params = sum(p.numel() for p in model.parameters())
+    build = lambda: resolve(name, size="full", device="cuda", seed=0).model
+    cfg = resolve(name, size="full", device="meta").cfg
     rng = np.random.default_rng(0)
-    stream = rng.integers(1, r.cfg.vocab_size, 4 * 65).astype(np.int32)
+    stream = rng.integers(1, cfg.vocab_size, 4 * 65).astype(np.int32)
     batch = next(lm_batches(stream, batch_size=1, seq_len=64))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    state = init_train_state(model)
-    step = make_train_step(model)
-    losses, times = [], []
-    ops.reset_launch_counts()
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        losses.append(float(metrics["loss"]))
-        times.append(time.perf_counter() - t0)
-    train_launches = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"  {name} ({n_params / 1e9:.3f}B parameters, all {r.cfg.num_layers}"
-        f" layer slots), {steps} train steps at B=1 S=64: losses "
+    model, state, step, mets, times, peak, _, train_launches = \
+        train_graph_check(name, build, make_train_step, [batch] * steps,
+                          replays_from=1)
+    losses = [loss for loss, _ in mets]
+    peak /= 2**30
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {name} ({n_params / 1e9:.3f}B parameters, all {cfg.num_layers}"
+        f" layer slots), {steps} compiled train steps at B=1 S=64 (the "
+        f"first real, then captured; then replays): losses "
         + ", ".join(f"{x:.4f}" for x in losses)
         + "; ms per step " + ", ".join(f"{1e3 * t:.1f}" for t in times)
         + f"; peak memory {peak:.2f} GiB (float32 parameters, gradients "
@@ -4582,7 +4828,7 @@ def lm_training(name, ops, steps=5):
     if not (err <= limit and torch.isfinite(got).all()):
         raise AssertionError(f"{name}: prefill vs train_logits {err} > "
                              f"{limit}")
-    del model, r, state, step
+    del model, state, step
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -4738,6 +4984,7 @@ def main() -> int:
     for row in rows:
         row["launches"] = sum(c[row["name"]] for c in paths.values())
     log("  main-path launches: " + json.dumps(paths, sort_keys=True))
+    log(f"  chip_smoke wall {time.perf_counter() - _T0:.1f} s")
     log(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -15,8 +15,10 @@ deepseek-v3-671b, the MTP cross entropy.  Weights
 are drawn from seed 0; the data is the reference's: a uniform random
 token stream packed by ``lm_batches``; AdamW under a cosine schedule with
 a tenth of the steps warming up; a checkpoint of the ``TrainState`` in
-the reference's format if ``--ckpt`` is given.  It runs on ``cuda``
-unless given ``--device cpu``.
+the reference's format if ``--ckpt`` is given.  As the reference jits
+its step, the step is compiled (``compile_train_step``: one CUDA graph
+of the one batch shape, replayed every step; eager on the CPU and under
+``graphs.eager()``).  It runs on ``cuda`` unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -34,7 +36,11 @@ from repro_torch.models.model import LM
 from repro_torch.models.registry import resolve
 from repro_torch.training.checkpoint import save_train_state
 from repro_torch.training.optimizer import AdamWConfig, cosine_schedule
-from repro_torch.training.train_loop import init_train_state, make_train_step
+from repro_torch.training.train_loop import (
+    compile_train_step,
+    init_train_state,
+    make_train_step,
+)
 
 
 TRAIN_BYTES_PER_PARAM = 16   # float32 parameter, gradient, two moments
@@ -84,8 +90,8 @@ def main(argv=None):
     state = init_train_state(model)
     sched = cosine_schedule(args.lr, warmup_steps=max(args.steps // 10, 1),
                             total_steps=args.steps)
-    step_fn = make_train_step(model, lr_schedule=sched,
-                              opt_cfg=AdamWConfig(lr=args.lr))
+    step_fn = compile_train_step(make_train_step(
+        model, lr_schedule=sched, opt_cfg=AdamWConfig(lr=args.lr)), model)
 
     rng = np.random.default_rng(0)
     stream = rng.integers(1, cfg.vocab_size,

@@ -11,7 +11,12 @@ clipped into the model's vocabulary), ``padded_batches`` at ``max_len``
 training path, gradient clipping, AdamW (lr 3e-4, weight decay 0.01)
 under a cosine schedule with 20 warm-up steps, a checkpoint in the
 reference's format, and the same final check: the mean loss of the last
-10 steps is below that of the first 10.
+10 steps is below that of the first 10.  As the example jits its step,
+the step (the schedule's ``lr`` from the device's step counter, the
+loss, its gradients, clipping and AdamW) is compiled
+(``compile_train_step``): on the card one CUDA graph per batch shape,
+and ``padded_batches`` pads each batch to its own widths, so a run meets
+many; eager on the CPU and under ``graphs.eager()``.
 
 ``--model`` picks the family (default: the example's own small Marian,
 d_model 128, on the de-en corpus); ``--full-width`` builds it at the
@@ -48,6 +53,7 @@ from repro_torch.training.optimizer import AdamWConfig, cosine_schedule
 from repro_torch.training.train_loop import (
     TrainState,
     apply_gradients,
+    compile_train_step,
     init_train_state,
     leaf_ndims,
 )
@@ -103,34 +109,48 @@ def batches(src, tgt, *, batch: int, max_len: int = MAX_LEN):
             it += 1
 
 
-def train(model, src, tgt, *, steps: int, batch: int, log_every: int = 25,
-          state: TrainState | None = None):
-    """``steps`` AdamW steps of ``model.loss`` over the corpus.  Returns
-    ``(state, losses, step_s, target_tokens)``: the train state, each
-    step's loss, each step's wall seconds (the host reads every loss, so
-    each step ends on the device) and its count of target tokens."""
-    state = init_train_state(model) if state is None else state
-    sched = cosine_schedule(OPT.lr, warmup_steps=WARMUP, total_steps=steps)
+def make_nmt_train_step(model, sched):
+    """The example's jitted step: ``train_step(state, batch) -> (state,
+    {"loss", "grad_norm", "lr"})``, ``lr = sched(state.opt.step)`` on the
+    device, the loss through ``model.loss``, then ``apply_gradients``."""
     ndims = leaf_ndims(model)
-    losses, step_s, tokens = [], [], []
-    for it, host in zip(range(steps), batches(src, tgt, batch=batch)):
-        t0 = time.perf_counter()
+
+    def train_step(state: TrainState, batch):
         b = {k: torch.as_tensor(v, device=model.device)
-             for k, v in host.items()}
+             for k, v in batch.items()}
         lr = sched(state.opt.step)
         with torch.enable_grad():
             loss = model.loss(b)
             params, opt, gnorm = apply_gradients(
                 state.params, loss, state.opt, lr=lr, cfg=OPT,
                 leaf_ndim=ndims)
-        state = TrainState(params, opt)
-        losses.append(loss.item())
+        return TrainState(params, opt), {"loss": loss.detach(),
+                                         "grad_norm": gnorm, "lr": lr}
+
+    return train_step
+
+
+def train(model, src, tgt, *, steps: int, batch: int, log_every: int = 25,
+          state: TrainState | None = None):
+    """``steps`` AdamW steps of ``model.loss`` over the corpus, through the
+    compiled step.  Returns ``(state, losses, step_s, target_tokens)``:
+    the train state, each step's loss, each step's wall seconds (the host
+    reads every loss, so each step ends on the device) and its count of
+    target tokens."""
+    state = init_train_state(model) if state is None else state
+    sched = cosine_schedule(OPT.lr, warmup_steps=WARMUP, total_steps=steps)
+    step = compile_train_step(make_nmt_train_step(model, sched), model)
+    losses, step_s, tokens = [], [], []
+    for it, host in zip(range(steps), batches(src, tgt, batch=batch)):
+        t0 = time.perf_counter()
+        state, metrics = step(state, host)
+        losses.append(metrics["loss"].item())
         step_s.append(time.perf_counter() - t0)
         tokens.append(int(host["tgt_mask"].sum()))
         if log_every and it % log_every == 0:
             print(f"step {it:4d}  loss {losses[-1]:.4f}  "
-                  f"gnorm {float(gnorm):.2f}  lr {float(lr):.2e}",
-                  flush=True)
+                  f"gnorm {float(metrics['grad_norm']):.2f}  "
+                  f"lr {float(metrics['lr']):.2e}", flush=True)
     return state, losses, step_s, tokens
 
 

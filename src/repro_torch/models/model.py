@@ -162,6 +162,21 @@ def _stack(entries: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([e[k] for e in entries]) for k in entries[0]}
 
 
+def _write_layer(group: Dict[str, torch.Tensor], li: int,
+                 cache: Dict[str, torch.Tensor]) -> None:
+    """Write layer ``li``'s prefill cache into a group of a decode state:
+    a sequence cache longer than the prompt takes it in its first slots
+    and zeros after them (what ``prefill(max_len=)`` pads with)."""
+    for name, t in cache.items():
+        dst = group[name][li]
+        if dst.shape == t.shape:
+            dst.copy_(t)
+        else:
+            s = t.shape[1]
+            dst[:, :s].copy_(t)
+            dst[:, s:].zero_()
+
+
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
                  param_dtype=torch.float32, remat: bool = False):
@@ -366,10 +381,12 @@ class LM(nn.Module):
             x = rmsnorm(self.encoder.final_norm.g, x, self.cfg.norm_eps)
         return x, frame_mask
 
-    def _encode_for(self, frames, frame_mask, *, kernels: bool):
+    def _encode_for(self, frames, frame_mask, *, kernels: bool,
+                    check: bool = True):
         """((encoder output, frame lengths), frame mask) of an
         encoder-decoder configuration's frames; (None, None) for a
-        decoder-only one."""
+        decoder-only one.  ``check=False`` skips the prefix check of the
+        mask (``att.mask_lengths``), which reads the device."""
         if not self.cfg.is_encoder_decoder:
             return None, None
         if frames is None:
@@ -383,7 +400,7 @@ class LM(nn.Module):
         if frame_mask is not None:
             frame_mask = torch.as_tensor(frame_mask, device=self.device)
         enc_out, mask = self.encode(frames, frame_mask, kernels=kernels)
-        return (enc_out, att.mask_lengths(mask)), mask
+        return (enc_out, att.mask_lengths(mask, check=check)), mask
 
     def _layer_full(self, p: Block, g: LayerGroup, x, kernels: bool,
                     window, enc):
@@ -393,10 +410,14 @@ class LM(nn.Module):
                                     enc=enc)
 
     def _run_full(self, x, *, kernels: bool, window=None, enc=None,
-                  with_cache: bool):
+                  with_cache: bool, into=None):
         """Every group over the full sequence; returns (x, caches or None,
         MoE aux total).  With ``remat`` and autograd on, each layer of a
-        group but the shared block is checkpointed."""
+        group but the shared block is checkpointed.  ``into`` (a decode
+        state's caches) takes each layer's cache as it is made, in place
+        of the stacked caches returned.  The checkpoint keeps no RNG
+        state: no layer draws random numbers, and a CUDA graph may then
+        capture the step."""
         w = window if window is not None else self.cfg.sliding_window
         caches: List[Dict[str, torch.Tensor]] = []
         aux_total = torch.zeros((), device=x.device)
@@ -404,20 +425,22 @@ class LM(nn.Module):
             remat = (self.remat and torch.is_grad_enabled()
                      and g.mixer != "shared_attn")
             entries = []
-            for p in self._layers(gi, g):
+            for li, p in enumerate(self._layers(gi, g)):
                 if remat:
                     x, cache, aux = torch.utils.checkpoint.checkpoint(
                         self._layer_full, p, g, x, kernels, w, enc,
-                        use_reentrant=False,
+                        use_reentrant=False, preserve_rng_state=False,
                         context_fn=shard_ctx.recompute_context)
                 else:
                     x, cache, aux = self._layer_full(p, g, x, kernels, w,
                                                      enc)
-                if with_cache:
+                if into is not None:
+                    _write_layer(into[gi], li, cache)
+                elif with_cache:
                     entries.append(cache)
                 if aux is not None:
                     aux_total = aux_total + aux
-            if with_cache:
+            if with_cache and into is None:
                 caches.append(_stack(entries))
         return x, (caches if with_cache else None), aux_total
 
@@ -458,7 +481,7 @@ class LM(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens, *, frames=None, frame_mask=None,
                 window: Optional[int] = None, max_len: Optional[int] = None,
-                lengths=None):
+                lengths=None, check: bool = True, into: Optional[Dict] = None):
         """tokens (B,S) -> (last logits (B,V), decode state).
 
         ``max_len`` pads the KV caches to the decode capacity (slot ==
@@ -468,20 +491,42 @@ class LM(nn.Module):
         mixer refuses ragged lengths.  ``frames`` / ``frame_mask`` feed an
         encoder-decoder's encoder (the mask must be a key prefix in each
         row); ``window`` overrides the configuration's sliding window.
+
+        The two refusals read the device; ``check=False`` skips them, for
+        a caller that made them on the host (a session, whose prefill a
+        CUDA graph captures).  ``into`` (a decode state of the shapes this
+        call returns) receives the state in place, and is returned: its
+        sequence caches hold the prompt's slots and zeros after them, as
+        a returned state's do.
         """
         cfg = self.cfg
         b, s = tokens.shape
         if lengths is not None:
             lengths = torch.as_tensor(lengths, device=self.device).to(
                 torch.int32)
-            if any(g.mixer in _RECURRENT for g in cfg.layer_plan) and \
+            if check and any(g.mixer in _RECURRENT
+                             for g in cfg.layer_plan) and \
                     bool((lengths != s).any()):
                 raise ValueError("ragged prompt lengths need position-masked "
                                  "mixers; recurrent states fold pad steps in")
-        enc, enc_mask = self._encode_for(frames, frame_mask, kernels=True)
-        x, caches, _ = self._run_full(self._embed(tokens), kernels=True,
-                                      window=window, enc=enc,
-                                      with_cache=True)
+        enc, enc_mask = self._encode_for(frames, frame_mask, kernels=True,
+                                         check=check)
+        x, caches, _ = self._run_full(
+            self._embed(tokens), kernels=True, window=window, enc=enc,
+            with_cache=True,
+            into=None if into is None else into["caches"])
+        if into is not None:
+            pos0 = into["pos"]
+            if lengths is None:
+                pos0.fill_(s)
+                last = x[:, -1, :]
+            else:
+                pos0.copy_(lengths)
+                last = x[torch.arange(b, device=self.device),
+                         lengths.long() - 1, :]
+            if enc_mask is not None:
+                into["enc_mask"].copy_(enc_mask)
+            return self._logits(last), into
         if max_len is not None and max_len > s:
             for c in caches:
                 for name in ("k", "v", "ckv", "kpe"):
@@ -549,17 +594,27 @@ class LM(nn.Module):
                                            dtype=torch.float32, device=dev)
         return state
 
-    def copy_rows(self, dst: Dict, src: Dict, slots) -> None:
+    def copy_rows(self, dst: Dict, src: Dict, slots, src_rows=None) -> None:
         """Copy the first ``len(slots)`` rows of the decode state ``src``
         (an admission prefill's) into rows ``slots`` of ``dst`` (a slot
         table's resident state): every cache tensor at axis 1, after the
-        layer axis, and ``pos`` at axis 0."""
-        k = len(slots)
-        rows = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+        layer axis, and ``pos`` at axis 0.  ``src_rows`` (a long tensor
+        as long as ``slots``, itself then a long tensor on the device)
+        names the row of ``src`` each slot takes instead: a CUDA graph's
+        static indices, where two entries may name one slot if they name
+        one row."""
+        if src_rows is None:
+            k = len(slots)
+            rows = torch.as_tensor(slots, dtype=torch.long,
+                                   device=self.device)
+            pick = lambda t, axis: t.narrow(axis, 0, k)
+        else:
+            rows = slots
+            pick = lambda t, axis: t.index_select(axis, src_rows)
         for resident, fresh in zip(dst["caches"], src["caches"]):
             for name, t in resident.items():
-                t.index_copy_(1, rows, fresh[name][:, :k])
-        dst["pos"].index_copy_(0, rows, src["pos"][:k])
+                t.index_copy_(1, rows, pick(fresh[name], 1))
+        dst["pos"].index_copy_(0, rows, pick(src["pos"], 0))
 
     # ----------------------------------------------------------- decode --
     @torch.no_grad()

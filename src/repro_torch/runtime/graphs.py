@@ -1,5 +1,5 @@
-"""CUDA graphs of the decode steps: the port's form of the reference's
-compiled decode.
+"""CUDA graphs of the decode steps, the prefills and the train steps: the
+port's form of the reference's ``jax.jit``.
 
 The reference runs a whole greedy decode as ONE ``lax.scan`` under
 ``jax.jit`` (``batched_greedy_decode``, ``GenerationSession``'s default
@@ -12,12 +12,16 @@ so the host submits one graph launch a step instead of every kernel of
 it.
 
 * :class:`GraphCache` keeps the graphs of one owner (an NMT model, a
-  session), at most ``max_keys`` keys, least recently used first out;
-  evicting a key drops its graphs and its static buffers.  All graphs of
-  an owner share one memory pool (``torch.cuda.graph_pool_handle()``):
-  they replay one after another on one stream, so the temporaries of one
-  may lie where another's were.  Nothing a graph leaves allocated in the
-  pool is read by another owner.
+  session, a compiled train step), at most ``max_keys`` keys, least
+  recently used first out; evicting a key drops its graphs (an entry's
+  ``release()``) and its static buffers.  All graphs of an owner share
+  one memory pool (``torch.cuda.graph_pool_handle()``; a cache made with
+  ``pool_of=`` another cache, or a function giving one at the first
+  capture, shares that one's): they replay one after another
+  on one stream, so the temporaries of one may lie where another's were.
+  A graph's outputs are therefore read before the next replay of any
+  graph of its pool.  Nothing a graph leaves allocated in the pool is
+  read by another owner.
 * :meth:`GraphCache.capture` runs ``fn()`` once eagerly on the capture
   stream (the warm-up: it builds the kernels' library, allocates
   ``flash_decode``'s split counters and cuBLAS' workspace outside the
@@ -27,6 +31,18 @@ it.
   (:func:`repro_torch.kernels.ops.launch_counts`) recorded while
   capturing are taken back, since nothing launched, and added once per
   replay, so the counters count the launches the device really ran.
+* :meth:`GraphCache.run_and_capture` is the capture of a step whose
+  first call must do real work that nobody can undo cheaply (a prefill
+  into a live slot table, a train step over every parameter and both
+  moments); nothing is saved or restored.  A cache's first key runs
+  ``fn()`` once for real on the capture stream (its warm-up: the
+  kernels' library, cuBLAS's workspace and autograd's threads start
+  outside any capture), its writes standing, and is then captured;
+  ``empty_cache=True`` hands the allocator's cached blocks back between
+  the two (a train step's gradients), so that the pool does not sit
+  beside them.  Each later key of the cache is captured at once and its
+  graph replayed for the real call, so no eager call's temporaries sit
+  beside the pool's.
 * :func:`eager` is the port's form of ``jax.disable_jit``: while it is
   active every graph-capable path runs its eager loop (the same step
   function, called from Python).  On the CPU the eager loop is the only
@@ -48,6 +64,7 @@ import contextlib
 import time
 from typing import Callable, Dict, Hashable, List
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
@@ -122,6 +139,14 @@ def copy_into(static, fresh) -> None:
             d.copy_(s)
 
 
+def host_tensor(value) -> torch.Tensor:
+    """A tensor of ``value`` (a tensor, or a numpy array of any strides)
+    to copy into a static buffer."""
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.from_numpy(np.ascontiguousarray(value))
+
+
 def signature(tree) -> tuple:
     """The shapes and dtypes of a tree's tensors: a key's shape part."""
     return tuple((tuple(t.shape), t.dtype) for t in leaves(tree))
@@ -168,13 +193,14 @@ class GraphCache:
     and static buffers); on eviction its graphs are released.  Counts
     ``captures``, ``replays`` and ``capture_s`` (warm-up included)."""
 
-    def __init__(self, max_keys: int = 4):
+    def __init__(self, max_keys: int = 4, *, pool_of=None):
         if max_keys < 1:
             raise ValueError("max_keys must be >= 1")
         self.max_keys = max_keys
         self._entries: "collections.OrderedDict[Hashable, object]" = \
             collections.OrderedDict()
         self._pool = None
+        self._pool_of = pool_of
         self.captures = 0
         self.replays = 0
         self.capture_s = 0.0
@@ -190,12 +216,21 @@ class GraphCache:
     def keys(self) -> list:
         return list(self._entries)
 
-    def get(self, key, build: Callable[[], object]):
-        """The entry of ``key``, made by ``build()`` (after evicting down to
-        room for it) when absent; marks it most recently used."""
+    def entries(self) -> list:
+        return list(self._entries.values())
+
+    def peek(self, key):
+        """The entry of ``key`` or None; marks it most recently used."""
         entry = self._entries.get(key)
         if entry is not None:
             self._entries.move_to_end(key)
+        return entry
+
+    def get(self, key, build: Callable[[], object]):
+        """The entry of ``key``, made by ``build()`` (after evicting down to
+        room for it) when absent; marks it most recently used."""
+        entry = self.peek(key)
+        if entry is not None:
             return entry
         while len(self._entries) >= self.max_keys:
             self._evict()
@@ -205,11 +240,12 @@ class GraphCache:
 
     def _evict(self) -> None:
         _, entry = self._entries.popitem(last=False)
-        held = [entry] if isinstance(entry, StepGraph) else \
-            list(getattr(entry, "__dict__", {}).values())
-        for value in held:
-            if isinstance(value, StepGraph):
-                value.release()
+        release(entry)
+
+    def clear(self) -> None:
+        """Evict every key."""
+        while self._entries:
+            self._evict()
 
     def capture(self, fn: Callable[[], object], static=()) -> StepGraph:
         """Warm ``fn()`` up on the capture stream, then capture it.
@@ -225,6 +261,31 @@ class GraphCache:
         for t, s in zip(tensors, saved):
             t.copy_(s)
         del saved
+        return self._capture(fn, tensors, t0)
+
+    def run_and_capture(self, fn: Callable[[], object], static=(), *,
+                        empty_cache: bool = False):
+        """Capture ``fn()`` and make its call real: this cache's first
+        capture runs it for real on the capture stream first (its
+        warm-up, whose writes stand; ``empty_cache`` then returns the
+        allocator's cached blocks to the device), a later one replays
+        the graph once after capturing it.  ``static`` (a tree of CUDA
+        tensors) is checked as :meth:`capture` checks it.  Returns (the
+        graph, what the real call returned: a replay's, the graph's
+        outputs)."""
+        tensors = leaves(static)
+        self._check(tensors)
+        t0 = time.perf_counter()
+        if self.captures == 0:
+            result = self._warm_up(fn, tensors)
+            if empty_cache:
+                self._empty_cache()
+            return self._capture(fn, tensors, t0), result
+        graph = self._capture(fn, tensors, t0)
+        graph.replay()
+        return graph, graph.outputs
+
+    def _capture(self, fn, tensors, t0: float) -> StepGraph:
         before = ops.launch_counts()
         try:
             graph, outputs = self._record(fn, tensors)
@@ -253,31 +314,52 @@ class GraphCache:
         return (tensors[0].device if tensors
                 else torch.device("cuda", torch.cuda.current_device()))
 
-    def _warm_up(self, fn, tensors) -> None:
+    def _warm_up(self, fn, tensors):
         device = self._device(tensors)
         stream = _stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
-            fn()
+            result = fn()
         torch.cuda.current_stream(device).wait_stream(stream)
+        return result
+
+    @staticmethod
+    def _empty_cache() -> None:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
 
     def _record(self, fn, tensors):
         """Capture ``fn()`` (which runs nothing on the device now) into a
         graph in the owner's pool; returns (graph, what ``fn`` returned)."""
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
+        owner = self._pool_of or self
+        if callable(owner):
+            owner = owner()
+        if owner._pool is None:
+            owner._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         # torch.cuda.graph's own context would also empty the allocator's
         # cache at every capture, and the allocator would then map its
         # memory anew: a serving stream meets a new key often
         torch.cuda.synchronize()
         with torch.cuda.stream(_stream(self._device(tensors))):
-            graph.capture_begin(pool=self._pool)
+            graph.capture_begin(pool=owner._pool)
             try:
                 outputs = fn()
             finally:
                 graph.capture_end()
         return graph, outputs
+
+
+def release(entry) -> None:
+    """Drop the graphs of a cache entry: a :class:`StepGraph`, an object
+    with a ``release()`` of its own, or one holding step graphs among its
+    attributes."""
+    if hasattr(entry, "release"):
+        entry.release()
+        return
+    for value in getattr(entry, "__dict__", {}).values():
+        if isinstance(value, StepGraph):
+            value.release()
 
 
 def owner_cache(owner, max_keys: int) -> GraphCache:

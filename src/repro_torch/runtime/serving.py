@@ -10,12 +10,14 @@ Port of the LM half of ``repro/runtime/serving.py``.
   of the shared :class:`~repro_torch.nmt.common.GreedySteps` with the
   EOS bookkeeping on the device and ONE transfer to the host at the end.
   On the card each step is a replay of one CUDA graph, captured per
-  (padded batch, ``max_len``, state shapes: the plan and whisper's frame
-  count) over a persistent copy of the decode state into which each
-  call's prefill state is copied (``repro_torch.runtime.graphs``; the
-  reference's single ``lax.scan`` dispatch); on the CPU, under
-  ``graphs.eager()`` and for a sharded LM (its step runs collectives) a
-  Python loop runs the same step;
+  (``max_len``, state shapes: the padded batch, the plan and whisper's
+  frame count) over a persistent decode state, and the prefill is a
+  replay of one graph per prompt block (its shape, whether it is ragged,
+  the frames' shape), which writes that state and the first token in
+  place (``repro_torch.runtime.graphs``; the reference's jitted prefill
+  and single ``lax.scan`` dispatch); on the CPU, under
+  ``graphs.eager()`` and for a sharded LM (its step runs collectives)
+  the prefill runs eagerly and a Python loop runs the same step;
 * **host loop** (``host_loop=True``): the per-token loop, one scalar
   sync per step for its early exit — the paper-faithful timing path
   (§II-A), kept for characterization runs.
@@ -37,8 +39,8 @@ device: one decode step over the whole table per ``step()`` (on the
 card a replay of the session's one CUDA graph of it), finished
 rows evicted between steps, queued prompts prefilled into the freed
 slots of the live batch (one bucketed ``prefill`` per admission wave,
-its real rows copied into the resident state), and tokens streamed out
-per step.  EOS bookkeeping is the same
+its real rows copied into the resident state; on the card a replay of
+one graph per wave key), and tokens streamed out per step.  EOS bookkeeping is the same
 :func:`~repro_torch.nmt.common.greedy_update` the device loop uses.
 
 :func:`build_executor` is the one factory for the executor shapes a
@@ -78,9 +80,14 @@ from repro_torch.runtime import graphs
 _POSITION_MASKED_MIXERS = ("attn", "mla", "shared_attn")
 
 
-# step-graph keys an LM keeps for GenerationSession: each holds a copy of
-# a decode state (a KV cache of B x max_len slots a layer)
+# step-graph keys an LM keeps for GenerationSession: each holds a decode
+# state (a KV cache of B x max_len slots a layer)
 SESSION_GRAPH_KEYS = 4
+# prefill graphs a GenerationSession key keeps, one per prompt block shape
+# (a recurrent plan's exact widths make one per prompt length)
+SESSION_PREFILL_KEYS = 8
+# admission-wave graphs a slot table keeps, one per (batch, width, ragged)
+WAVE_GRAPH_KEYS = 16
 
 
 def _ragged_plan_ok(model) -> bool:
@@ -360,6 +367,7 @@ class GenerationSession:
         self.max_len = max_len
         self.host_loop = host_loop
         self._ragged_ok = _ragged_plan_ok(model)
+        self._decode_keys: dict = {}    # prefill key -> its decode key
 
     @property
     def supports_ragged(self) -> bool:
@@ -409,41 +417,76 @@ class GenerationSession:
                 raise ValueError(
                     "ragged prompt lengths need position-masked mixers "
                     f"(plan has {[g.mixer for g in self.model.cfg.layer_plan]})")
-        dev = self.model.device
         if frames is None:
             tokens, lens_in = self._bucket_pad(tokens, lens_in, max_new)
         else:
-            lens_in = None               # the LM casts to its dtype
-            frames = torch.as_tensor(frames, device=dev)
+            # the LM casts to its dtype; the encoder's frame mask is all
+            # ones, a key prefix, so nothing is left to check on the device
+            lens_in = None
+            frames = torch.as_tensor(frames)
+        graph = not self.host_loop and max_new > 0 and \
+            _graphs_on(self.model)
         with torch.inference_mode():
-            logits, state = self.model.prefill(
-                torch.as_tensor(tokens, device=dev), max_len=self.max_len,
-                lengths=None if lens_in is None
-                else torch.as_tensor(lens_in, device=dev), frames=frames)
-            tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
-            if self.host_loop:
-                lens_out, out = self._host_decode(state, tok0, max_new)
-            elif max_new > 0 and _graphs_on(self.model):
-                lens_out, out = self._graph_decode(state, tok0, max_new)
+            logits, state, entry = self._prefill(tokens, lens_in, frames,
+                                                 graph=graph)
+            if entry is not None:
+                lens_out, out = greedy_columns(entry.run(max_new),
+                                               keep_eos=True)
             else:
-                lens_out, out = scan_greedy_steps(
-                    self._step, state, tok0, tok0.shape[0], max_new,
-                    keep_eos=True)
+                tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
+                if self.host_loop:
+                    lens_out, out = self._host_decode(state, tok0, max_new)
+                else:
+                    lens_out, out = scan_greedy_steps(
+                        self._step, state, tok0, tok0.shape[0], max_new,
+                        keep_eos=True)
             # the one transfer off the device; it waits for the last kernel
             host = torch.cat([lens_out[:, None], out], dim=1).cpu().numpy()
         return host[:b, 0], host[:b, 1:]
 
     # ----------------------------------------------------------- helpers --
-    def _graph_decode(self, state, tok0, max_new: int):
-        """``scan_greedy_steps``' result from the step graph of this
-        state's shapes (the model's, shared by its sessions)."""
+    def _prefill(self, tokens: np.ndarray, lens_in, frames, *,
+                 graph: bool):
+        """The prefill of a bucketed block: (last logits, decode state,
+        the step-graph entry whose state it is, or None).
+
+        With ``graph`` the block's prefill graph writes the state and the
+        first token of its decode key's entry (the model's, shared by its
+        sessions) in place; the logits and the state are the graphs'
+        buffers, rewritten by the next call.  A block shape's first call
+        captures its prefill and makes the call real
+        (``GraphCache.run_and_capture``; a new decode key runs one eager
+        prefill more, which gives the state its buffers)."""
+        dev = self.model.device
+        if not graph:
+            logits, state = self.model.prefill(
+                torch.as_tensor(tokens, device=dev), max_len=self.max_len,
+                lengths=None if lens_in is None
+                else torch.as_tensor(lens_in, device=dev),
+                frames=None if frames is None else frames.to(dev))
+            return logits, state, None
         cache = graphs.owner_cache(self.model, SESSION_GRAPH_KEYS)
-        entry = cache.get(
-            ("generate", self.max_len, graphs.signature(state)),
-            lambda: _SessionGraph(cache, self._step, state, tok0,
-                                  self.max_len))
-        return greedy_columns(entry.run(state, tok0, max_new),
-                              keep_eos=True)
+        pkey = (tokens.shape, lens_in is not None,
+                None if frames is None else (tuple(frames.shape),
+                                             frames.dtype))
+        dkey = self._decode_keys.get(pkey)
+        entry = None if dkey is None else cache.peek(dkey)
+        if entry is None:
+            # the decode key of this block's state (another session of
+            # the model may have made its entry and this block's graph)
+            _, state, _ = self._prefill(tokens, lens_in, frames, graph=False)
+            dkey = ("generate", self.max_len, graphs.signature(state))
+            entry = cache.get(dkey, lambda: _SessionGraph(
+                cache, self._step, state, self.max_len))
+            self._decode_keys[pkey] = dkey
+        block = entry.prefills.peek(pkey)
+        if block is None:
+            block = entry.prefills.get(pkey, lambda: _PrefillGraph(
+                entry, self.model, self.max_len, tokens, lens_in, frames))
+            return block.first, entry.loop.state, entry
+        block.load(tokens, lens_in, frames)
+        block.graph.replay()
+        return block.graph.outputs, entry.loop.state, entry
 
     def _bucket_pad(self, tokens, lens_in, max_new):
         """Pad (b, s) up to the shape bucket; returns (tokens, lengths)."""
@@ -485,22 +528,129 @@ class GenerationSession:
 
 
 class _SessionGraph:
-    """One GenerationSession key: a persistent copy of the decode state,
-    the greedy loop over it and its step graph.  Each call copies its
-    prefill state and first token in, then replays the step."""
+    """One GenerationSession key: a decode state (``state``'s buffers,
+    adopted), the greedy loop over it, its step graph and the prefill
+    graphs of the prompt blocks that fill it (``prefills``, in the
+    owner's pool).  A call replays a prefill, which writes the state and
+    the first token, then the step."""
 
-    def __init__(self, cache: graphs.GraphCache, step, state, tok0,
+    def __init__(self, cache: graphs.GraphCache, step, state,
                  max_len: int):
-        self.loop = GreedySteps(step, graphs.clone(state), tok0.clone(),
-                                max_len)
-        self.loop.start(tok0, first=True)
+        pos = state["pos"]
+        tok = torch.full(pos.shape, PAD_ID, dtype=torch.int32,
+                         device=pos.device)
+        self.loop = GreedySteps(step, state, tok, max_len)
+        self.loop.start(tok, first=True)
         self.step = cache.capture(self.loop.step, static=self.loop.static())
+        self.prefills = graphs.GraphCache(SESSION_PREFILL_KEYS,
+                                          pool_of=cache)
 
-    def run(self, state, tok0, steps: int):
-        graphs.copy_into(self.loop.state, state)
-        self.loop.start(tok0, first=True)
+    def run(self, steps: int):
+        """The decode after a prefill: ``steps - 1`` step replays; the
+        token columns (B, steps)."""
         self.step.replay(steps - 1)
         return self.loop.cols[:, :steps]
+
+    def release(self) -> None:
+        self.prefills.clear()
+        self.step.release()
+
+
+class _PrefillGraph:
+    """One prompt block of a :class:`_SessionGraph`: its static tokens,
+    lengths and frames, and the graph of the prefill that writes the
+    entry's decode state (``LM.prefill(into=)``, its checks made on the
+    host) and its first token.  Made by the block's first call, which
+    captures it and makes that call real (``first``: its logits;
+    ``GraphCache.run_and_capture``)."""
+
+    def __init__(self, entry: _SessionGraph, model, max_len: int,
+                 tokens, lens_in, frames):
+        dev = model.device
+        self.tokens = torch.as_tensor(tokens, device=dev).clone()
+        self.lengths = (None if lens_in is None
+                        else torch.as_tensor(lens_in, device=dev).clone())
+        self.frames = None if frames is None else frames.to(dev, copy=True)
+        loop = entry.loop
+
+        def prefill():
+            logits, _ = model.prefill(
+                self.tokens, max_len=max_len, lengths=self.lengths,
+                frames=self.frames, check=False, into=loop.state)
+            loop.start(torch.argmax(logits, dim=-1).to(torch.int32),
+                       first=True)
+            return logits
+
+        self.graph, self.first = entry.prefills.run_and_capture(
+            prefill, static=loop.static())
+
+    def load(self, tokens, lens_in, frames) -> None:
+        """Copy a call's inputs into the static buffers (one host-to-device
+        copy each)."""
+        self.tokens.copy_(graphs.host_tensor(tokens))
+        if lens_in is not None:
+            self.lengths.copy_(graphs.host_tensor(lens_in))
+        if frames is not None:
+            self.frames.copy_(frames)
+
+    def release(self) -> None:
+        self.graph.release()
+
+
+class _WaveGraph:
+    """One admission-wave key of a slot table, ``(batch, width, ragged)``:
+    static tokens, lengths and row indices, and the graph of the
+    reference's jitted ``_prefill`` + ``_write``: the bucketed prefill,
+    its rows copied into the resident state (``LM.copy_rows``) and the
+    carried token and ``done`` written.  The real rows' slots come first
+    in ``rows``; a padding row names the first real row's slot and takes
+    that row's values (``src``), so it lands in no other slot, and the
+    duplicate writes carry the same bits.  Made by the key's first wave,
+    which the capture makes real (``GraphCache.run_and_capture``):
+    nothing of the live table is saved or restored."""
+
+    def __init__(self, sess: "ContinuousGenerationSession", block, lengths,
+                 slots: List[int]):
+        model = sess.model
+        dev = model.device
+        self.tokens = torch.as_tensor(block, device=dev).clone()
+        self.lengths = (None if lengths is None
+                        else torch.as_tensor(lengths, device=dev).clone())
+        rows, src = _wave_rows(slots, block.shape[0])
+        self.rows = torch.as_tensor(rows, device=dev)
+        self.src = torch.as_tensor(src, device=dev)
+
+        def wave():
+            logits, new = model.prefill(self.tokens, max_len=sess.max_len,
+                                        lengths=self.lengths, check=False)
+            model.copy_rows(sess._state, new, self.rows, self.src)
+            sess._tok.index_copy_(0, self.rows, torch.argmax(
+                logits.index_select(0, self.src), dim=-1).to(torch.int32))
+            sess._done.index_fill_(0, self.rows, False)
+
+        self.graph, _ = sess._waves.run_and_capture(wave, static=sess._table)
+
+    def load(self, block, lengths, slots: List[int]) -> None:
+        """Copy a wave's inputs into the static buffers."""
+        self.tokens.copy_(graphs.host_tensor(block))
+        if lengths is not None:
+            self.lengths.copy_(graphs.host_tensor(lengths))
+        rows, src = _wave_rows(slots, self.rows.shape[0])
+        self.rows.copy_(graphs.host_tensor(rows))
+        self.src.copy_(graphs.host_tensor(src))
+
+    def release(self) -> None:
+        self.graph.release()
+
+
+def _wave_rows(slots: List[int], kp: int):
+    """(destination slots, source rows), each (kp,) int64, of a wave of
+    ``len(slots)`` real rows padded to ``kp``: padding rows repeat the
+    first real row's slot and row."""
+    k = len(slots)
+    rows = np.asarray(list(slots) + [slots[0]] * (kp - k), np.int64)
+    src = np.concatenate([np.arange(k), np.zeros(kp - k)]).astype(np.int64)
+    return rows, src
 
 
 def greedy_margins(model, prompt: np.ndarray, tokens: np.ndarray, *,
@@ -554,7 +704,10 @@ class ContinuousGenerationSession:
       tensor at batch axis 1, after the leading layer axis; ``pos``, the
       carried token and ``done`` at axis 0).  The reference scatters the
       batch-padding rows to an out-of-bounds index that JAX drops; here
-      only the real rows are copied.
+      only the real rows are copied, and a wave's graph (one per
+      ``(batch, width, ragged)``, :class:`_WaveGraph`) writes each
+      padding row over the first real row's slot with that row's
+      values.
 
     EOS/done bookkeeping is :func:`repro_torch.nmt.common.greedy_update`
     with ``keep_eos=True``, the semantics of
@@ -586,14 +739,17 @@ class ContinuousGenerationSession:
         self.max_len = max_len
         self.bucket_shapes = bucket_shapes
         self._ragged_ok = _ragged_plan_ok(model)
-        self._graphs = graphs.GraphCache(max_keys=1)
+        # the table's graphs share the pool of the model's session graphs
+        pool = lambda: graphs.owner_cache(model, SESSION_GRAPH_KEYS)
+        self._graphs = graphs.GraphCache(max_keys=1, pool_of=pool)
+        self._waves = graphs.GraphCache(WAVE_GRAPH_KEYS, pool_of=pool)
         self._table = None
         self.reset()
 
     def reset(self) -> None:
         """Empty the slot table and zero the counters.  The table's
         buffers stay where they are (a fresh state is copied into them),
-        so the step graph stays valid."""
+        so the step graph and the wave graphs stay valid."""
         dev = self.model.device
         with torch.inference_mode():
             fresh = (self.model.init_decode_state(
@@ -681,7 +837,8 @@ class ContinuousGenerationSession:
     def _admit_group(self, toks: List[np.ndarray], slots: List[int],
                      max_new: int) -> None:
         """One prefill wave: pad to the (batch, width) bucket, prefill,
-        copy the real rows into the resident slot-table state."""
+        copy the real rows into the resident slot-table state (on the
+        card a replay of the wave's graph, :class:`_WaveGraph`)."""
         k = len(toks)
         w = max(len(t) for t in toks)
         lens = np.asarray([len(t) for t in toks], np.int32)
@@ -698,6 +855,19 @@ class ContinuousGenerationSession:
         lens_in = np.concatenate([lens, np.ones(kp - k, np.int32)])
         dev = self.model.device
         ragged = self._ragged_ok and not (uniform and kp == k and wp == w)
+        if _graphs_on(self.model):
+            with torch.inference_mode():
+                key = (kp, wp, ragged)
+                lengths = lens_in if ragged else None
+                wave = self._waves.peek(key)
+                if wave is None:
+                    self._waves.get(key, lambda: _WaveGraph(
+                        self, block, lengths, slots))
+                else:
+                    wave.load(block, lengths, slots)
+                    wave.graph.replay()
+            self.n_prefills += 1
+            return
         with torch.inference_mode():
             logits, new = self.model.prefill(
                 torch.as_tensor(block, device=dev), max_len=self.max_len,

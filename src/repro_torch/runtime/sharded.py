@@ -164,6 +164,9 @@ class ShardedLM:
     given is changed in place (its parameters become this rank's
     blocks)."""
 
+    # no CUDA graph captures its steps: they run collectives
+    graph_safe = False
+
     def __init__(self, model, mesh, policy: ShardingPolicy):
         if model.param_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"a sharded LM must be float32 or bfloat16, "

@@ -13,16 +13,22 @@ rank calls the step with the whole batch and runs its rows, the loss is
 the whole batch's, each gradient is summed over the batch shards onto
 the rank's block, the global norm counts every element once, and AdamW
 updates the blocks (the step counter is replicated).
+
+:func:`compile_train_step` is the port's ``jax.jit`` of a train step:
+on the card it replays one CUDA graph per batch shape
+(``repro_torch.runtime.graphs``), and everywhere else it calls the step.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 
 from repro_torch.convert import reference_leaves
+from repro_torch.runtime import graphs
 from repro_torch.training.losses import lm_loss
 from repro_torch.training.optimizer import (
     AdamWConfig,
@@ -123,8 +129,11 @@ def make_train_step(model, *, lr_schedule: Optional[Callable] = None,
                 for k in keys]
         with torch.enable_grad():
             if remat:
+                # no RNG state kept: nothing here draws random numbers,
+                # and a CUDA graph may capture the step
                 loss, metrics = torch.utils.checkpoint.checkpoint(
-                    loss_fn, *args, use_reentrant=False)
+                    loss_fn, *args, use_reentrant=False,
+                    preserve_rng_state=False)
             else:
                 loss, metrics = loss_fn(*args)
             lr = (lr_schedule(state.opt.step) if lr_schedule is not None
@@ -137,3 +146,108 @@ def make_train_step(model, *, lr_schedule: Optional[Callable] = None,
         return TrainState(params=params, opt=opt), metrics
 
     return train_step
+
+
+# batch shapes a compiled train step keeps graphs of (the NMT trainer's
+# padded_batches meet dozens; the reference's jit keeps every shape)
+TRAIN_GRAPH_KEYS = 64
+
+
+def compile_train_step(train_step: Callable, model) -> Callable:
+    """The port's ``jax.jit(train_step)``: ``train_step(state, batch) ->
+    (state, metrics)`` (``make_train_step``'s, or any step of that
+    contract that updates the parameters and moments in place) replayed
+    as one CUDA graph per batch key on the card.
+
+    A key is the batch's names, shapes and dtypes and the state's
+    parameter and moment dicts, at most ``TRAIN_GRAPH_KEYS`` of them,
+    least recently used first out.  A key's first call captures the
+    step over static batch buffers and the state's own tensors and makes
+    that call a real step (``GraphCache.run_and_capture``: the first key
+    runs it eagerly on the capture stream and hands the allocator's
+    cached blocks, its gradients, back before the capture; a later key
+    replays its graph once): nothing is saved or restored, so a step's
+    peak stays near the eager one.  Each later call copies the batch in
+    (one host-to-device copy an array) and replays.  The
+    step counter is carried in the state's ``opt.step`` tensor, which
+    every graph of the state shares (another counter tensor passed in
+    is copied into it), so a schedule computes its ``lr`` in the graph
+    from it.  The metrics returned are copies of the graph's outputs.
+
+    On the CPU, under ``graphs.eager()`` and for a model whose
+    ``graph_safe`` is False (a sharded LM: its step runs collectives) it
+    calls ``train_step``."""
+    cache = graphs.GraphCache(TRAIN_GRAPH_KEYS)
+
+    def compiled(state: TrainState, batch):
+        if not (graphs.active(model.device)
+                and getattr(model, "graph_safe", True)):
+            return train_step(state, batch)
+        key = (tuple((k, tuple(np.shape(v)), str(getattr(v, "dtype", None)))
+                     for k, v in sorted(batch.items()) if v is not None),
+               id(state.params), id(state.opt.mu), id(state.opt.nu))
+        entry = cache.peek(key)
+        if entry is None:
+            entry = cache.get(key, lambda: _TrainGraph(
+                cache, train_step, state, batch, _counter(cache, state)))
+            metrics = entry.first
+        else:
+            entry.load(state, batch)
+            entry.graph.replay()
+            metrics = _copies(entry.graph.outputs)
+        return TrainState(entry.state.params, entry.state.opt), metrics
+
+    compiled.graphs = cache
+    return compiled
+
+
+def _counter(cache: graphs.GraphCache, state: TrainState) -> torch.Tensor:
+    """The step counter every graph of ``state``'s tensors shares: that
+    of a graph made earlier over them, else the state's own."""
+    for entry in cache.entries():
+        if entry.state.params is state.params:
+            return entry.step
+    return state.opt.step
+
+
+def _copies(metrics: dict) -> dict:
+    """The metrics with every tensor copied out of the graph's pool."""
+    return {k: v.clone() if isinstance(v, torch.Tensor) else v
+            for k, v in metrics.items()}
+
+
+class _TrainGraph:
+    """One batch key of a compiled train step: static batch buffers, the
+    state over whose tensors the graph was captured (its counter shared),
+    and the graph.  ``first`` is the metrics of the real first step."""
+
+    def __init__(self, cache: graphs.GraphCache, train_step, state, batch,
+                 step: torch.Tensor):
+        params = next(iter(state.params.values()))
+        self.batch = {k: torch.as_tensor(v, device=params.device).clone()
+                      for k, v in batch.items() if v is not None}
+        self.step = step
+        if state.opt.step is not step:
+            step.copy_(state.opt.step)
+        self.state = TrainState(state.params, AdamWState(
+            step=step, mu=state.opt.mu, nu=state.opt.nu))
+
+        def body():
+            new, metrics = train_step(self.state, self.batch)
+            if new.opt.step is not step:
+                step.copy_(new.opt.step)
+            return metrics
+
+        self.graph, self.first = cache.run_and_capture(
+            body, static=(state.params, state.opt.mu, state.opt.nu, step),
+            empty_cache=True)
+        self.first = _copies(self.first)
+
+    def load(self, state: TrainState, batch) -> None:
+        if state.opt.step is not self.step:
+            self.step.copy_(state.opt.step)
+        for k, buf in self.batch.items():
+            buf.copy_(graphs.host_tensor(batch[k]))
+
+    def release(self) -> None:
+        self.graph.release()

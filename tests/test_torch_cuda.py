@@ -1093,3 +1093,151 @@ def test_session_graphs_equal_eager_bitwise(dev, arch):
         np.testing.assert_array_equal(g, w)
     assert counts == eager_counts
     assert model._step_graphs.captures == 2 and cont._graphs.captures == 1
+
+
+def _tree_bits(tree):
+    from repro_torch.runtime import graphs
+    return [t.clone() for t in graphs.leaves(tree)]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "rwkv6-3b", "zamba2-1.2b",
+                                  "qwen3-moe-30b-a3b", "whisper-large-v3"])
+def test_prefill_graphs_equal_eager_bitwise(dev, arch):
+    """GenerationSession's prefill replays one graph per prompt block,
+    written into its decode key's state: the logits and every state
+    tensor equal the eager prefill's bitwise, two blocks interleaved, and
+    a replay counts the launches an eager prefill makes."""
+    from repro_torch.models.registry import resolve
+    from repro_torch.runtime import graphs
+    from repro_torch.runtime.serving import GenerationSession
+    model = resolve(arch, device=dev, seed=2).model
+    rng = np.random.default_rng(5)
+    sess = GenerationSession(model, max_len=32)
+    if model.cfg.is_encoder_decoder:
+        toks = rng.integers(4, 512, (2, 6)).astype(np.int32)
+        frames = rng.standard_normal((2, 16, model.cfg.d_model)).astype(
+            np.float32)
+        blocks = [(toks, None, torch.as_tensor(f))
+                  for f in (frames, frames[:, :12])]
+    else:
+        blocks = [(*sess._bucket_pad(
+            rng.integers(4, 512, (3, n)).astype(np.int32), None, 8), None)
+            for n in (9, 5)]
+
+    def prefill(block, graph):
+        with torch.inference_mode():
+            logits, state, _ = sess._prefill(*block, graph=graph)
+            return [logits.clone()] + _tree_bits(state)
+
+    for block in blocks:
+        want, eager_counts = _twice_counted(lambda: prefill(block, False))
+        got, counts = _twice_counted(lambda: prefill(block, True))
+        assert counts == eager_counts
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    for block in blocks:                       # the keys interleaved
+        want = prefill(block, False)
+        for g, w in zip(prefill(block, True), want):
+            assert torch.equal(g, w)
+    assert sum(len(e.prefills) for e in
+               model._step_graphs.entries()) == len(blocks)
+    assert graphs.totals()["replays"] > 0
+
+
+def test_admission_wave_graphs_equal_eager_bitwise(dev):
+    """The slot table's admission waves replay one graph per (batch,
+    width, ragged) key: with refill, waves padded past their rows while
+    other slots are live, every step's stream and the table's state
+    equal the eager table's bitwise."""
+    from repro_torch.models.registry import resolve
+    from repro_torch.runtime import graphs
+    from repro_torch.runtime.serving import ContinuousGenerationSession
+    model = resolve("qwen3-8b", device=dev, seed=2).model
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(4, 512, int(n)).astype(np.int32)
+               for n in (5, 9, 3, 7, 9, 2, 6, 4, 8)]
+    cont = ContinuousGenerationSession(model, max_slots=4, max_len=32)
+
+    def run():
+        cont.reset()
+        out = [np.asarray(s, np.int64).reshape(-1)
+               for s in (cont.admit(prompts[:1], max_new=6),)]
+        head = 1
+        while head < len(prompts) or cont.live_count:
+            take = min(cont.free_slots, len(prompts) - head)
+            if take:
+                cont.admit(prompts[head:head + take], max_new=6,
+                           req_ids=list(range(head, head + take)))
+                head += take
+            stream, _ = cont.step()
+            out.append(np.asarray(stream, np.int64).reshape(-1))
+        return out + [t.cpu() for t in _tree_bits(
+            (cont._state, cont._tok, cont._done))]
+
+    with graphs.eager():
+        want = run()
+    for _ in range(2):
+        got = run()
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert (torch.equal(g, w) if isinstance(g, torch.Tensor)
+                    else np.array_equal(g, w))
+    assert cont._waves.captures == len(cont._waves) > 1
+    assert cont._waves.replays > 0
+
+
+@pytest.mark.parametrize("what", ["qwen3-8b", "rwkv6-3b", "marian", "gru"])
+def test_train_step_graphs_equal_eager_bitwise(dev, what):
+    """compile_train_step replays one graph per batch key: 3 steps (two
+    keys for the NMT models) from the graphs equal eager's bitwise, every
+    loss and grad norm and every parameter and moment, eager being
+    bitwise equal to itself first; no kernel launches."""
+    from repro_torch.launch import train_nmt as tn
+    from repro_torch.models.registry import resolve
+    from repro_torch.runtime import graphs
+    from repro_torch.training.optimizer import cosine_schedule
+    from repro_torch.training.train_loop import (compile_train_step,
+                                                 init_train_state,
+                                                 make_train_step)
+    rng = np.random.default_rng(8)
+    sched = cosine_schedule(1e-3, warmup_steps=1, total_steps=4)
+    if what in ("marian", "gru"):
+        build = lambda: tn.build_model(what, device=dev, seed=3)
+        src, tgt = tn.corpus_tokens("de-en", build().cfg, size=256)
+        feed = tn.batches(src, tgt, batch=8)
+        b0, b1 = next(feed), next(feed)
+        batches = [b0, b1, b0, b1]
+        make = lambda m: tn.make_nmt_train_step(m, sched)
+    else:
+        build = lambda: resolve(what, device=dev, seed=2).model
+        toks = rng.integers(1, 512, (2, 17)).astype(np.int32)
+        batches = [{"tokens": toks[:, :-1], "targets": toks[:, 1:]}] * 3
+        make = lambda m: make_train_step(m, lr_schedule=sched)
+
+    def run():
+        model = build()
+        state = init_train_state(model)
+        step = compile_train_step(make(model), model)
+        mets = []
+        for b in batches:
+            state, m = step(state, b)
+            mets += [m["loss"].clone(), m["grad_norm"].clone()]
+        return mets + [t.detach().clone() for t in (
+            list(state.params.values()) + list(state.opt.mu.values())
+            + list(state.opt.nu.values()) + [state.opt.step])], step
+
+    with graphs.eager():
+        want, _ = run()
+        again, _ = run()
+    assert all(torch.equal(a, b) for a, b in zip(again, want))
+    ops.reset_launch_counts()
+    got, step = run()
+    assert not any(ops.launch_counts().values())
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # every call but the first (the cache's warm-up) is a replay: a later
+    # key's first call replays its graph after the capture
+    keys = len({tuple(np.shape(v) for v in b.values()) for b in batches})
+    assert step.graphs.captures == keys
+    assert step.graphs.replays == len(batches) - 1

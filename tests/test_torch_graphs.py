@@ -119,13 +119,18 @@ class StubCache(graphs.GraphCache):
         pass
 
     def _warm_up(self, fn, tensors):
-        fn()
+        return fn()
+
+    @staticmethod
+    def _empty_cache():
+        pass
 
     def _record(self, fn, tensors):
         saved = [t.clone() for t in tensors]
         outputs = fn()
-        for t, s in zip(tensors, saved):
-            t.copy_(s)
+        with torch.no_grad():                 # a train step's parameters
+            for t, s in zip(tensors, saved):
+                t.copy_(s)
         return _StubGraph(fn, outputs), outputs
 
 
