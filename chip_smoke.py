@@ -143,6 +143,12 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    beside the weight-read bound, the device busy share of a step
    (profiler), decode tokens/s, an admission wave's prefill time and
    the phase's peak memory.
+14. (run after phase 13, before phases 11-12) qwen3-moe-30b-a3b,
+   moonshot-v1-16b-a3b and deepseek-v3-671b at full width, cut in depth
+   (``MOE_CUTS``), through the same entry points; deepseek-v3-671b's
+   cut then takes a B=1 prefill of ``LONG_S`` = 4096 tokens (MLA through
+   ``blocked_sdpa``): its ms and peak memory, or the out-of-memory error
+   it hit.
 15. (run after phase 14, before phases 11-12) whisper-large-v3 at full
    width and depth (``resolve("whisper-large-v3", size="full")``, 32 + 32
    layers, random weights from a seed): first a copy cut to 2 + 2 layers
@@ -228,13 +234,21 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    bf16 stats kernel and the float32 merge), a ragged B=8 generate and
    12 prompts on a slot table of 8 against the unsharded bf16 sessions
    (bitwise, else behind the margin), both attention kernels launched,
-   the eager step sharded beside unsharded; qwen3-8b cut to 4 of 36
+   the eager step sharded beside unsharded; ``blocked_sdpa`` (causal,
+   blocks of 512) against the materialised float32 attention at S=4096,
+   qwen3-8b's heads and deepseek-v3-671b's MLA (output within 1e-5,
+   gradients within 1e-4 of each tensor's scale; both routes' ms and
+   peak); qwen3-8b cut to 4 of 36
    layers in bf16 (bf16 moments), 3 steps at B=4 S=256: the 1x1-mesh
    steps and the unsharded ones bitwise, ``LM(remat=True)`` and
    ``remat=False`` bitwise with each one's peak memory, the loss falling
    and its gap to the float32 twin's, and the dry run's per-rank bytes
    against ``memory_allocated`` within 1% with bf16 and with float32
-   moments; then 3 bf16 steps at B=1 S=64 at full depth: rwkv6-3b and
+   moments; 3 steps of the same cut at B=1 S=4096 (train_4k's length,
+   float32 moments) eager twice and from ``compile_train_step``'s graph
+   (bitwise), with ms a step and peak memory, and one eager step with a
+   single query block, its loss within 1e-6 of the blocked one's; then
+   3 bf16 steps at B=1 S=64 at full depth: rwkv6-3b and
    zamba2-1.2b (float32 moments) and qwen3-8b (``remat=True``, bf16
    moments) at the deepest cut the dry run's bytes and the 4-layer
    run's peak say fits (all 36 layers where they do), each with ms a
@@ -337,6 +351,8 @@ SWA_W = 4096                    # the long_500k variants' sliding window
 BF16_T = 128                    # phase 18's slot-table and session capacity
 BF16_LENS = (53, 9, 128, 80, 1, 66, 29, 46)   # a B=8 step's pos + 1 there
 SWA_CUT = 4                     # qwen3-8b-swa's layers (of 36) in phase 15
+LONG_S = 4096                   # train_4k's length: phase 19's long train
+                                # step, phase 14's long MLA prefill
 
 
 _T0 = time.perf_counter()
@@ -2622,8 +2638,59 @@ def deepseek_v3_phase(ops, rng):
     log(f"  {name} at capacity_factor 1.25: {100 * pre:.2f}% of routed "
         f"assignments dropped in a B=8 S=64 prefill and {100 * dec:.2f}% in "
         f"the B=8 decode step after it")
-    del model, sess, state, logits
+    del sess, state, logits
+    pool = model.__dict__.pop("_step_graphs", None)   # the session's graphs
+    if pool is not None:
+        pool.clear()
+    del pool
+    r = long_prefill(model)
+    log(long_prefill_line(f"{name} ({model.cfg.num_layers} layers)", r))
+    if "oom" not in r and not r["finite"]:
+        raise AssertionError(f"{name}: non-finite logits at S={LONG_S}")
+    del model
     empty_cache()
+
+
+def long_prefill(model):
+    """A B=1 prefill of ``LONG_S`` tokens through ``model.prefill`` (no grad),
+    twice: {"ms": each call's host-clock ms (synchronised),
+    "peak": the peak bytes allocated, "base": the bytes allocated before,
+    "finite": the logits' finiteness}, or {"oom": the first line of the
+    out-of-memory error, "peak", "base"}.  Runs on any tree of the port
+    (``scripts/attention_memory_ab.py``)."""
+    toks = torch.as_tensor(np.random.default_rng(14).integers(
+        4, model.cfg.vocab_size, (1, LONG_S)), dtype=torch.int32,
+        device="cuda")
+    empty_cache()
+    out = {"base": torch.cuda.memory_allocated(), "ms": []}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with torch.inference_mode():
+            for _ in range(2):
+                t0 = time.perf_counter()
+                logits, state = model.prefill(toks, max_len=LONG_S)
+                torch.cuda.synchronize()
+                out["ms"].append(1e3 * (time.perf_counter() - t0))
+                out["finite"] = bool(torch.isfinite(
+                    logits[..., :model.cfg.vocab_size]).all())
+                del logits, state
+    except torch.cuda.OutOfMemoryError as e:
+        out["oom"] = str(e).splitlines()[0]
+    out["peak"] = torch.cuda.max_memory_allocated()
+    empty_cache()
+    return out
+
+
+def long_prefill_line(what, r) -> str:
+    head = (f"  {what} prefill B=1 S={LONG_S} (no grad): weights and state "
+            f"{r['base'] / 2**30:.2f} GiB before; ")
+    if "oom" in r:
+        return (head + f"OUT OF MEMORY at a peak of {r['peak'] / 2**30:.2f} "
+                f"GiB: {r['oom']}")
+    return (head + f"{' / '.join(f'{ms:.1f}' for ms in r['ms'])} ms (first "
+            f"call / later), peak {r['peak'] / 2**30:.2f} GiB (+"
+            f"{(r['peak'] - r['base']) / 2**30:.2f} GiB), logits "
+            f"{'finite' if r['finite'] else 'NOT finite'}")
 
 
 def moe_phase(ops):
@@ -4044,14 +4111,163 @@ def qwen3_depth_plan(overhead):
     raise AssertionError("not even one qwen3-8b layer fits")
 
 
+LONG_REL = 1e-6         # the loss over query blocks of 512 vs one block
+# blocked_sdpa vs the materialised float32 attention, each tensor's error
+# over max(1, its largest |value|): the output, then the gradients
+SDPA_TOL, SDPA_GRAD_TOL = 1e-5, 1e-4
+
+
+def materialised_sdpa(q, k, v, scale):
+    """Causal attention over materialised float32 (B, Hkv, rep, S, T)
+    scores (the queries at the last S keys): what ``blocked_sdpa`` computes
+    a block of queries at a time."""
+    b, s, h, dh = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    scores = torch.einsum("bsgrd,btgd->bgrst",
+                          q.reshape(b, s, hkv, h // hkv, dh), k) * scale
+    keep = torch.ones((s, t), dtype=torch.bool, device=q.device).tril(t - s)
+    w = torch.softmax(scores.masked_fill(~keep, -1e30), dim=-1)
+    return torch.einsum("bgrst,btgd->bsgrd", w, v).reshape(b, s, h, -1)
+
+
+def sdpa_fwd_bwd(fn, inputs, cot):
+    """``fn``'s output and its gradients for the cotangent ``cot`` on
+    fresh leaves of ``inputs``, the ms of a second such call (host clock,
+    synchronised) and its peak bytes over what was allocated before."""
+    for _ in range(2):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn(*leaves)
+        grads = torch.autograd.grad(out, leaves, cot)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() - base
+        out = out.detach()
+        del leaves
+    return (out,) + grads, ms, peak
+
+
+def check_blocked_sdpa(what, b, s, h, hkv, dh, dv, scale=None):
+    """``blocked_sdpa`` (causal, blocks of ``DEFAULT_Q_BLOCK``) against
+    :func:`materialised_sdpa` on the card in float32: the output within
+    ``SDPA_TOL`` and the gradients of q, k and v within ``SDPA_GRAD_TOL``
+    of each tensor's scale; prints both routes' ms and peak memory."""
+    from repro_torch.models.layers import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    inputs = [randn(gen, shape) for shape in
+              ((b, s, h, dh), (b, s, hkv, dh), (b, s, hkv, dv))]
+    cot = randn(gen, (b, s, h, dv))
+    scale = scale if scale is not None else dh ** -0.5
+    got, ms, peak = sdpa_fwd_bwd(
+        lambda q, k, v: att.blocked_sdpa(q, k, v, scale=scale), inputs, cot)
+    want, mat_ms, mat_peak = sdpa_fwd_bwd(
+        lambda q, k, v: materialised_sdpa(q, k, v, scale), inputs, cot)
+    errs = [max_err(g, w) / max(1.0, float(w.abs().max()))
+            for g, w in zip(got, want)]
+    log(f"  blocked_sdpa vs materialised float32, {what} B={b} S=T={s} "
+        f"H={h} Hkv={hkv} Dh={dh} Dv={dv}, causal, blocks of "
+        f"{att.DEFAULT_Q_BLOCK}: output {errs[0]:.3e} (limit {SDPA_TOL:g}), "
+        f"dq/dk/dv {errs[1]:.3e} / {errs[2]:.3e} / {errs[3]:.3e} (limit "
+        f"{SDPA_GRAD_TOL:g}), of each tensor's scale; forward + backward "
+        f"{ms:.2f} ms vs {mat_ms:.2f} ms materialised, peak "
+        f"{peak / 2**30:.2f} GiB vs {mat_peak / 2**30:.2f} GiB over the "
+        f"inputs")
+    ok = errs[0] <= SDPA_TOL and max(errs[1:]) <= SDPA_GRAD_TOL
+    if not (ok and all(torch.isfinite(t).all() for t in got)):
+        raise AssertionError(f"blocked_sdpa {what}: errors {errs}")
+
+
+def long_train_batch(vocab):
+    """One B=1 batch of ``LONG_S`` tokens from ``launch/train.py``'s
+    stream."""
+    from repro_torch.data.pipeline import lm_batches
+
+    stream = np.random.default_rng(0).integers(
+        1, vocab, 2 * (LONG_S + 1)).astype(np.int32)
+    return next(lm_batches(stream, batch_size=1, seq_len=LONG_S))
+
+
+def long_train_runs(cfg):
+    """3 train steps (float32 moments) of ``cfg``'s bf16 LM from
+    seed 0 at B=1 S=``LONG_S``, eager then from ``compile_train_step``'s
+    graph: {"eager"/"graph": (the first loss, the mean ms of steps 2 on,
+    peak bytes)}.  Runs on any tree whose port has ``compile_train_step``
+    (``scripts/attention_memory_ab.py``)."""
+    from repro_torch.models.model import LM
+    from repro_torch.training.train_loop import make_train_step
+
+    batch = long_train_batch(cfg.vocab_size)
+    out = {}
+    for graph in (False, True):
+        run = train_run(lambda: LM(cfg, device="cuda", seed=0,
+                                   param_dtype=BF16),
+                        make_train_step, [batch] * 3, graph=graph)
+        out["graph" if graph else "eager"] = (
+            run[3][0][0], 1e3 * float(np.mean(run[4][1:])), run[5])
+        del run
+        empty_cache()
+    return out
+
+
+def long_training_check(ops):
+    """Phase 19's long step: qwen3-8b cut to ``BT_CUT`` layers in bf16, B=1
+    S=``LONG_S`` (train_4k's length) through ``train_graph_check`` (eager
+    twice, then the graph: bitwise; ms a step and peak memory), then one
+    eager step with a single query block (``DEFAULT_Q_BLOCK`` >= S): its
+    loss within ``LONG_REL`` of the blocked one's.  No kernel launches."""
+    from repro_torch.models.layers import attention as att
+    from repro_torch.models.model import LM
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = cut_config("qwen3-8b", (BT_CUT,))
+    batch = long_train_batch(cfg.vocab_size)
+    build = lambda: LM(cfg, device="cuda", seed=0, param_dtype=BF16)
+    ops.reset_launch_counts()
+    run = train_graph_check(
+        f"qwen3-8b ({BT_CUT} of 36 layers) bf16, B=1 S={LONG_S}, query "
+        f"blocks of {att.DEFAULT_Q_BLOCK}", build, make_train_step,
+        [batch] * 3, replays_from=1)
+    blocked = run[3][0][0]
+    del run
+    empty_cache()
+    block = att.DEFAULT_Q_BLOCK
+    att.DEFAULT_Q_BLOCK = LONG_S
+    try:
+        one = train_run(build, make_train_step, [batch], graph=False)
+    finally:
+        att.DEFAULT_Q_BLOCK = block
+    single, peak = one[3][0][0], one[5]
+    del one
+    empty_cache()
+    rel = abs(single - blocked) / abs(blocked)
+    log(f"  the same step with one query block of {LONG_S}: loss {single!r} "
+        f"vs {blocked!r} in blocks of {block}, relative gap {rel:.3e} "
+        f"(limit {LONG_REL:g}); peak memory {peak / 2**30:.2f} GiB")
+    if rel > LONG_REL:
+        raise AssertionError(f"one query block vs blocks: loss gap {rel}")
+    if any(ops.launch_counts().values()):
+        raise AssertionError("a kernel launched while training")
+
+
 def bf16_training_phase(ops):
-    """Phase 19's training: the 4-layer qwen3-8b checks, then bf16 steps at
+    """Phase 19's training: ``blocked_sdpa`` against the materialised
+    attention at qwen3-8b's heads and deepseek-v3-671b's MLA, S=4096; the
+    4-layer qwen3-8b checks (B=4 S=256, then B=1 S=4096), then bf16 steps at
     full depth: rwkv6-3b and zamba2-1.2b (float32 moments), qwen3-8b
     with ``remat=True`` and bf16 moments at the depth the dry run and
     the 4-layer peak say fits."""
     from repro_torch.configs import get_config
 
+    empty_cache()
+    check_blocked_sdpa("qwen3-8b's heads", 1, LONG_S, QW_H, QW_HKV, QW_D, QW_D)
+    check_blocked_sdpa("deepseek-v3-671b's MLA", 1, LONG_S, 128, 128, 192,
+                       128, scale=192 ** -0.5)
     overhead = bf16_cut_training(ops)
+    long_training_check(ops)
     for name in BF16_TRAIN:
         bf16_depth_training(get_config(name), name, ops,
                             moments=torch.float32, remat=False)
@@ -4958,8 +5174,8 @@ def main() -> int:
 
     log("== phase 19: bfloat16 on the 1x1 NCCL mesh: qwen3-8b and "
         "qwen3-moe-30b-a3b served whole; bf16 training (the 1x1 mesh and "
-        "remat bitwise, the dry run's bytes within 1%, rwkv6-3b, zamba2-1.2b "
-        "and qwen3-8b at depth)")
+        "remat bitwise, the dry run's bytes within 1%, blocked_sdpa and a "
+        "B=1 S=4096 step, rwkv6-3b, zamba2-1.2b and qwen3-8b at depth)")
     paths.update(phase19(ops))
 
     log("== phase 20: the examples' six launchers (repro_torch.launch), "

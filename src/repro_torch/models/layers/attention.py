@@ -4,17 +4,21 @@ multi-head latent attention (MLA), each full-sequence and one-token
 decode against a preallocated cache.
 
 Port of the GQA and MLA parts of ``repro/models/layers/attention.py``.
-GQA, qk-norm included: with ``cfg.qk_norm`` (qwen3) q and k take an RMS norm over the
-head dim (``q_norm.g`` / ``k_norm.g``, the reference's names) before
-RoPE.  Prefill runs :func:`repro_torch.kernels.ops.flash_attention` with
-the causal mask at offset 0; the reference's ``blocked_sdpa`` aligns the
-queries to the last S keys, which is the same mask when S == T, as in
-prefill.  Training (``attn_full(..., kernels=False)``) runs the
-reference's jnp attention instead, materialized scores and softmax in
-torch ops that autograd differentiates: the arithmetic of the kernel's
-plain version,
-:func:`~repro_torch.kernels.flash_attention.flash_attention_plain`, which
-it calls (the reference's query blocks only bound its memory).
+GQA, qk-norm included: with ``cfg.qk_norm`` (qwen3) q and k take an RMS
+norm over the head dim (``q_norm.g`` / ``k_norm.g``, the reference's
+names) before RoPE.  Prefill runs
+:func:`repro_torch.kernels.ops.flash_attention` with the causal mask at
+offset 0; the reference's ``blocked_sdpa`` aligns the queries to the last
+S keys, which is the same mask when S == T, as in prefill.  Training
+(``attn_full(..., kernels=False)``, ``cross_attn(..., kernels=False)``)
+and every MLA full-sequence call run :func:`blocked_sdpa`, the
+reference's memory-bounded attention in torch ops that autograd
+differentiates: a loop over blocks of ``DEFAULT_Q_BLOCK`` queries, each
+block's (B, H, q_block, T) scores the only ones alive, the block
+checkpointed so that the backward recomputes them.  No (B, H, S, T)
+tensor is made or saved.  GQA calls it on float32 copies of q, k and v
+(the kernel's arithmetic: scores, softmax and P.V in float32, one
+rounding at the end), MLA in the model's dtype, as the reference does.
 Decode writes K/V in place at slot ``pos`` (slot == position) and runs
 :func:`repro_torch.kernels.ops.flash_decode` over ``lengths = pos + 1``,
 the reference's mask ``idx <= pos``.  A position at or past the cache's
@@ -49,11 +53,12 @@ MLA (:class:`MLA`, :func:`mla_full`, :func:`mla_decode`) has no kernel,
 in the reference or here: its q/k head dim (``nope + rope``, 192 at
 deepseek-v3's width) differs from its v head dim (128), which the
 attention kernels do not take, so it runs in plain torch ops.  Prefill
-expands the latent into per-head keys and values and takes a causal
-softmax over materialized scores; decode is the absorbed form (queries
+and training expand the latent into per-head keys and values and run
+:func:`blocked_sdpa` over them; decode is the absorbed form (queries
 through ``k_up``, scores against the cached latent, the weighted latent
-expanded through ``v_up``).  The cache is the compressed latent ``(c_kv,
-k_pe)``; a decode write at ``pos >= S_max`` is dropped, as GQA's.
+expanded through ``v_up``).  The cache is the compressed latent
+``(c_kv, k_pe)``; a decode write at ``pos >= S_max`` is dropped, as
+GQA's.
 
 """
 
@@ -63,10 +68,10 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.models.config import MLAConfig, ModelConfig
 from repro_torch.models.layers.basic import (
     Linear,
@@ -77,6 +82,7 @@ from repro_torch.models.layers.basic import (
 )
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max   # the reference's mask value
+DEFAULT_Q_BLOCK = 512     # queries per block of blocked_sdpa (the reference's)
 
 
 class GQA(nn.Module):
@@ -114,19 +120,92 @@ def _qkv(p: GQA, cfg: ModelConfig, x, positions):
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
+def _sdpa_block(q, k, v, q_pos0: int, scale, causal: bool, window,
+                valid):
+    """One block of :func:`blocked_sdpa`: the queries ``q`` (B,l,H,Dh) at
+    positions ``q_pos0 + i`` against every key, the reference body's
+    arithmetic (scores in q's dtype times the scale in that dtype, then
+    float32; the masks; a float32 softmax; the weights back in q's dtype;
+    P.V).  Returns (B,l,H,Dv)."""
+    b, l, h, dh = q.shape
+    t, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    qg = q.reshape(b, l, hkv, h // hkv, dh)
+    scores = (torch.einsum("blgrd,btgd->bgrlt", qg, k) * scale).float()
+    mask = valid                                  # (B,1,1,1,T) or None
+    if causal:
+        k_pos = torch.arange(t, device=q.device)
+        q_pos = q_pos0 + torch.arange(l, device=q.device)[:, None]
+        keep = k_pos <= q_pos                     # (l,T)
+        if window:
+            keep = keep & (k_pos > q_pos - window)
+        mask = keep if mask is None else mask & keep
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bgrlt,btgd->blgrd", w, v).reshape(b, l, h, dv)
+
+
+def blocked_sdpa(q, k, v, *, causal: bool = True,
+                 window: Optional[int] = None, lengths=None,
+                 q_block: Optional[int] = None,
+                 scale: Optional[float] = None):
+    """Memory-bounded attention, the reference's ``blocked_sdpa``: a loop
+    over blocks of ``q_block`` queries (None: ``DEFAULT_Q_BLOCK``, read
+    at call time; the last block may be short), so that only one block's
+    (B, H, q_block, T) scores live at a time.  Under autograd each block
+    is checkpointed (non-reentrant, no RNG state: nothing here draws
+    random numbers), so the backward recomputes its scores and nothing
+    of that size is saved; without grad the blocks run directly.
+
+    q (B,S,H,Dh); k (B,T,Hkv,Dh); v (B,T,Hkv,Dv), Dv may differ from Dh
+    (MLA).  The queries sit at the last S of the T key positions (offset
+    ``T - S``), as in the reference.  Masks: ``causal`` (key position <=
+    query position), a sliding ``window`` (causal only; None or 0: none;
+    keys at or below ``q_pos - window`` masked) and ``lengths`` (B,),
+    the valid key prefix of each row (the port's form of the reference's
+    ``kv_mask``, ROADMAP C.0).  A row with no valid key averages over
+    every key, as the reference's finite mask value gives.  ``scale``
+    (default ``Dh ** -0.5``) is rounded to q's dtype, as the reference
+    rounds it.  Returns (B,S,H,Dv) in q's dtype."""
+    if window and not causal:
+        raise ValueError("a sliding window bounds causal attention only")
+    s, dh, t = q.shape[1], q.shape[3], k.shape[1]
+    scale = torch.tensor(scale if scale is not None else dh ** -0.5,
+                         dtype=q.dtype)
+    valid = None
+    if lengths is not None:
+        valid = (torch.arange(t, device=q.device)[None, :]
+                 < lengths.to(q.device)[:, None])[:, None, None, None, :]
+    l = min(q_block or DEFAULT_Q_BLOCK, s)
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
+    outs = []
+    for i0 in range(0, s, l):
+        args = (q[:, i0:i0 + l], k, v, i0 + t - s, scale, causal, window,
+                valid)
+        outs.append(torch.utils.checkpoint.checkpoint(
+            _sdpa_block, *args, use_reentrant=False,
+            preserve_rng_state=False) if remat else _sdpa_block(*args))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
 def attn_full(p: GQA, cfg: ModelConfig, x, *, window: Optional[int] = None,
               causal: bool = True, kernels: bool = True):
     """Self-attention over a full sequence at positions 0..S-1 (RoPE on
     q and k): causal, with an optional sliding ``window``, or
     bidirectional (``causal=False``, the encoder), through the kernel
     (prefill) or, with ``kernels=False``, the differentiable training
-    path.  Returns (y (B,S,D), (k, v)) with k/v (B,S,Hkv,Dh), k after
-    RoPE."""
+    path: :func:`blocked_sdpa` on float32 copies of q, k and v, its
+    output cast back to q's dtype.  Returns (y (B,S,D), (k, v)) with k/v
+    (B,S,Hkv,Dh), k after RoPE."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     q, k, v = _qkv(p, cfg, x, positions)
-    attend = ops.flash_attention if kernels else flash_attention_plain
-    y = attend(q, k, v, causal=causal, window=window)
+    if kernels:
+        y = ops.flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        y = blocked_sdpa(q.float(), k.float(), v.float(), causal=causal,
+                         window=window).to(q.dtype)
     return p.o(y.reshape(b, s, -1)), (k, v)
 
 
@@ -160,11 +239,16 @@ def cross_attn(p: GQA, cfg: ModelConfig, x, enc_k, enc_v, enc_lengths, *,
                kernels: bool = True):
     """Decoder -> encoder attention over a full sequence: x (B,S,D) against
     enc_k/v (B,T,Hkv,Dh), frames ``< enc_lengths`` (B,) valid, not
-    causal.  Returns (B,S,D)."""
+    causal, through the kernel or, with ``kernels=False``, the training
+    path: :func:`blocked_sdpa` on float32 copies, as :func:`attn_full`'s.
+    Returns (B,S,D)."""
     b, s, _ = x.shape
     q = p.xq(x).view(b, s, cfg.num_heads, cfg.head_dim)
-    attend = ops.flash_attention if kernels else flash_attention_plain
-    y = attend(q, enc_k, enc_v, enc_lengths, causal=False)
+    if kernels:
+        y = ops.flash_attention(q, enc_k, enc_v, enc_lengths, causal=False)
+    else:
+        y = blocked_sdpa(q.float(), enc_k.float(), enc_v.float(),
+                         causal=False, lengths=enc_lengths).to(q.dtype)
     return p.xo(y.reshape(b, s, -1))
 
 
@@ -321,9 +405,10 @@ def mla_full(p: MLA, cfg: ModelConfig, x):
     (y (B,S,D), (c_kv (B,S,rank), k_pe (B,S,rope))).
 
     Keys are ``[k_nope ; k_pe]`` with the one rotated ``k_pe`` shared by
-    every head, values ``v_up(c_kv)``; the causal softmax runs over
-    materialized (B,H,S,S) scores in float32 at q/k dim ``nope + rope``
-    and v dim ``v_head_dim``."""
+    every head, values ``v_up(c_kv)``; :func:`blocked_sdpa` runs the
+    causal softmax in the model's dtype (float32 inside) at q/k dim
+    ``nope + rope`` and v dim ``v_head_dim``, one block of queries at a
+    time, as the reference's."""
     m, h = cfg.mla, cfg.num_heads
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
@@ -334,13 +419,9 @@ def mla_full(p: MLA, cfg: ModelConfig, x):
     q_eff = torch.cat([q_nope, q_pe], dim=-1)
     k_eff = torch.cat([k_nope, k_pe[:, :, None, :].expand(
         b, s, h, m.qk_rope_head_dim)], dim=-1)
-    scale = _scale(m, x.dtype)
-    scores = (torch.einsum("bshd,bthd->bhst", q_eff, k_eff) * scale).float()
-    pos = torch.arange(s, device=x.device)
-    scores = scores.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    y = torch.einsum("bhst,bthd->bshd", w, v).reshape(b, s, -1)
-    return p.o(y), (c_kv, k_pe)
+    y = blocked_sdpa(q_eff, k_eff, v, causal=True,
+                     scale=(m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
+    return p.o(y.reshape(b, s, -1)), (c_kv, k_pe)
 
 
 def mla_decode(p: MLA, cfg: ModelConfig, x, cache_ckv, cache_kpe, pos):
