@@ -180,12 +180,17 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    mesh (``tp``, so every attention layer decodes through
    ``attn_decode_seq_sharded``: the stats kernel and two all_reduces),
    a ragged B=8 ``generate_with_lengths`` and 12 prompts through a
-   continuous slot table of 8, 16 new tokens each, held against the
-   unsharded sessions on the same weights (tokens equal up to the first
-   behind a top-2 margin under 1e-4), checking that both attention
-   kernels launched; it prints the rank's parameter bytes and the eager
-   B=8 decode step, sharded beside unsharded, in turns.  Phase 6 also
-   times the stats call at qwen3-8b's step.
+   continuous slot table of 8, 16 new tokens each, eager
+   (``graphs.eager()``) and then twice from their CUDA graphs (decode,
+   prefill, the table's step and admission waves, the all_reduces
+   captured), every row and the table's state bitwise equal, the
+   prefill graph == the eager prefill; held against the unsharded
+   sessions on the same weights (tokens equal up to the first behind a
+   top-2 margin under 1e-4), checking that both attention kernels
+   launched from the replays; it prints the rank's parameter bytes, the
+   captures and their seconds, and the B=8 decode step, sharded beside
+   unsharded, eager and replayed from the graphs, in turns.  Phase 6
+   also times the stats call at qwen3-8b's step.
 17. (run after phase 16, before phases 11-12) sharded training: qwen3-8b
    at full width cut to 4 of its 36 layers (2.016 B parameters, random
    weights from seed 0) takes 3 AdamW steps through ``make_train_step``
@@ -200,7 +205,10 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    ``generate_with_lengths`` of 16 tokens from the trained sharded model
    is held against the unsharded one behind the margin, and must launch
    both attention kernels.  It prints the eager train step, sharded
-   beside unsharded, in turns, and the peak memory.
+   beside unsharded, in turns, and the peak memory; then the sharded
+   step from ``compile_train_step``'s graph against eager (eager twice,
+   then the graph: every loss, grad norm, parameter and moment bitwise),
+   with the ms a step both ways and the capture.
 18. (run after phase 17, before phases 11-12) bfloat16 serving at full
    depth: qwen3-8b cut to 4 of 36 layers at full width, drawn from seed 0
    in bf16 and in float32 (each bf16 weight must be its float32 draw
@@ -232,9 +240,11 @@ only, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    qwen3-moe-30b-a3b (48) whole in bf16 through ``make_sharded_session``
    on a 1x1 NCCL mesh (``tp``: every attention layer decodes through the
    bf16 stats kernel and the float32 merge), a ragged B=8 generate and
-   12 prompts on a slot table of 8 against the unsharded bf16 sessions
-   (bitwise, else behind the margin), both attention kernels launched,
-   the eager step sharded beside unsharded; ``blocked_sdpa`` (causal,
+   12 prompts on a slot table of 8, eager with every kernel call checked
+   and then twice from the graphs (bitwise, as phase 16), against the
+   unsharded bf16 sessions (bitwise, else behind the margin), both
+   attention kernels launched from the replays, the step sharded beside
+   unsharded, eager and from the graphs, in turns; ``blocked_sdpa`` (causal,
    blocks of 512) against the materialised float32 attention at S=4096,
    qwen3-8b's heads and deepseek-v3-671b's MLA (output within 1e-5,
    gradients within 1e-4 of each tensor's scale; both routes' ms and
@@ -3263,18 +3273,108 @@ def step_ms(lm, toks, steps=10):
     return (time.perf_counter() - t0) / steps * 1e3
 
 
+def sharded_runs(sess, table, toks, lens, prompts):
+    """The sharded generate (B=8 ragged, ``SH_NEW`` tokens) and the slot
+    table's serve of ``prompts`` from an emptied table: their host
+    outputs, flat, and the table's bits; (generate's (m, tokens), the
+    table's rows, the flat list)."""
+    got = sess.generate_with_lengths(toks, max_new=SH_NEW, lengths=lens)
+    table.reset()
+    cont = table.serve(prompts, max_new=SH_NEW)
+    flat = list(got) + [a for m, t in cont for a in (np.asarray([m]), t)]
+    return got, cont, flat + table_bits(table)
+
+
+def sharded_graph_check(what, ops, sess, table, toks, lens, prompts,
+                        want):
+    """The sharded generate and slot table from their graphs (decode,
+    prefill, the table's step and admission waves; the collectives
+    captured), twice: each run == ``want`` (``sharded_runs`` under
+    ``graphs.eager()``) bitwise; then the session's prefill graph ==
+    its eager prefill.  Returns (the first graph run's generate and
+    rows, its kernel launches: counted from the replays)."""
+    from repro_torch.runtime import graphs
+
+    before = graphs.totals()
+    for i in range(2):
+        ops.reset_launch_counts()
+        got, cont, flat = sharded_runs(sess, table, toks, lens, prompts)
+        torch.cuda.synchronize()
+        if i == 0:
+            launches, first = ops.launch_counts(), (got, cont)
+        if len(flat) != len(want) or not all(
+                np.array_equal(a, b) for a, b in zip(flat, want)):
+            raise AssertionError(f"{what}: the graph path's run {i} differs "
+                                 "from eager()'s")
+    after = graphs.totals()
+    caps, cap_s = after["captures"] - before["captures"], \
+        after["capture_s"] - before["capture_s"]
+    log(f"  {what}: graph path == eager() bitwise (generate B=8 ragged and "
+        f"a slot table of {table.max_slots} serving {len(prompts)} prompts, "
+        f"{SH_NEW} tokens each: every row and the table's state), twice; "
+        f"{caps} graphs captured in {cap_s:.2f}s ({cap_s / max(caps, 1):.3f}"
+        f"s each, warm-up included: decode, prefill, the table's step and "
+        f"{table._waves.captures} wave keys), "
+        f"{after['replays'] - before['replays']} replays; launches of the "
+        f"first run, from the replays: {launches} [{SMI}]")
+    prefill_graph_check(what, sess, [(toks, None)], SH_NEW)
+    return first, launches
+
+
+def graph_step_ms(sess, toks, lens, steps=10):
+    """Device-synced ms of one B=8 decode step replayed from ``sess``'s
+    step graph of ``toks``' block (made by an earlier generate), at the
+    positions the last call left (64 to under 128)."""
+    from repro_torch.runtime import graphs
+    from repro_torch.runtime.serving import SESSION_GRAPH_KEYS
+
+    block, lens_in = sess._bucket_pad(toks, np.asarray(lens, np.int32),
+                                      SH_NEW)
+    entry = graphs.owner_cache(sess.model, SESSION_GRAPH_KEYS).peek(
+        sess._decode_keys[(block.shape, lens_in is not None, None)])
+    with torch.inference_mode():
+        entry.step.replay(2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        entry.step.replay(steps)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def step_turns(what, model, lm, ref_sess, sess, toks, lens):
+    """The B=8 decode step in turns, twice: unsharded and sharded eager
+    (``step_ms``), then each replayed from its session's graph."""
+    block = torch.as_tensor(toks, device="cuda")
+    runs = {"unsharded eager": lambda: step_ms(model, block),
+            "sharded eager": lambda: step_ms(lm, block),
+            "unsharded graph": lambda: graph_step_ms(ref_sess, toks, lens),
+            "sharded graph": lambda: graph_step_ms(sess, toks, lens)}
+    ms = {k: [] for k in runs}
+    for _ in range(2):
+        for k, fn in runs.items():
+            ms[k].append(fn())
+    log(f"  {what} B=8 decode step, in turns (eager at 64-90 positions, "
+        "from the graphs at 80-124): " + ", ".join(
+            f"{k} {a:.2f} / {b:.2f} ms" for k, (a, b) in ms.items())
+        + f"; sharded eager / sharded graph "
+        f"{np.mean(ms['sharded eager']) / np.mean(ms['sharded graph']):.2f}x"
+        f", sharded / unsharded graph "
+        f"{np.mean(ms['sharded graph']) / np.mean(ms['unsharded graph']):.3f}"
+        f"x [{SMI}]")
+    return ms
+
+
 def sharded_phase(ops):
     """qwen3-8b at full width through ``make_sharded_session`` on a 1x1
     NCCL mesh (``tp``: the caches' slots over the size-1 ``model`` axis, so
     every attention layer decodes through ``attn_decode_seq_sharded``: the
     stats kernel and two all_reduces), ``GenerationSession`` and a
-    continuous slot table, held against the unsharded sessions on the
-    same weights behind the margin; per-rank parameter bytes and the eager
-    decode step, sharded beside unsharded, in turns."""
-    import datetime
-
-    import torch.distributed as dist
-    from repro_torch.launch.mesh import make_host_mesh
+    continuous slot table: eager (``graphs.eager()``), then twice from
+    their graphs (the all_reduces captured), bitwise equal; the tokens
+    against the unsharded sessions on the same weights behind the margin;
+    per-rank parameter bytes and the B=8 decode step, sharded beside
+    unsharded, eager and from the graphs, in turns."""
+    from repro_torch.runtime import graphs
     from repro_torch.runtime.serving import (ContinuousGenerationSession,
                                              GenerationSession)
     from repro_torch.runtime.sharded import make_sharded_session
@@ -3287,51 +3387,35 @@ def sharded_phase(ops):
     prompts = [rng.integers(4, vocab, int(n)).astype(np.int32)
                for n in rng.integers(5, 61, 12)]
     rows = [t[:n] for t, n in zip(toks, lens)]
-    ref = GenerationSession(model, max_len=QW_T).generate_with_lengths(
-        toks, max_new=SH_NEW, lengths=lens)
+    ref_sess = GenerationSession(model, max_len=QW_T)
+    ref = ref_sess.generate_with_lengths(toks, max_new=SH_NEW, lengths=lens)
     cont_ref = ContinuousGenerationSession(
         model, max_slots=SH_SLOTS, max_len=QW_T).serve(prompts,
                                                        max_new=SH_NEW)
-    block = torch.as_tensor(toks, device="cuda")
-    plain_ms = [step_ms(model, block)]
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
-                                rank=0, world_size=1,
-                                timeout=datetime.timedelta(seconds=60))
-        try:
-            sess = make_sharded_session(
-                model, make_host_mesh((1, 1), ("data", "model"), "cuda"),
-                max_len=QW_T, batch_size=SH_SLOTS, layout="tp")
-            lm = sess.model
-            log(f"  {sess.layout} layout on a 1x1 NCCL mesh: "
-                f"{lm.local_bytes()} parameter bytes on the rank "
-                f"({4 * n_params} for the whole model)")
-            ops.reset_launch_counts()
-            got = sess.generate_with_lengths(toks, max_new=SH_NEW,
-                                             lengths=lens)
-            cont = ContinuousGenerationSession(
-                lm, max_slots=SH_SLOTS, max_len=QW_T).serve(prompts,
-                                                            max_new=SH_NEW)
-            torch.cuda.synchronize()
-            launches = ops.launch_counts()
-            log(f"  kernel launches, sharded generate + slot table: "
-                f"{launches}")
-            for name in ("flash_attention", "flash_decode"):
-                if launches[name] == 0:
-                    raise AssertionError(f"the sharded path never launched "
-                                         f"{name}")
-            sharded_ms = [step_ms(lm, block), step_ms(lm, block)]
-            plain_ms.append(step_ms(model, block))
-        finally:
-            dist.destroy_process_group()
+    with nccl_1x1() as mesh:
+        sess = make_sharded_session(model, mesh, max_len=QW_T,
+                                    batch_size=SH_SLOTS, layout="tp")
+        lm = sess.model
+        log(f"  {sess.layout} layout on a 1x1 NCCL mesh: "
+            f"{lm.local_bytes()} parameter bytes on the rank "
+            f"({4 * n_params} for the whole model)")
+        table = ContinuousGenerationSession(lm, max_slots=SH_SLOTS,
+                                            max_len=QW_T)
+        with graphs.eager():
+            want = sharded_runs(sess, table, toks, lens, prompts)[2]
+        (got, cont), launches = sharded_graph_check(
+            "qwen3-8b sharded 1x1 (tp)", ops, sess, table, toks, lens,
+            prompts, want)
+        for name in ("flash_attention", "flash_decode"):
+            if launches[name] == 0:
+                raise AssertionError(f"the sharded path never launched "
+                                     f"{name}")
+        step_turns("qwen3-8b", model, lm, ref_sess, sess, toks, lens)
     held_rows("sharded GenerationSession vs unsharded", model, rows,
               list(zip(*ref)), list(zip(*got)))
     held_rows("sharded slot table vs unsharded", model, prompts, cont_ref,
               cont)
-    log(f"  eager B=8 decode step at 64-73 positions: unsharded "
-        f"{plain_ms[0]:.2f} / {plain_ms[1]:.2f} ms, sharded 1x1 "
-        f"{sharded_ms[0]:.2f} / {sharded_ms[1]:.2f} ms (in turns)")
-    del model, sess, lm
+    del model, sess, lm, table, ref_sess
     gc.collect()
     torch.cuda.empty_cache()
     return {"qwen3-8b sharded": launches}
@@ -3408,15 +3492,18 @@ def sharded_training_phase(ops):
     at B=4 S=256 from ``launch/train.py``'s token stream, then the same
     steps unsharded on the same weights and batches; losses, grad norms
     and every parameter held equal (bitwise, else within 1e-6 relative);
-    the dry-run's per-rank bytes against the card's; a ragged B=8
-    generate of 16 tokens from the trained sharded model against the
-    unsharded one behind the margin, through both attention kernels; the
-    eager step, sharded beside unsharded, in turns."""
+    the dry-run's per-rank bytes against the card's; the eager step,
+    sharded beside unsharded, in turns; the sharded step from its graph
+    (``compile_train_step``) against eager (``train_graph_check``); a
+    ragged B=8 generate of 16 tokens from the trained sharded model (from
+    its graphs) against the unsharded one behind the margin, through both
+    attention kernels."""
     import datetime
 
     import torch.distributed as dist
     from repro_torch.data.pipeline import lm_batches
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import graphs
     from repro_torch.runtime.serving import GenerationSession
     from repro_torch.runtime.sharded import shard_lm
     from repro_torch.training.train_loop import (init_train_state,
@@ -3438,10 +3525,8 @@ def sharded_training_phase(ops):
                                 rank=0, world_size=1,
                                 timeout=datetime.timedelta(seconds=60))
         try:
-            lm, pol = shard_lm(model, make_host_mesh((1, 1), ("data",
-                                                              "model"),
-                                                     "cuda"),
-                               batch_size=ST_B, layout="tp")
+            mesh = make_host_mesh((1, 1), ("data", "model"), "cuda")
+            lm, pol = shard_lm(model, mesh, batch_size=ST_B, layout="tp")
             st_a = init_train_state(lm)
             step_a = make_train_step(lm)
             ops.reset_launch_counts()
@@ -3488,6 +3573,18 @@ def sharded_training_phase(ops):
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
             del st_a, st_b, step_a, step_b
             empty_cache()
+            # the sharded step from its graph (compile_train_step), on
+            # fresh sharded models of the same weights
+            ops.reset_launch_counts()
+            train_graph_check(
+                f"qwen3-8b {ST_CUT} layers sharded 1x1 (tp), B={ST_B} "
+                f"S={ST_S}", lambda: shard_lm(build_cut(cfg)[0], mesh,
+                                              batch_size=ST_B,
+                                              layout="tp")[0],
+                make_train_step, batches, replays_from=1)
+            if any(ops.launch_counts().values()):
+                raise AssertionError("a kernel launched while training")
+            empty_cache()
 
             toks = rng.integers(4, cfg.vocab_size, (8, 64)).astype(np.int32)
             lens = np.concatenate([[64], rng.integers(5, 65, 7)]).astype(
@@ -3500,6 +3597,7 @@ def sharded_training_phase(ops):
             torch.cuda.synchronize()
             launches = ops.launch_counts()
         finally:
+            graphs.release_all()    # before NCCL destroys its communicators
             dist.destroy_process_group()
     log(f"  kernel launches, the trained sharded model's generate: "
         f"{launches}")
@@ -3823,11 +3921,12 @@ BF16_TRAIN = ("rwkv6-3b", "zamba2-1.2b")   # full depth, float32 moments
 @contextlib.contextmanager
 def nccl_1x1():
     """A one-rank NCCL process group and its 1x1 ("data", "model") mesh,
-    destroyed on exit."""
+    destroyed on exit, after every graph is released."""
     import datetime
 
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import graphs
 
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
@@ -3836,6 +3935,7 @@ def nccl_1x1():
         try:
             yield make_host_mesh((1, 1), ("data", "model"), "cuda")
         finally:
+            graphs.release_all()    # before NCCL destroys its communicators
             dist.destroy_process_group()
 
 
@@ -3844,12 +3944,13 @@ def bf16_sharded_serving(name, ops, mesh, rng):
     the 1x1 NCCL mesh (``tp``: every attention layer decodes through
     ``attn_decode_seq_sharded``, the bf16 stats kernel and its float32
     merge): a ragged B=8 ``generate_with_lengths`` of 16 tokens and 12
-    prompts through a slot table of 8, each kernel call held against its
-    plain version (``checked_kernels``: the stats call's output, m and
-    l), the tokens against the unsharded bf16 sessions on the same
-    weights (bitwise, else behind the margin); both attention kernels
-    launched; the eager B=8 decode step, sharded beside unsharded, in
-    turns."""
+    prompts through a slot table of 8, first eager with each kernel call
+    held against its plain version (``checked_kernels``: the stats
+    call's output, m and l), then twice from the graphs, bitwise equal;
+    the tokens against the unsharded bf16 sessions on the same weights
+    (bitwise, else behind the margin); both attention kernels launched
+    from the replays; the B=8 decode step, sharded beside unsharded,
+    eager and from the graphs, in turns."""
     from repro_torch.models.registry import resolve
     from repro_torch.runtime.serving import (ContinuousGenerationSession,
                                              GenerationSession)
@@ -3865,36 +3966,30 @@ def bf16_sharded_serving(name, ops, mesh, rng):
     prompts = [rng.integers(4, vocab, int(n)).astype(np.int32)
                for n in rng.integers(5, 61, 12)]
     rows = [t[:n] for t, n in zip(toks, lens)]
-    ref = GenerationSession(model, max_len=QW_T).generate_with_lengths(
-        toks, max_new=SH_NEW, lengths=lens)
+    ref_sess = GenerationSession(model, max_len=QW_T)
+    ref = ref_sess.generate_with_lengths(toks, max_new=SH_NEW, lengths=lens)
     cont_ref = ContinuousGenerationSession(
         model, max_slots=SH_SLOTS, max_len=QW_T).serve(prompts,
                                                        max_new=SH_NEW)
-    block = torch.as_tensor(toks, device="cuda")
-    plain_ms = [step_ms(model, block)]
     sess = make_sharded_session(model, mesh, max_len=QW_T,
                                 batch_size=SH_SLOTS, layout="tp")
     lm = sess.model
+    table = ContinuousGenerationSession(lm, max_slots=SH_SLOTS, max_len=QW_T)
     worst = {}
-    ops.reset_launch_counts()
     with checked_kernels(worst):
-        got = sess.generate_with_lengths(toks, max_new=SH_NEW, lengths=lens)
-        cont = ContinuousGenerationSession(
-            lm, max_slots=SH_SLOTS, max_len=QW_T).serve(prompts,
-                                                        max_new=SH_NEW)
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    sharded_ms = [step_ms(lm, block), step_ms(lm, block)]
-    plain_ms.append(step_ms(model, block))
+        want = sharded_runs(sess, table, toks, lens, prompts)[2]
+    (got, cont), launches = sharded_graph_check(
+        f"{name} bf16 sharded 1x1 (tp)", ops, sess, table, toks, lens,
+        prompts, want)
     same = (all(np.array_equal(a, b) for a, b in zip(ref, got))
             and all(m1 == m2 and np.array_equal(a, b)
                     for (m1, a), (m2, b) in zip(cont_ref, cont)))
     log(f"  {name} bf16 whole ({n_bytes / 1e9:.2f} GB), {sess.layout} on "
         f"the 1x1 NCCL mesh ({lm.local_bytes()} parameter bytes on the "
-        f"rank); launches, sharded generate + slot table: {launches}; "
-        f"tokens vs the unsharded bf16 sessions: "
+        f"rank); launches, sharded generate + slot table from the graphs: "
+        f"{launches}; tokens vs the unsharded bf16 sessions: "
         f"{'bitwise equal' if same else 'not all equal'}; each kernel call "
-        f"vs its plain version: {checked_line(worst)}")
+        f"of the eager run vs its plain version: {checked_line(worst)}")
     for k in ("flash_attention", "flash_decode"):
         if launches[k] == 0:
             raise AssertionError(f"{name} bf16 sharded: {k} never launched")
@@ -3904,10 +3999,8 @@ def bf16_sharded_serving(name, ops, mesh, rng):
                   BF16_MARGIN)
         held_rows(f"{name} bf16 sharded slot table vs unsharded", model,
                   prompts, cont_ref, cont, BF16_MARGIN)
-    log(f"  {name} bf16 eager B=8 decode step at 64-73 positions: unsharded "
-        f"{plain_ms[0]:.2f} / {plain_ms[1]:.2f} ms, sharded 1x1 "
-        f"{sharded_ms[0]:.2f} / {sharded_ms[1]:.2f} ms (in turns)")
-    del model, r, sess, lm
+    step_turns(f"{name} bf16", model, lm, ref_sess, sess, toks, lens)
+    del model, r, sess, lm, table, ref_sess
     empty_cache()
     return {f"{name} bf16 sharded": launches}
 

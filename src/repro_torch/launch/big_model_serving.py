@@ -45,6 +45,7 @@ from repro_torch.core.profiles import make_profile
 from repro_torch.device import resolve_device
 from repro_torch.launch.serve import Leader, follow, init_mesh
 from repro_torch.models.registry import resolve
+from repro_torch.runtime import graphs
 from repro_torch.runtime.engine import CollaborativeEngine, Tier
 from repro_torch.runtime.serving import GenerationSession, build_executor
 from repro_torch.runtime.sharded import make_sharded_session
@@ -94,6 +95,7 @@ def main(argv=None, *, cloud=None, edge=None):
         return _serve(args, device, n_req, mesh, cloud, edge)
     finally:
         if own_group:
+            graphs.release_all()     # before NCCL destroys its communicators
             dist.destroy_process_group()
 
 

@@ -5,8 +5,8 @@ Port of ``repro/launch/dryrun.py``, with its names and CLI.  The
 reference lowers and compiles the real step for 512 placeholder TPU
 devices and reads XLA's ``memory_analysis``, ``cost_analysis`` and the
 collectives of the partitioned HLO.  The port produces no HLO: its
-sharded steps are eager PyTorch on each rank
-(:mod:`repro_torch.runtime.sharded`).  So each record is computed from
+sharded steps are PyTorch on each rank, replayed from CUDA graphs on
+the card (:mod:`repro_torch.runtime.sharded`).  So each record is computed from
 the sharding policy on an abstract mesh (:class:`MeshShape`: no process
 group), the LM built on the ``meta`` device, and the port's own design:
 

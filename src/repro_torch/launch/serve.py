@@ -45,6 +45,7 @@ from repro_torch.core.length_regressor import LinearN2M
 from repro_torch.core.profiles import make_profile
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.registry import resolve
+from repro_torch.runtime import graphs
 from repro_torch.runtime.engine import CollaborativeEngine, Tier
 from repro_torch.runtime.serving import GenerationSession, build_executor
 from repro_torch.runtime.sharded import make_sharded_session
@@ -192,6 +193,7 @@ def main(argv=None):
         finally:
             leader.stop()
     finally:
+        graphs.release_all()     # before NCCL destroys its communicators
         dist.destroy_process_group()
 
 

@@ -232,8 +232,10 @@ class LM(nn.Module):
 
     @property
     def graph_safe(self) -> bool:
-        """Whether a CUDA graph may capture ``decode_step``: it runs no
-        collective (no sharded runtime's gather installed)."""
+        """Whether a session may capture this LM's calls in CUDA graphs:
+        not while a sharded runtime's gather is installed (``unshard``),
+        since such an LM is served through its ``ShardedLM``, which
+        cuts the batch and may."""
         return self.unshard is None
 
     def _whole(self, *modules):

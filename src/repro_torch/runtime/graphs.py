@@ -49,6 +49,10 @@ it.
   path; a capture raises on a CPU tensor, and a failed capture or replay
   raises: nothing falls back to the eager loop.
 
+:func:`release_all` drops every graph of the process, as a process
+group's teardown needs (NCCL waits for the graphs that captured a
+communicator's collectives before destroying it).
+
 The capture stream is one per device, shared by every owner:
 ``flash_decode`` keeps its split counters in a region per stream (64
 regions a device), and a graph replays with the region of the stream it
@@ -62,6 +66,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import time
+import weakref
 from typing import Callable, Dict, Hashable, List
 
 import numpy as np
@@ -71,6 +76,7 @@ from repro_torch.kernels import ops
 
 _EAGER = [0]               # depth of the active eager() contexts
 _STREAMS: dict = {}        # device index -> the capture stream
+_CACHES = weakref.WeakSet()   # every GraphCache, for release_all()
 TOTALS = {"captures": 0, "replays": 0, "capture_s": 0.0}
 
 
@@ -204,6 +210,7 @@ class GraphCache:
         self.captures = 0
         self.replays = 0
         self.capture_s = 0.0
+        _CACHES.add(self)
 
     def __deepcopy__(self, memo):
         # graphs belong to the device buffers they were captured over: a
@@ -328,12 +335,19 @@ class GraphCache:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
+    def _pool_owner(self) -> "GraphCache":
+        """The cache whose pool this one's graphs use: the end of the
+        ``pool_of`` chain."""
+        owner = self
+        while owner._pool_of is not None:
+            nxt = owner._pool_of
+            owner = nxt() if callable(nxt) else nxt
+        return owner
+
     def _record(self, fn, tensors):
         """Capture ``fn()`` (which runs nothing on the device now) into a
         graph in the owner's pool; returns (graph, what ``fn`` returned)."""
-        owner = self._pool_of or self
-        if callable(owner):
-            owner = owner()
+        owner = self._pool_owner()
         if owner._pool is None:
             owner._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
@@ -362,10 +376,24 @@ def release(entry) -> None:
             value.release()
 
 
+def release_all() -> None:
+    """Drop every graph of every cache (a later call captures anew).
+    Destroying an NCCL communicator waits until every graph that captured
+    one of its collectives is gone: call this before
+    ``destroy_process_group`` on the groups of a sharded model that
+    replayed graphs."""
+    for cache in list(_CACHES):
+        cache.clear()
+
+
 def owner_cache(owner, max_keys: int) -> GraphCache:
-    """``owner``'s :class:`GraphCache` (made at the first call)."""
+    """``owner``'s :class:`GraphCache` (made at the first call).  An
+    owner with a ``graph_pool_owner`` (a sharded LM: its LM) shares that
+    one's pool, so a model's sharded and unsharded sessions keep one."""
     cache = getattr(owner, "_step_graphs", None)
     if cache is None:
-        cache = GraphCache(max_keys)
+        base = getattr(owner, "graph_pool_owner", None)
+        cache = GraphCache(max_keys, pool_of=None if base is None else (
+            lambda: owner_cache(base, max_keys)))
         owner._step_graphs = cache
     return cache

@@ -15,9 +15,9 @@ Port of the LM half of ``repro/runtime/serving.py``.
   replay of one graph per prompt block (its shape, whether it is ragged,
   the frames' shape), which writes that state and the first token in
   place (``repro_torch.runtime.graphs``; the reference's jitted prefill
-  and single ``lax.scan`` dispatch); on the CPU, under
-  ``graphs.eager()`` and for a sharded LM (its step runs collectives)
-  the prefill runs eagerly and a Python loop runs the same step;
+  and single ``lax.scan`` dispatch; a sharded LM's collectives are
+  captured with the rest); on the CPU and under ``graphs.eager()`` the
+  prefill runs eagerly and a Python loop runs the same step;
 * **host loop** (``host_loop=True``): the per-token loop, one scalar
   sync per step for its early exit — the paper-faithful timing path
   (§II-A), kept for characterization runs.
@@ -54,8 +54,9 @@ model's ``EncoderStates``), ``kind="raw"`` (pass-through, to apply
 Both sessions serve a sharded LM
 (:class:`~repro_torch.runtime.sharded.ShardedLM`, built by
 :func:`~repro_torch.runtime.sharded.make_sharded_session`) as they serve
-an LM: it takes and returns the whole batch on every rank, and the slot
-table's admission copies rows through the model's ``copy_rows``.
+an LM, graphs included: it takes and returns the whole batch on every
+rank, and the slot table's admission copies rows through the model's
+``copy_rows``.
 """
 
 from __future__ import annotations
@@ -97,8 +98,10 @@ def _ragged_plan_ok(model) -> bool:
 
 def _graphs_on(model) -> bool:
     """Whether ``model``'s decode steps replay CUDA graphs: on the card,
-    outside ``graphs.eager()``, for a model whose step runs no collective
-    (an LM, not a sharded one)."""
+    outside ``graphs.eager()``, for a model that says it is
+    ``graph_safe``: an LM, and a sharded LM, whose NCCL collectives a
+    graph captures; not the LM inside a sharded one, whose calls alone
+    would not cut the batch."""
     return graphs.active(model.device) and getattr(model, "graph_safe",
                                                    False)
 
@@ -474,10 +477,13 @@ class GenerationSession:
         if entry is None:
             # the decode key of this block's state (another session of
             # the model may have made its entry and this block's graph)
+            # (a sharded LM's state is the rank's block: the batch is
+            # named, since two batches may leave blocks of one shape)
             _, state, _ = self._prefill(tokens, lens_in, frames, graph=False)
-            dkey = ("generate", self.max_len, graphs.signature(state))
+            b = tokens.shape[0]
+            dkey = ("generate", self.max_len, b, graphs.signature(state))
             entry = cache.get(dkey, lambda: _SessionGraph(
-                cache, self._step, state, self.max_len))
+                cache, self._step, state, b, self.max_len))
             self._decode_keys[pkey] = dkey
         block = entry.prefills.peek(pkey)
         if block is None:
@@ -529,15 +535,16 @@ class GenerationSession:
 
 class _SessionGraph:
     """One GenerationSession key: a decode state (``state``'s buffers,
-    adopted), the greedy loop over it, its step graph and the prefill
-    graphs of the prompt blocks that fill it (``prefills``, in the
-    owner's pool).  A call replays a prefill, which writes the state and
-    the first token, then the step."""
+    adopted), the greedy loop over it (``batch`` rows: the whole batch,
+    which a sharded state's block may not show), its step graph and the
+    prefill graphs of the prompt blocks that fill it (``prefills``, in
+    the owner's pool).  A call replays a prefill, which writes the state
+    and the first token, then the step."""
 
-    def __init__(self, cache: graphs.GraphCache, step, state,
+    def __init__(self, cache: graphs.GraphCache, step, state, batch: int,
                  max_len: int):
         pos = state["pos"]
-        tok = torch.full(pos.shape, PAD_ID, dtype=torch.int32,
+        tok = torch.full((batch,), PAD_ID, dtype=torch.int32,
                          device=pos.device)
         self.loop = GreedySteps(step, state, tok, max_len)
         self.loop.start(tok, first=True)

@@ -51,6 +51,50 @@ port's unchanged layer code on its own part of the work:
   forward; a layer checkpointed by ``LM(remat=True)`` re-enters it for
   its recompute and gathers its weights again there).
 
+**CUDA graphs.**  A sharded LM is ``graph_safe``: on the card its
+sessions replay one graph a decode step, prefill block and admission
+wave, and ``compile_train_step`` one a train step, as for an LM
+(``runtime/graphs.py``), the collectives captured inside:
+
+* *Storage.*  A graph replays the addresses it captured, so every leaf
+  of a sharded decode state keeps its storage: ``decode_step`` copies
+  the block of a leaf it gathered back into the leaf, ``prefill(into=)``
+  writes each block in place and ``copy_rows`` indexes in place.
+* *No host work.*  ``copy_rows`` decides on the device which entries
+  this rank holds (``src_rows=``: a wave's static indices); ``_gather``
+  is plain ``all_gather_into_tensor`` on the mesh's groups and
+  ``_block`` a view, not DTensor's collectives.
+* *The stream.*  Captures run on ``graphs``' capture stream.  A c10d
+  NCCL collective runs on the process group's own stream, which waits
+  on an event of the current (capturing) stream and is waited on by it,
+  so it joins the capture; the work it returns is not queued to the
+  watchdog while the stream captures (torch 2.11 + CUDA 12.8 on H100s:
+  1-rank groups, and 4 ranks on a (2, 2) mesh with every collective of
+  the sessions and the train step, ``scripts/sharded_graphs_cards.py``).
+* *Communicators.*  NCCL makes a group's at its first collective, which
+  a capture cannot hold; the constructor runs one on the world, each
+  mesh dimension's group and each group it makes, on every rank in the
+  same order.
+* *Order.*  Every rank makes the same calls on the whole batch, so the
+  sessions' shape keys, captures and replays line up across ranks
+  (``launch/serve.py --mesh``: rank 0 drives, the others follow its
+  broadcast calls).
+* *``flash_decode``'s split counters* are allocated at a device's first
+  call, which a capture's eager warm-up makes; every graph is captured
+  on the one capture stream and replayed on the current stream, one at
+  a time, as an LM's.
+* *Pools.*  A sharded LM's session graphs share its LM's pool
+  (``graph_pool_owner``), so a model served sharded and unsharded keeps
+  one.
+* *Teardown.*  NCCL destroys a communicator only once every graph that
+  captured one of its collectives is gone (on 4 cards
+  ``destroy_process_group`` waited past a 600 s deadline with the
+  graphs alive): ``graphs.release_all()`` first, as ``launch/serve.py
+  --mesh`` does.
+
+A 1x1 mesh keeps its size-1 axes: ``tp`` still decodes through
+``attn_decode_seq_sharded``, two one-rank all_reduces a layer, captured.
+
 Tokens equal the unsharded session's only behind a top-2 logit margin: a
 rank computes B/|batch axes| rows, so a GEMM's kernel and
 ``flash_decode``'s split plan change with the batch shape, and the
@@ -69,12 +113,12 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 from torch import nn
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor
 
 from repro_torch.runtime.serving import (
     ContinuousGenerationSession,
@@ -164,8 +208,8 @@ class ShardedLM:
     given is changed in place (its parameters become this rank's
     blocks)."""
 
-    # no CUDA graph captures its steps: they run collectives
-    graph_safe = False
+    # a CUDA graph captures its steps, collectives included (module doc)
+    graph_safe = True
 
     def __init__(self, model, mesh, policy: ShardingPolicy):
         if model.param_dtype not in (torch.float32, torch.bfloat16):
@@ -203,6 +247,12 @@ class ShardedLM:
                 self._cut_axes(spec) for spec in self.specs.values()]:
             if axes and axes not in self._groups:
                 self._groups[axes] = self._new_group(axes)
+        # every communicator a call may use, made now, on every rank in
+        # the same order: NCCL makes a group's at its first collective,
+        # which must not fall inside a CUDA graph capture
+        for group in [None, *map(mesh.get_group, mesh.mesh_dim_names),
+                      *self._groups.values()]:
+            dist.all_reduce(torch.zeros(1, device=model.device), group=group)
         self._grad_group = None      # the batch group of the last forward
         self._train_rows = None      # and its batch spec entry
         model.unshard = self._unshard
@@ -214,6 +264,13 @@ class ShardedLM:
     @property
     def param_dtype(self) -> torch.dtype:
         return self.model.param_dtype
+
+    @property
+    def graph_pool_owner(self):
+        """The LM whose graph pool this model's session graphs share
+        (``graphs.owner_cache``): one pool for the model, sharded or
+        not."""
+        return self.model
 
     def local_bytes(self) -> int:
         """Bytes of the parameter blocks this rank holds."""
@@ -255,20 +312,47 @@ class ShardedLM:
         """Whether ``spec`` cuts a tensor (an axis of size 1 cuts nothing)."""
         return bool(self._cut_axes(spec))
 
+    def _block_view(self, t, spec):
+        """This rank's block of the whole tensor ``t`` under ``spec``, as
+        a view: each dim cut into equal blocks over its mesh dimensions in
+        mesh order, as ``distribute_tensor`` lays blocks out (no
+        collective, no host work: a graph may capture it)."""
+        for md, pl in enumerate(to_placements(self.mesh, spec)):
+            n = self.mesh.shape[md]
+            if pl.is_shard() and n > 1:
+                size = t.shape[pl.dim] // n
+                t = t.narrow(pl.dim, self._coord[md] * size, size)
+        return t
+
     def _block(self, t, spec):
-        """This rank's block of the whole tensor ``t`` (a copy) under
-        ``spec``; ``t`` itself where the spec cuts nothing."""
+        """This rank's block of the whole tensor ``t`` (a contiguous copy)
+        under ``spec``; ``t`` itself where the spec cuts nothing."""
         if not self._splits(spec):
             return t
-        return distribute_tensor(t, self.mesh, to_placements(self.mesh, spec),
-                                 src_data_rank=None).to_local().clone()
+        return self._block_view(t, spec).clone(
+            memory_format=torch.contiguous_format)
 
     def _gather(self, t, spec):
-        """The whole tensor from each rank's block ``t`` under ``spec``."""
+        """The whole tensor from each rank's block ``t`` under ``spec``:
+        one all_gather over each mesh dimension that cuts it, the last
+        first, laid out as ``DTensor.full_tensor`` lays it (plain
+        ``all_gather_into_tensor`` calls on the mesh's groups, which a
+        CUDA graph captures on NCCL); ``t`` itself where the spec cuts
+        nothing."""
         if not self._splits(spec):
             return t
-        return DTensor.from_local(t, self.mesh, to_placements(self.mesh, spec),
-                                  run_check=False).full_tensor()
+        placements = to_placements(self.mesh, spec)
+        for md in reversed(range(len(placements))):
+            pl, n = placements[md], self.mesh.shape[md]
+            if not pl.is_shard() or n == 1:
+                continue
+            t = t.contiguous()
+            parts = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
+            dist.all_gather_into_tensor(parts, t,
+                                        group=self.mesh.get_group(md))
+            t = torch.cat(parts.view((n,) + tuple(t.shape)).unbind(0),
+                          dim=pl.dim)
+        return t
 
     def _rows(self, t, rows):
         """This rank's rows of a whole-batch tensor; None stays None."""
@@ -447,21 +531,43 @@ class ShardedLM:
     # --------------------------------------------------------- serving --
     @torch.no_grad()
     def prefill(self, tokens, *, frames=None, frame_mask=None, window=None,
-                max_len=None, lengths=None):
+                max_len=None, lengths=None, check: bool = True,
+                into: Optional[Dict] = None):
         """``LM.prefill`` of the whole batch: (logits (B,V) whole, this
-        rank's block of the decode state)."""
+        rank's block of the decode state).  ``check`` and ``into`` mean
+        what they mean to ``LM.prefill``: ``into`` (a sharded decode state
+        of the shapes this call returns, its ``"specs"`` included) takes
+        this rank's block of every leaf in place and is returned."""
         b = tokens.shape[0]
         rows = self.policy.batch(b)
+        cut = [] if into is None else [
+            (parent, name, _keep(sp[name], axis, False))
+            for (parent, name, axis), (sp, _, _) in zip(
+                _leaves(into), _leaves(into["specs"]))]
+        # a state whose leaves are cut only by rows is written in place;
+        # another is made whole on the rank's rows and cut into ``into``
+        whole_into = into is not None and not any(
+            self._splits(spec) for _, _, spec in cut)
         logits, state = self.model.prefill(
             self._rows(tokens, rows), frames=self._rows(frames, rows),
             frame_mask=self._rows(frame_mask, rows), window=window,
-            max_len=max_len, lengths=self._rows(lengths, rows))
-        return self._gather(logits, (rows, None)), self._split_state(state, b)
+            max_len=max_len, lengths=self._rows(lengths, rows), check=check,
+            into=into if whole_into else None)
+        logits = self._gather(logits, (rows, None))
+        if into is None:
+            return logits, self._split_state(state, b)
+        if not whole_into:
+            for (parent, name, spec), (fresh, fname, _) in zip(
+                    cut, _leaves(state)):
+                parent[name].copy_(self._block_view(fresh[fname], spec))
+        return logits, into
 
     @torch.no_grad()
     def decode_step(self, state: Dict, tokens):
         """``LM.decode_step`` of the whole batch on this rank's block of
-        the state (updated in place); returns the whole batch's logits."""
+        the state, updated in place (every leaf keeps its storage: a leaf
+        gathered for the step gets its block of the result copied back);
+        returns the whole batch's logits."""
         specs = state["specs"]
         rows = specs["pos"][0]
         w = self.cfg.sliding_window
@@ -479,7 +585,7 @@ class ShardedLM:
                     seq_axes = spec_axes(cut[2])
                     continue
                 cache[name] = self._gather(t, cut)
-                gathered.append((cache, name, cut))
+                gathered.append((cache, name, cut, t))
         seq = None
         if seq_axes is not None:
             (axis,) = seq_axes        # the policy splits a sequence one way
@@ -490,32 +596,56 @@ class ShardedLM:
                                                self._rows(tokens, rows))
         finally:
             set_decode_seq_shard(None)
-        for cache, name, cut in gathered:
-            cache[name] = self._block(cache[name], cut)
+        for cache, name, cut, block in gathered:
+            block.copy_(self._block_view(cache[name], cut))
+            cache[name] = block
         return self._gather(logits, (rows, None)), state
 
-    def copy_rows(self, dst: Dict, src: Dict, slots) -> None:
+    def _block_index(self, entry) -> int:
+        """The index of this rank's block along a dim that spec entry
+        ``entry`` cuts (its mesh dimensions in mesh order)."""
+        names = spec_axes(entry)
+        index = 0
+        for md, axis in enumerate(self.mesh.mesh_dim_names):
+            if axis in names:
+                index = index * self.mesh.shape[md] + self._coord[md]
+        return index
+
+    def copy_rows(self, dst: Dict, src: Dict, slots, src_rows=None) -> None:
         """``LM.copy_rows`` between two sharded states: each rank gathers
         ``src``'s rows (its own block of the other axes) and writes those
-        of the slots it holds."""
-        dst_rows = dst["specs"]["pos"][0]
-        n = dst["pos"].shape[0] * (self.policy.axis_size(spec_axes(dst_rows))
-                                   if dst_rows else 1)
-        held = self._block(torch.arange(n, device=self.device),
-                           (dst_rows,)).tolist()
-        where = {s: j for j, s in enumerate(slots)}
-        mine = [(i, where[s]) for i, s in enumerate(held) if s in where]
-        idx = torch.as_tensor(mine, dtype=torch.long,
-                              device=self.device).reshape(-1, 2)
+        of the slots it holds.  ``slots`` is a list of whole-table slots
+        (``src``'s first rows), or with ``src_rows`` two long tensors on
+        the device (a CUDA graph's static indices; two entries may name
+        one slot if they name one row).
+
+        Everything is decided on the device: this rank holds the slots
+        ``[base, base + n)`` of its block, and an entry naming a slot of
+        another rank's writes where and what this rank's first held entry
+        writes (the same bits twice, as a wave's padding row does), or,
+        where this rank holds none of the slots, row 0's own values back."""
+        dev = self.device
+        if src_rows is None:
+            slots = torch.as_tensor(slots, dtype=torch.long, device=dev)
+            src_rows = torch.arange(slots.shape[0], device=dev)
+        n = dst["pos"].shape[0]
+        local = slots - self._block_index(dst["specs"]["pos"][0]) * n
+        held = (local >= 0) & (local < n)
+        first = torch.argmax(held.to(torch.int32)).view(1)
+        some = held.any()
+        at = torch.where(held, local, torch.where(
+            some, local.index_select(0, first), torch.zeros_like(local)))
+        pick = torch.where(held, src_rows, src_rows.index_select(0, first))
         for (dp, name, axis), (sp, _, _), (fp, _, _), (fsp, _, _) in zip(
                 _leaves(dst), _leaves(dst["specs"]), _leaves(src),
                 _leaves(src["specs"])):
             if _keep(sp[name], axis, False) != _keep(fsp[name], axis, False):
                 raise ValueError(f"{name}: the states split it differently")
             fresh = self._gather(fp[name], _keep(fsp[name], axis, True))
-            if mine:
-                dp[name].index_copy_(axis, idx[:, 0],
-                                     fresh.index_select(axis, idx[:, 1]))
+            t = dp[name]
+            t.index_copy_(axis, at, torch.where(
+                some, fresh.index_select(axis, pick),
+                t.index_select(axis, at)))
 
     @property
     def batch_group(self):

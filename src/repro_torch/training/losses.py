@@ -46,7 +46,8 @@ def _split_ces(terms, group):
         nll = _token_nll(logits, targets)
         if mask is None:
             sums.append(nll.sum())
-            counts.append(nll.new_tensor(float(nll.numel())))
+            # a fill on the device: a CUDA graph captures no host copy
+            counts.append(nll.new_full((), float(nll.numel())))
         else:
             sums.append((nll * mask).sum())
             counts.append(mask.sum().float())

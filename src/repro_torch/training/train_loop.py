@@ -174,9 +174,12 @@ def compile_train_step(train_step: Callable, model) -> Callable:
     is copied into it), so a schedule computes its ``lr`` in the graph
     from it.  The metrics returned are copies of the graph's outputs.
 
-    On the CPU, under ``graphs.eager()`` and for a model whose
-    ``graph_safe`` is False (a sharded LM: its step runs collectives) it
-    calls ``train_step``."""
+    A sharded LM's step is captured with its collectives (the weight
+    gathers, their reduce_scatter in the backward, ``sync_grads``' and
+    the norm's all_reduces; none on a mesh whose axes are all of size
+    1).  On the CPU, under ``graphs.eager()`` and for a model whose
+    ``graph_safe`` is False (the LM inside a sharded one) it calls
+    ``train_step``."""
     cache = graphs.GraphCache(TRAIN_GRAPH_KEYS)
 
     def compiled(state: TrainState, batch):

@@ -907,6 +907,87 @@ def test_sharded_session_on_a_one_card_nccl_mesh(dev, tmp_path):
             assert m_got[row] == m_ref[row]
 
 
+def test_sharded_graphs_equal_eager_on_a_one_card_nccl_mesh(dev, tmp_path):
+    """The smoke qwen3-8b sharded on a 1x1 NCCL mesh (tp) from its CUDA
+    graphs, the collectives of attn_decode_seq_sharded captured: the
+    session's decode and prefill, the slot table's steps and admission
+    waves, and two compiled train steps all equal graphs.eager()'s
+    bitwise; the replays count flash_decode's launches."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import resolve
+    from repro_torch.runtime import graphs
+    from repro_torch.runtime.sharded import make_sharded_session, shard_lm
+    from repro_torch.training.train_loop import (compile_train_step,
+                                                 init_train_state,
+                                                 make_train_step)
+
+    rng = np.random.default_rng(5)
+    toks = rng.integers(4, 512, (4, 12)).astype(np.int32)
+    lens = np.array([12, 7, 12, 9], np.int32)
+    prompts = [rng.integers(4, 512, int(n)).astype(np.int32)
+               for n in rng.integers(3, 12, 6)]
+    stream = rng.integers(1, 512, (2, 4, 17)).astype(np.int32)
+    batches = [{"tokens": s[:, :-1], "targets": s[:, 1:]} for s in stream]
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_host_mesh((1, 1), ("data", "model"), "cuda")
+        sess = make_sharded_session(
+            resolve("qwen3-8b", device=dev, seed=3).model, mesh, max_len=32,
+            batch_size=4, layout="tp")
+        table = make_sharded_session(
+            resolve("qwen3-8b", device=dev, seed=3).model, mesh,
+            continuous=True, max_slots=4, max_len=32, batch_size=4,
+            layout="tp")
+
+        def run():
+            out = list(sess.generate_with_lengths(toks, max_new=8,
+                                                  lengths=lens))
+            for m, t in table.serve(prompts, max_new=6):
+                out += [np.asarray([m]), t]
+            return out
+
+        with graphs.eager():
+            want = run()
+        for _ in range(2):
+            ops.reset_launch_counts()
+            got = run()
+            assert all(np.array_equal(a, b) for a, b in zip(got, want))
+        assert ops.launch_counts()["flash_decode"] > 0
+        assert sess.model._step_graphs.captures == 1
+        assert table._graphs.captures == 1 and table._waves.captures > 0
+
+        runs = {}
+        for mode in ("eager", "graph"):
+            lm, _ = shard_lm(resolve("qwen3-8b", device=dev, seed=3).model,
+                             mesh, batch_size=4, layout="tp")
+            state = init_train_state(lm)
+            step = compile_train_step(make_train_step(lm), lm)
+            losses = []
+            for batch in batches:
+                if mode == "eager":
+                    with graphs.eager():
+                        state, m = step(state, batch)
+                else:
+                    state, m = step(state, batch)
+                losses.append((m["loss"].clone(), m["grad_norm"].clone()))
+            runs[mode] = (losses, [p.detach().clone()
+                                   for p in state.params.values()])
+            if mode == "graph":
+                assert step.graphs.captures == 1
+                assert step.graphs.replays == 1
+        for (a, b), (c, d) in zip(runs["eager"][0], runs["graph"][0]):
+            assert torch.equal(a, c) and torch.equal(b, d)
+        assert all(torch.equal(a, b) for a, b in zip(runs["eager"][1],
+                                                     runs["graph"][1]))
+    finally:
+        dist.destroy_process_group()
+
+
 # --------------------------------------- the Hopper redesign's paths --
 _FA_SHAPES = [   # b, s, t, h, hkv, d, causal, lens, window
     (2, 77, 77, 4, 4, 16, False, (77, 20), None),

@@ -8,7 +8,9 @@ its outputs into the tensors the capture returned, as a graph rewrites
 the same memory), so the bookkeeping around the graphs runs as on the
 card: static inputs copied in, the state's graph, the step index on the
 device, warm-ups that leave the buffers as they were, LRU keys and the
-launch counts.
+launch counts.  The stub (``tests/_torch_graph_stub.py``) refuses host
+transfers while it captures (``.tolist``, ``.item``, ``.cpu``, ``bool``
+of a tensor, ``torch.as_tensor`` of host data), as the card would.
 
 * the static-buffer loop equals the loop it replaced (a copy of the old
   ``scan_greedy_steps`` / ``batched_greedy_decode`` below) bitwise, on
@@ -46,6 +48,7 @@ from repro_torch.runtime.serving import (
     GenerationSession,
     greedy_margins,
 )
+from _torch_graph_stub import StubCache, stub_active
 from _torch_threads import cap_threads
 from test_torch_marian import _min_margin as marian_margin
 from test_torch_marian import _models as marian_models
@@ -92,54 +95,11 @@ def old_batched_greedy_decode(decode_step, init_state, batch, max_len,
 
 
 # ----------------------------------------------------------- the stub -----
-class _StubGraph:
-    """A CUDA graph's stand-in: ``replay`` runs the captured step again and
-    writes what it returns into the captured outputs; the wrappers' counts
-    stay as they were (a replay calls no wrapper)."""
-
-    def __init__(self, fn, outputs):
-        self.fn, self.outputs = fn, outputs
-
-    def replay(self):
-        before = ops.launch_counts()
-        graphs.copy_into(self.outputs, self.fn())
-        ops.set_launch_counts(before)
-
-    def reset(self):
-        self.fn = None
-
-
-class StubCache(graphs.GraphCache):
-    """``GraphCache`` with the device steps stubbed: no CUDA check, the
-    warm-up a plain call, the capture a call whose writes are undone (a
-    capture runs nothing)."""
-
-    @staticmethod
-    def _check(tensors):
-        pass
-
-    def _warm_up(self, fn, tensors):
-        return fn()
-
-    @staticmethod
-    def _empty_cache():
-        pass
-
-    def _record(self, fn, tensors):
-        saved = [t.clone() for t in tensors]
-        outputs = fn()
-        with torch.no_grad():                 # a train step's parameters
-            for t, s in zip(tensors, saved):
-                t.copy_(s)
-        return _StubGraph(fn, outputs), outputs
-
-
 @pytest.fixture
 def stub_graphs(monkeypatch):
     """The graph paths on the CPU, through :class:`StubCache`."""
     monkeypatch.setattr(graphs, "GraphCache", StubCache)
-    monkeypatch.setattr(graphs, "active",
-                        lambda device: not graphs.is_eager())
+    monkeypatch.setattr(graphs, "active", stub_active)
     graphs.reset_totals()
     yield
     graphs.reset_totals()

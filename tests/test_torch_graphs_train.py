@@ -19,7 +19,8 @@ bookkeeping around them runs as on the card.
 * the step counter and the cosine ``lr`` computed from it, metrics that
   later replays do not overwrite, keys evicted least recently used, a
   counter passed in from outside, a model that is not ``graph_safe``
-  (a sharded LM) stepping eagerly, and CPU trainers never capturing.
+  (the LM inside a sharded one) stepping eagerly, and CPU trainers never
+  capturing.  A sharded LM's compiled step: ``test_torch_graphs_sharded.py``.
 """
 
 import dataclasses
