@@ -426,13 +426,15 @@ class _DecodeGraphs:
         self.step = cache.capture(self.loop.step, static=self.loop.static())
 
     def run(self, args, steps: int):
-        from repro_torch.runtime import graphs
+        from repro_torch.runtime import graphs, telemetry
 
-        graphs.copy_into(self.inputs, args)
-        if self.prep is not None:
-            self.prep.replay()
-        self.loop.start(torch.full_like(self.loop.tok, BOS_ID))
-        self.step.replay(steps)
+        with telemetry.span("repro_torch.nmt.prep"):
+            graphs.copy_into(self.inputs, args)
+            if self.prep is not None:
+                self.prep.replay()
+        with telemetry.span("repro_torch.nmt.steps", steps=steps):
+            self.loop.start(torch.full_like(self.loop.tok, BOS_ID))
+            self.step.replay(steps)
         return self.loop.cols[:, :steps]
 
 
@@ -447,25 +449,34 @@ def _decode_to_host(model, kind: str, make_state, args, batch: int,
     from CUDA graphs kept per ``(kind, shapes of args, width)``: the
     state's graph replays once, the step's ``steps`` times, with no host
     sync between; elsewhere the same step runs in a Python loop."""
-    from repro_torch.runtime import graphs
+    from repro_torch.runtime import graphs, telemetry
 
     steps = forced_len if forced_len is not None else \
         model.cfg.max_decode_len
     if graphs.active(model.device):
         width = max(model.cfg.max_decode_len, steps, 1)
         key = (kind, graphs.signature(args), width)
-        entry = graphs.owner_cache(model, NMT_GRAPH_KEYS).get(
-            key, lambda: _DecodeGraphs(model, make_state, args, batch,
-                                       width))
+        with telemetry.span("repro_torch.nmt.graphs"):
+            entry = graphs.owner_cache(model, NMT_GRAPH_KEYS).get(
+                key, lambda: _DecodeGraphs(model, make_state, args, batch,
+                                           width))
         cols = entry.run(args, steps)
-        lengths, toks = greedy_columns(cols, forced=forced_len is not None)
+        with telemetry.span("repro_torch.nmt.columns"):
+            lengths, toks = greedy_columns(cols,
+                                           forced=forced_len is not None)
+            both = torch.cat([lengths[:, None], toks], dim=1)
     else:
-        state = (_map(torch.clone, args[0]) if make_state is None
-                 else make_state(*args))
-        lengths, toks = batched_greedy_decode(
-            model.decode_step, state, batch,
-            model.cfg.max_decode_len, forced_len, device=model.device)
-    host = torch.cat([lengths[:, None], toks], dim=1).cpu().numpy()
+        with telemetry.span("repro_torch.nmt.prep"):
+            state = (_map(torch.clone, args[0]) if make_state is None
+                     else make_state(*args))
+        with telemetry.span("repro_torch.nmt.steps", steps=steps):
+            lengths, toks = batched_greedy_decode(
+                model.decode_step, state, batch,
+                model.cfg.max_decode_len, forced_len, device=model.device)
+        with telemetry.span("repro_torch.nmt.columns"):
+            both = torch.cat([lengths[:, None], toks], dim=1)
+    with telemetry.span("repro_torch.nmt.fetch"):
+        host = both.cpu().numpy()
     return host[:, 0], host[:, 1:]
 
 
@@ -533,7 +544,7 @@ def build_encode_states(model, encode_data):
     ``encode_states(src, src_mask=None)`` takes numpy arrays; the states
     stay on the model's device.
     """
-    from repro_torch.runtime import graphs
+    from repro_torch.runtime import graphs, telemetry
 
     def encode(src_t, mask_t):
         return (encode_data(src_t, mask_t),
@@ -541,14 +552,19 @@ def build_encode_states(model, encode_data):
 
     def encode_states(src, src_mask=None):
         with torch.inference_mode():
-            src_t, mask_t = _as_device_batch(model, src, src_mask)
+            with telemetry.span("repro_torch.nmt.upload"):
+                src_t, mask_t = _as_device_batch(model, src, src_mask)
             if graphs.active(model.device):
-                entry = graphs.owner_cache(model, NMT_GRAPH_KEYS).get(
-                    ("encode", graphs.signature((src_t, mask_t))),
-                    lambda: _EncodeGraph(model, encode, (src_t, mask_t)))
-                data, lens = entry.run((src_t, mask_t))
+                with telemetry.span("repro_torch.nmt.graphs"):
+                    entry = graphs.owner_cache(model, NMT_GRAPH_KEYS).get(
+                        ("encode", graphs.signature((src_t, mask_t))),
+                        lambda: _EncodeGraph(model, encode,
+                                             (src_t, mask_t)))
+                with telemetry.span("repro_torch.nmt.prep"):
+                    data, lens = entry.run((src_t, mask_t))
             else:
-                data, lens = encode(src_t, mask_t)
+                with telemetry.span("repro_torch.nmt.prep"):
+                    data, lens = encode(src_t, mask_t)
         return EncoderStates(data, lens)
 
     return encode_states
@@ -588,8 +604,11 @@ def build_decode_from_states(model, state_from_data):
     ``make_translate_batched()(src, mask)`` bit for bit on one device.
     Returns ``(lengths (B,), tokens (B, steps))`` numpy int32.
     """
+    from repro_torch.runtime import telemetry
+
     def decode_from_states(states: EncoderStates, forced_len=None):
-        states = states.to(model.device)
+        with telemetry.span("repro_torch.nmt.upload"):
+            states = states.to(model.device)
         with torch.inference_mode():
             return _decode_to_host(model, "decode", state_from_data,
                                    (states.data,), states.batch, forced_len)
@@ -620,9 +639,12 @@ def build_translate_batched(model, make_state, *, compiled: bool = True):
                                           forced_len)
         return translate_host
 
+    from repro_torch.runtime import telemetry
+
     def translate_batch(src, src_mask=None, forced_len=None):
         with torch.inference_mode():
-            src_t, mask_t = _as_device_batch(model, src, src_mask)
+            with telemetry.span("repro_torch.nmt.upload"):
+                src_t, mask_t = _as_device_batch(model, src, src_mask)
             return _decode_to_host(model, "translate", make_state,
                                    (src_t, mask_t), src_t.shape[0],
                                    forced_len)

@@ -110,6 +110,7 @@ from repro_torch.core.scheduler import (
     SchedTier,
 )
 from repro_torch.core.tx_estimator import LinkModel, TxEstimator
+from repro_torch.runtime import telemetry
 
 
 @dataclasses.dataclass
@@ -925,7 +926,19 @@ class CollaborativeEngine:
         Deadline feasibility still uses slot-start predictions — the
         queueing a member induces on its batch peers shows up in their
         measured latency, not in their admission test.
+
+        With :mod:`~repro_torch.runtime.telemetry`'s spans on, the call
+        is a ``repro_torch.engine.submit_batch`` span holding ``route``
+        (the decide/admit loop), ``batch`` (the batcher's work),
+        ``execute`` (one block's ``batched_executor`` call, a block of
+        its own, with ``rows``, ``width`` and the ``requests``' indices
+        in this call) and ``complete`` (a block's completion bookkeeping,
+        and the results' notification at the end).
         """
+        with telemetry.span("repro_torch.engine.submit_batch"):
+            return self._submit_batch(requests, now_s, deadline_s, tag)
+
+    def _submit_batch(self, requests, now_s, deadline_s, tag):
         now = self._now() if now_s is None else now_s
         if self._ft:
             # fault-tolerant batch serving degenerates to per-request
@@ -938,26 +951,30 @@ class CollaborativeEngine:
         groups: Dict[int, List[tuple]] = {}
         pending = [0] * len(self.tiers)
         split_ready = self.scheduler._split_ready()
-        for i, tokens in enumerate(requests):
-            tokens = np.asarray(tokens, np.int32)
-            n = int(len(tokens))
-            qd = [occ.queue_delay(now) for occ in self._occ]
-            d = (self.scheduler.decide_plan(n, now, qd) if split_ready
-                 else self.scheduler.decide(n, now, qd))
-            k = self._admit(d, now, deadline_s, pending)
-            if k < 0:
-                results[i] = self._shed(n, d, deadline_s)
-                continue
-            pending[k] += 1
-            if (d.plan is not None and d.plan.is_split
-                    and k == d.plan.decode_tier
-                    and self._has_space(d.plan.encode_tier, now, pending)):
-                # split members run per-request: their decode leg enters
-                # tier k's virtual queue at its own states-arrival time,
-                # which a shared batch block could not represent
-                results[i] = self._submit_split(tokens, d, now, deadline_s)
-                continue
-            groups.setdefault(k, []).append((i, tokens, d))
+        with telemetry.span("repro_torch.engine.route"):
+            for i, tokens in enumerate(requests):
+                tokens = np.asarray(tokens, np.int32)
+                n = int(len(tokens))
+                qd = [occ.queue_delay(now) for occ in self._occ]
+                d = (self.scheduler.decide_plan(n, now, qd) if split_ready
+                     else self.scheduler.decide(n, now, qd))
+                k = self._admit(d, now, deadline_s, pending)
+                if k < 0:
+                    results[i] = self._shed(n, d, deadline_s)
+                    continue
+                pending[k] += 1
+                if (d.plan is not None and d.plan.is_split
+                        and k == d.plan.decode_tier
+                        and self._has_space(d.plan.encode_tier, now,
+                                            pending)):
+                    # split members run per-request: their decode leg
+                    # enters tier k's virtual queue at its own
+                    # states-arrival time, which a shared batch block
+                    # could not represent
+                    results[i] = self._submit_split(tokens, d, now,
+                                                    deadline_s)
+                    continue
+                groups.setdefault(k, []).append((i, tokens, d))
 
         for k, members in groups.items():
             tier = self.tiers[k]
@@ -969,23 +986,37 @@ class CollaborativeEngine:
                         k, d, len(toks), m_out, exec_s, wait, service_s,
                         now, deadline_s)
                 continue
-            tb = TokenBatcher(max_batch=max(tier.batch_size, 1))
-            for j, (_, toks, _) in enumerate(members):
-                tb.add(j, toks)
-            while (nb := tb.next_batch()) is not None:
+            with telemetry.span("repro_torch.engine.batch"):
+                # keyed by the request's index in this call
+                tb = TokenBatcher(max_batch=max(tier.batch_size, 1))
+                member = {}
+                for i, toks, d in members:
+                    tb.add(i, toks)
+                    member[i] = (toks, d)
+            while True:
+                with telemetry.span("repro_torch.engine.batch"):
+                    nb = tb.next_batch()
+                if nb is None:
+                    break
                 ids, block = nb
-                lens = [len(members[j][1]) for j in ids]
-                t0 = time.perf_counter()
-                outs = tier.batched_executor(block, lens)
-                exec_s = time.perf_counter() - t0
-                wait, service_s = self._occ[k].assign_batch(
-                    now, exec_s, len(ids))
-                for j, (m_out, _) in zip(ids, outs):
-                    i, toks, d = members[j]
-                    results[i] = self._complete(
-                        k, d, len(toks), int(m_out), exec_s, wait,
-                        service_s, now, deadline_s)
-        return [self._notify(r, tag) for r in results]
+                lens = [len(member[i][0]) for i in ids]
+                with telemetry.span("repro_torch.engine.execute", block=True,
+                                    rows=len(ids), width=block.shape[1],
+                                    requests=ids) as run:
+                    t0 = time.perf_counter()
+                    outs = tier.batched_executor(block, lens)
+                    exec_s = time.perf_counter() - t0
+                with telemetry.span("repro_torch.engine.complete",
+                                    block=run.block):
+                    wait, service_s = self._occ[k].assign_batch(
+                        now, exec_s, len(ids))
+                    for i, (m_out, _) in zip(ids, outs):
+                        toks, d = member[i]
+                        results[i] = self._complete(
+                            k, d, len(toks), int(m_out), exec_s, wait,
+                            service_s, now, deadline_s)
+        with telemetry.span("repro_torch.engine.complete"):
+            return [self._notify(r, tag) for r in results]
 
     # ---------------------------------------------------- serve_continuous --
     def serve_continuous(self, requests: Sequence[np.ndarray], *,

@@ -49,6 +49,12 @@ it.
   path; a capture raises on a CPU tensor, and a failed capture or replay
   raises: nothing falls back to the eager loop.
 
+The counts live in :mod:`repro_torch.runtime.telemetry`'s counters
+(``graphs.captures``, ``graphs.replays``, ``graphs.capture_s`` and
+``graphs.keys_built``, each key a cache's ``build()`` made, again after
+an eviction); :func:`totals` is their view.  A capture, warm-up
+included, is a ``repro_torch.graphs.capture`` span.
+
 :func:`release_all` drops every graph of the process, as a process
 group's teardown needs (NCCL waits for the graphs that captured a
 communicator's collectives before destroying it).
@@ -73,11 +79,11 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.runtime import telemetry
 
 _EAGER = [0]               # depth of the active eager() contexts
 _STREAMS: dict = {}        # device index -> the capture stream
 _CACHES = weakref.WeakSet()   # every GraphCache, for release_all()
-TOTALS = {"captures": 0, "replays": 0, "capture_s": 0.0}
 
 
 @contextlib.contextmanager
@@ -103,12 +109,14 @@ def active(device) -> bool:
 
 def totals() -> Dict[str, float]:
     """Captures, replays and capture seconds of every cache since the
-    last :func:`reset_totals`."""
-    return dict(TOTALS)
+    last :func:`reset_totals` (telemetry's ``graphs.*`` counters)."""
+    return {"captures": int(telemetry.counter("graphs.captures")),
+            "replays": int(telemetry.counter("graphs.replays")),
+            "capture_s": float(telemetry.counter("graphs.capture_s"))}
 
 
 def reset_totals() -> None:
-    TOTALS.update(captures=0, replays=0, capture_s=0.0)
+    telemetry.zero("graphs.")
 
 
 def leaves(tree) -> List[torch.Tensor]:
@@ -185,7 +193,7 @@ class StepGraph:
         if times > 0:
             ops.add_launches(self.launches, times)
             self._cache.replays += times
-            TOTALS["replays"] += times
+            telemetry.count("graphs.replays", times)
 
     def release(self) -> None:
         self.graph.reset()
@@ -210,6 +218,7 @@ class GraphCache:
         self.captures = 0
         self.replays = 0
         self.capture_s = 0.0
+        self._building = None        # the key whose build() is running
         _CACHES.add(self)
 
     def __deepcopy__(self, memo):
@@ -241,7 +250,12 @@ class GraphCache:
             return entry
         while len(self._entries) >= self.max_keys:
             self._evict()
-        entry = build()
+        telemetry.count("graphs.keys_built")
+        outer, self._building = self._building, key
+        try:
+            entry = build()
+        finally:
+            self._building = outer
         self._entries[key] = entry
         return entry
 
@@ -262,13 +276,15 @@ class GraphCache:
         tensor, and on any failure of the warm-up or the capture."""
         tensors = leaves(static)
         self._check(tensors)
-        t0 = time.perf_counter()
-        saved = [t.clone() for t in tensors]
-        self._warm_up(fn, tensors)
-        for t, s in zip(tensors, saved):
-            t.copy_(s)
-        del saved
-        return self._capture(fn, tensors, t0)
+        with telemetry.span("repro_torch.graphs.capture",
+                            kind=key_kind(self._building)):
+            t0 = time.perf_counter()
+            saved = [t.clone() for t in tensors]
+            self._warm_up(fn, tensors)
+            for t, s in zip(tensors, saved):
+                t.copy_(s)
+            del saved
+            return self._capture(fn, tensors, t0)
 
     def run_and_capture(self, fn: Callable[[], object], static=(), *,
                         empty_cache: bool = False):
@@ -282,13 +298,15 @@ class GraphCache:
         outputs)."""
         tensors = leaves(static)
         self._check(tensors)
-        t0 = time.perf_counter()
-        if self.captures == 0:
-            result = self._warm_up(fn, tensors)
-            if empty_cache:
-                self._empty_cache()
-            return self._capture(fn, tensors, t0), result
-        graph = self._capture(fn, tensors, t0)
+        with telemetry.span("repro_torch.graphs.capture",
+                            kind=key_kind(self._building)):
+            t0 = time.perf_counter()
+            if self.captures == 0:
+                result = self._warm_up(fn, tensors)
+                if empty_cache:
+                    self._empty_cache()
+                return self._capture(fn, tensors, t0), result
+            graph = self._capture(fn, tensors, t0)
         graph.replay()
         return graph, graph.outputs
 
@@ -304,8 +322,8 @@ class GraphCache:
         seconds = time.perf_counter() - t0
         self.captures += 1
         self.capture_s += seconds
-        TOTALS["captures"] += 1
-        TOTALS["capture_s"] += seconds
+        telemetry.count("graphs.captures")
+        telemetry.count("graphs.capture_s", seconds)
         return StepGraph(graph, launches, outputs, self)
 
     # the three device-facing steps of a capture
@@ -362,6 +380,20 @@ class GraphCache:
             finally:
                 graph.capture_end()
         return graph, outputs
+
+
+def key_kind(key) -> str:
+    """What a cache key is for: a name, or a tuple's leading name
+    (``"translate"``, ``"decode"``, ``"encode"``, ``"generate"``,
+    ``"table"``), else its type's (a shape-keyed prefill, wave or train
+    step); ``"none"`` outside a ``build()``."""
+    if key is None:
+        return "none"
+    if isinstance(key, str):
+        return key
+    if isinstance(key, tuple) and key and isinstance(key[0], str):
+        return key[0]
+    return type(key).__name__
 
 
 def release(entry) -> None:
